@@ -1,0 +1,148 @@
+// K2: structured interface combine on a full-box hypercube base.
+//
+// Replaces homogenization_jl_tpu/ops/structured.py::combine_structured
+// (with and without constrain) and ::constrain_structured, which the JAX
+// package builds from shifted slice-adds that XLA lowers on the TPU.
+//
+// Every shared face/edge/corner DOF group belongs to a translation-invariant
+// orbit: its owners sit at fixed (cube offset D_j, simplex type t_j, local
+// cell l_j) positions relative to the group's lattice anchor p. The combine
+// writes, to every copy, the sum of all copies; the constraint zeroes the
+// groups whose anchor lies outside the orbit's interior box.
+//
+// Bound on the H100: memory. Each output reads the valence (1-6) copies of
+// its group and writes once; the tables are a few KB and stay in L1/L2.
+//
+// Design: one thread per (element, column). Head columns (< i0, element
+// interiors) pass through. For a tail column the thread decodes its cube c
+// and type t from the element index (type-major or cube-major order), looks
+// up its cell's orbit and offset D, takes the anchor p = c - D, and sums
+// x[p + D_j, t_j, col(l_j) + w] over the orbit's pattern IN PATTERN ORDER,
+// skipping owners outside the box (the zero padding of the JAX form). No
+// atomics and no [E, n] index tables: every copy of a group computes the
+// same sum in the same order, so all copies come out bitwise equal.
+//
+// Modes: 0 = combine, 1 = combine with the zero-Dirichlet fold,
+//        2 = constraint only (box test, no sum).
+//
+// Table layout (int32, built by ops/structured.py::flatten_structured):
+//   tab[0] = ncell, tab[1..7] = offsets of
+//   col_cell[tw], col_w[tw]          cell id and in-cell offset per tail col
+//   cell_orbit[ept*ncell]            orbit of cell (t, g)
+//   cell_delta[ept*ncell*3]          its offset D (padded to 3 axes)
+//   orb_pat[n_orb+1]                 CSR start of each orbit's pattern
+//   orb_box[n_orb*7]                 has_interior, int_lo[3], int_hi[3]
+//   pat[n_pat*5]                     D_j[3], t_j, first column of cell l_j
+
+#include <cuda_runtime.h>
+
+namespace {
+
+template <typename T>
+__global__ void structured_combine_kernel(const T* __restrict__ x,
+                                          T* __restrict__ out, long long total,
+                                          int n_local, int i0, int n, int d,
+                                          int ept, int type_major, int mode,
+                                          const int* __restrict__ tab) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const long long e = idx / n_local;
+  const int j = (int)(idx - e * n_local);
+  if (j < i0) {
+    out[idx] = x[idx];
+    return;
+  }
+  const int ncell = tab[0];
+  const int* col_cell = tab + tab[1];
+  const int* col_w = tab + tab[2];
+  const int* cell_orbit = tab + tab[3];
+  const int* cell_delta = tab + tab[4];
+  const int* orb_pat = tab + tab[5];
+  const int* orb_box = tab + tab[6];
+  const int* pat = tab + tab[7];
+
+  long long nd = 1;
+  for (int k = 0; k < d; ++k) nd *= n;
+  int t;
+  long long cube;
+  if (type_major) {
+    t = (int)(e / nd);
+    cube = e - (long long)t * nd;
+  } else {
+    t = (int)(e % ept);
+    cube = e / ept;
+  }
+  int c[3] = {0, 0, 0};
+  for (int k = d - 1; k >= 0; --k) {
+    c[k] = (int)(cube % n);
+    cube /= n;
+  }
+  const int jj = j - i0;
+  const int cell = t * ncell + col_cell[jj];
+  const int w = col_w[jj];
+  const int orb = cell_orbit[cell];
+  int p[3];
+  for (int k = 0; k < 3; ++k) p[k] = c[k] - cell_delta[cell * 3 + k];
+
+  if (mode != 0) {
+    const int* box = orb_box + orb * 7;
+    bool inside = box[0] != 0;
+    for (int k = 0; k < d; ++k)
+      inside = inside && p[k] >= box[1 + k] && p[k] <= box[4 + k];
+    if (!inside) {
+      out[idx] = T(0);
+      return;
+    }
+    if (mode == 2) {
+      out[idx] = x[idx];
+      return;
+    }
+  }
+
+  T acc = T(0);
+  for (int q = orb_pat[orb]; q < orb_pat[orb + 1]; ++q) {
+    const int* pq = pat + q * 5;
+    bool ok = true;
+    long long cb = 0;
+    for (int k = 0; k < d; ++k) {
+      const int s = p[k] + pq[k];
+      ok = ok && s >= 0 && s < n;
+      cb = cb * n + s;
+    }
+    if (!ok) continue;
+    const long long e2 = type_major ? (long long)pq[3] * nd + cb
+                                    : cb * ept + pq[3];
+    acc += x[e2 * n_local + pq[4] + w];
+  }
+  out[idx] = acc;
+}
+
+template <typename T>
+void launch_combine(const void* x, void* out, long long E, int n_local,
+                    int i0, int n, int d, int ept, int type_major, int mode,
+                    const void* tab, cudaStream_t stream) {
+  const long long total = E * n_local;
+  const int threads = 256;
+  const long long blocks = (total + threads - 1) / threads;
+  structured_combine_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), total, n_local, i0, n,
+      d, ept, type_major, mode, static_cast<const int*>(tab));
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = float64. out must not alias x for modes 0 and 1.
+// Returns cudaGetLastError().
+extern "C" int hz_structured_combine(int dtype, const void* x, void* out,
+                                     long long E, int n_local, int i0, int n,
+                                     int d, int ept, int type_major, int mode,
+                                     const void* tab, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    launch_combine<float>(x, out, E, n_local, i0, n, d, ept, type_major, mode,
+                          tab, s);
+  else
+    launch_combine<double>(x, out, E, n_local, i0, n, d, ept, type_major,
+                           mode, tab, s);
+  return static_cast<int>(cudaGetLastError());
+}

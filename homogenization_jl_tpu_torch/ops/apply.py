@@ -1,0 +1,88 @@
+"""Matrix-free element apply (device, PyTorch) — the hot kernel.
+
+Port of homogenization_jl_tpu/ops/apply.py. The reference matrices of one
+level are densified and stacked ([P, n, n], fem/local_operators.py), the
+per-element geometry coefficients are precomputed ([E, P]), and
+
+    y[e, m] = sum_p coeff[e, p] * sum_n stack[p, m, n] * x[e, n]
+
+``element_apply`` launches the hand-written CUDA kernel K1
+(csrc/element_apply.cu) for CUDA tensors and runs the plain PyTorch version
+for CPU tensors. Both run full FP32 (or FP64) arithmetic.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..csrc.build import LAUNCHES, launch
+
+_DTYPES = {torch.float32: 0, torch.float64: 1}
+
+
+def element_apply_plain(x, coeff, stack, b=None):
+    """Plain PyTorch form: accumulate the P pieces in order (the JAX
+    package's "unroll" form). With ``b``, returns b - A x."""
+    y = torch.zeros_like(x)
+    for p in range(stack.shape[0]):
+        y = y + coeff[:, p : p + 1] * torch.matmul(x, stack[p].T)
+    return y if b is None else b - y
+
+
+def _check(name, t, dtype, device, shape=None):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.device != device:
+        raise ValueError(f"{name}: device {t.device}, expected {device}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def element_apply(x, coeff, stack, b=None, out=None):
+    """y[e] = sum_p coeff[e, p] * (stack[p] @ x[e]); with ``b``, b - y.
+
+    x: [E, n], coeff: [E, P], stack: [P, n, n] (symmetric slices), b: [E, n]
+    or None; float32 or float64, all on one device and contiguous.
+    ``out`` receives the result and may be ``b`` itself (the in-place
+    residual update r -= A p); it must not be ``x``.
+    """
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"element_apply: unsupported dtype {x.dtype}")
+    if x.dim() != 2 or stack.dim() != 3 or coeff.dim() != 2:
+        raise ValueError("element_apply: expected x [E, n], coeff [E, P], stack [P, n, n]")
+    E, n = x.shape
+    P = stack.shape[0]
+    dev = x.device
+    _check("x", x, x.dtype, dev)
+    _check("coeff", coeff, x.dtype, dev, (E, P))
+    _check("stack", stack, x.dtype, dev, (P, n, n))
+    if b is not None:
+        _check("b", b, x.dtype, dev, (E, n))
+    if out is not None:
+        _check("out", out, x.dtype, dev, (E, n))
+        if out.data_ptr() == x.data_ptr():
+            raise ValueError("element_apply: out must not alias x")
+    if dev.type == "cpu":
+        y = element_apply_plain(x, coeff, stack, b)
+        return y if out is None else out.copy_(y)
+    if dev.type != "cuda":
+        raise ValueError(f"element_apply: unsupported device {dev}")
+    if out is None:
+        out = torch.empty_like(x)
+    LAUNCHES["element_apply"] += 1
+    launch(
+        "hz_element_apply", _DTYPES[x.dtype], x.data_ptr(), coeff.data_ptr(),
+        stack.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(),
+        E, n, P,
+    )
+    return out
+
+
+def mass_apply(x, mass):
+    """y[e] = Mhat @ x[e] with the symmetric reference mass matrix [n, n]
+    (plain PyTorch; not on the solver's path)."""
+    return torch.matmul(x, mass.T)
