@@ -6,17 +6,27 @@ on it. Phases (each prints one line; any failure raises, and the script
 then exits non-zero without the final line):
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
-  2. build K1/K2 with nvcc from csrc/ into build/kernels/, warm up K3;
+  2. build the CUDA kernels (K1, K2, K6, K7; one nvcc per source, started
+     together) from csrc/ into build/kernels/, warm up K3 (Triton);
   3. every kernel against its plain PyTorch version on the card, at the
-     main path's shapes (every level n = 4..969, E = 196,608), float32 and
-     float64; the kernel and plain times at the finest float32 shape;
-  4. a small float64 solve through the kernels against scipy's sparse
-     direct solve of the explicitly refined operator;
+     main path's shapes, float32 and float64: K1-K3 at every level (n =
+     4..969, E = 196,608); K6 on the 33^3 lattice of the type-major base;
+     K7 on the base's 786,432 -> 35,937 segment sum, the aux hierarchy's
+     cube-major 98,304 -> 4,913 one, and the aux transfers ([24576, 10]);
+     the kernel and plain times at the float32 shapes; the segment sum
+     bitwise equal on two launches;
+  4. small float64 solves through the kernels against scipy's sparse
+     direct solve of the explicitly refined operator: coarse="chol" on
+     hypercube(3, 4) and coarse="mg" on hypercube(3, 8), 3 levels each;
   5. the main path at full size: the 3D checkerboard on
      hypercube(3, 32, order="type"), 5 levels (190,513,152 DOFs), float32,
-     MultigridSolver(smoother="chebyshev", coarse="chol"),
-     solve(method="auto", tol=1e-4) = FMG start + V-cycle-preconditioned CG,
-     with every kernel's launch count over that solve;
+     MultigridSolver(smoother="chebyshev", coarse="mg",
+     coarse_mg_tol=5e-2), solve(method="auto", tol=1e-4) = FMG start +
+     V-cycle-preconditioned CG, as the JAX package's bench.py runs it: every
+     kernel's launch count over that solve, the coarse-PCG iterations per
+     coarse solve, the host syncs of a solve, and a second solve whose
+     history and solution must be bitwise equal to the first;
+  6. the same problem with coarse="chol" (the dense Cholesky coarse solve);
 then one JSON line with the kernels, and last the device JSON line.
 
 Usage: python3 chip_smoke.py            (one card, full size)
@@ -35,6 +45,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -55,6 +66,16 @@ KERNELS = {
         route="triton",
         source="homogenization_jl_tpu_torch/ops/chebyshev.py",
         replaces="homogenization_jl_tpu/solver/multigrid.py:727",
+    ),
+    "lattice_stencil": dict(
+        route="cuda",
+        source="homogenization_jl_tpu_torch/csrc/lattice_stencil.cu",
+        replaces="homogenization_jl_tpu/ops/stencil.py:148",
+    ),
+    "coarse_gather": dict(
+        route="cuda",
+        source="homogenization_jl_tpu_torch/csrc/coarse_gather.cu",
+        replaces="homogenization_jl_tpu/solver/multigrid.py:861",
     ),
 }
 
@@ -231,10 +252,124 @@ def check_kernels(solver, plan, coeff64, dev):
     return timing, report
 
 
+def check_coarse_kernels(solver, coeff64, dev):
+    """Phase 3, K6 and K7 at the main path's shapes (``solver`` is the
+    coarse="mg" main-path solver). Returns {kernel: (max_abs_err, ms,
+    plain_ms)} of the float32 entry the coarse loop calls most (K6 apply,
+    K7 segment sum) and a report of every entry."""
+    import torch
+
+    from homogenization_jl_tpu_torch.ops import interfaces as k_if
+    from homogenization_jl_tpu_torch.ops import stencil as k_st
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+    st = solver.lattice_stencil
+    check(st is not None, "the main-path base has no lattice stencil")
+    N = solver.n_base_nodes
+    E = coeff64.shape[0]
+    aux = solver.aux_solver
+    m = solver._interior_mask_N
+    report, timing = [], {}
+
+    def rel(got, ref, scale=None):
+        scale = ref.abs().max() if scale is None else scale
+        return float((got - ref).abs().max() / scale)
+
+    for dtype in (torch.float32, torch.float64):
+        f32 = dtype == torch.float32
+        tol = 2e-6 if f32 else 1e-13
+        name = str(dtype)[6:]
+        coeff = coeff64.to(dtype)
+        stack0 = solver.levels[0].stack.to(dtype)
+        u = torch.randn(N, generator=g, device=dev, dtype=dtype)
+        b = torch.randn(N, generator=g, device=dev, dtype=dtype)
+        y = torch.randn((E, 4), generator=g, device=dev, dtype=dtype)
+
+        # K6, all four entries
+        W_ref = k_st.lattice_weights_plain(coeff, stack0, st)
+        W = k_st.lattice_weights(coeff, stack0, st)
+        e_w = rel(W, W_ref)
+        check(e_w <= tol, f"K6 weights {name}: rel err {e_w}")
+        scale = k_st.lattice_apply_plain(u.abs(), W_ref.abs(), st).max()
+        ref = k_st.lattice_apply_plain(u, W_ref, st, m=m, b=b)
+        got = k_st.lattice_apply(u, W_ref, st, m=m, b=b)
+        e_a = rel(got, ref, scale)
+        check(e_a <= tol, f"K6 apply {name}: rel err {e_a}")
+        if f32:
+            timing["lattice_stencil"] = (
+                float((got - ref).abs().max()),
+                cuda_ms(lambda: k_st.lattice_apply(u, W_ref, st, m=m, b=b), 50),
+                cuda_ms(lambda: k_st.lattice_apply_plain(u, W_ref, st, m=m, b=b), 20),
+            )
+            t_w = (cuda_ms(lambda: k_st.lattice_weights(coeff, stack0, st), 20),
+                   cuda_ms(lambda: k_st.lattice_weights_plain(coeff, stack0, st), 5))
+        ref = k_st.lattice_assemble_plain(y, st)
+        got = k_st.lattice_assemble(y, st)
+        e_s = rel(got, ref)
+        check(e_s <= tol, f"K6 assemble {name}: rel err {e_s}")
+        asm_bitwise = torch.equal(got, ref)
+        dist_ok = torch.equal(k_st.lattice_distribute(u, st), k_st.lattice_distribute_plain(u, st))
+        check(dist_ok, f"K6 distribute {name} differs from the plain form")
+        if f32:
+            t_s = (cuda_ms(lambda: k_st.lattice_assemble(y, st), 50),
+                   cuda_ms(lambda: k_st.lattice_assemble_plain(y, st), 20))
+            t_d = (cuda_ms(lambda: k_st.lattice_distribute(u, st), 50),
+                   cuda_ms(lambda: k_st.lattice_distribute_plain(u, st), 20))
+
+        # K7: both segment sums (two launches bitwise equal), the gathers
+        seg = {}
+        for label, tab, vals in (
+            ("base", solver._asm, y),
+            ("aux", aux._asm, torch.randn(aux._asm.perm.numel(), generator=g,
+                                          device=dev, dtype=dtype)),
+        ):
+            ref = k_if.segment_sum_plain(vals, tab)
+            got = k_if.segment_sum(vals, tab)
+            again = k_if.segment_sum(vals, tab)
+            check(torch.equal(_bits(got), _bits(again)),
+                  f"K7 segment sum {label} {name}: two launches differ")
+            e = rel(got, ref)
+            check(e <= tol, f"K7 segment sum {label} {name}: rel err {e}")
+            seg[label] = dict(rel_err=e, bitwise_vs_plain=torch.equal(_bits(got), _bits(ref)))
+            if f32 and label == "base":
+                timing["coarse_gather"] = (
+                    float((got - ref).abs().max()),
+                    cuda_ms(lambda: k_if.segment_sum(vals, tab), 50),
+                    cuda_ms(lambda: k_if.segment_sum_plain(vals, tab), 20),
+                )
+        r_aux = torch.randn(aux.levels[-1].stack.shape[1] * aux.plan.base.nelements,
+                            generator=g, device=dev, dtype=dtype)
+        for label, src, idx, mask in (
+            ("node_map", u, solver._node_map, solver._aux_first_mask),
+            ("aux_first", r_aux, solver._aux_first_flat, m),
+            ("distribute", u, solver._base_idx, None),
+        ):
+            ok = torch.equal(k_if.gather_scale(src, idx, mask),
+                             k_if.gather_scale_plain(src, idx, mask))
+            check(ok, f"K7 gather {label} {name} differs from the plain form")
+        if f32:
+            t_g = (cuda_ms(lambda: k_if.gather_scale(u, solver._node_map,
+                                                     solver._aux_first_mask), 50),
+                   cuda_ms(lambda: k_if.gather_scale_plain(u, solver._node_map,
+                                                           solver._aux_first_mask), 20))
+        report.append(dict(
+            dtype=name, weights_rel=e_w, apply_rel=e_a, assemble_rel=e_s,
+            assemble_bitwise=asm_bitwise, segment_sum=seg,
+        ))
+        del W, W_ref, u, b, y, ref, got
+    report.append(dict(f32_ms={
+        "lattice_weights": t_w, "lattice_apply": timing["lattice_stencil"][1:],
+        "lattice_assemble": t_s, "lattice_distribute": t_d,
+        "segment_sum_base": timing["coarse_gather"][1:], "gather_node_map": t_g,
+    }, shapes=dict(lattice_nodes=N, elements=E, aux_node_map=list(solver._node_map.shape),
+                   aux_segments=aux._asm.n_seg, aux_values=aux._asm.perm.numel())))
+    return timing, report
+
+
 # --------------------------------------------------------------------- #
 # phase 4: small float64 solve against a sparse direct solve
 # --------------------------------------------------------------------- #
-def small_solve_error(hz, dev):
+def small_solve_error(hz, dev, n, coarse, **kw):
     import scipy.sparse.linalg as spl
     import torch
 
@@ -246,10 +381,10 @@ def small_solve_error(hz, dev):
         generate_conductivity,
     )
 
-    n, nlevels = 4, 3
+    nlevels = 3
     base, sigma, plan, b = problem(hz, n, nlevels, seed=1)
     solver = hz.MultigridSolver(plan, dtype=torch.float64, device=dev,
-                                smoother="chebyshev", coarse="chol")
+                                smoother="chebyshev", coarse=coarse, **kw)
     x, hist = solver.solve(torch.as_tensor(b, device=dev), sigma, 0.0, tol=1e-10)
     check(hist[-1] <= 1e-10, hist)
 
@@ -260,7 +395,9 @@ def small_solve_error(hz, dev):
     bf = load_vector(fine)
     ii = interior_nodes(fine)
     u = np.zeros(fine.nnodes)
-    u[ii] = spl.spsolve(A[np.ix_(ii, ii)].tocsc(), bf[ii])
+    A_int = A.tocsr()[ii][:, ii].tocsc()
+    A_int.eliminate_zeros()  # explicit zeros of the assembly slow the factorization ~100x
+    u[ii] = spl.splu(A_int, permc_spec="MMD_AT_PLUS_A").solve(bf[ii])
 
     # map the duplicated solution onto fine nodes by exact coordinates
     J, shift, _, _ = affine_maps(base)
@@ -355,12 +492,16 @@ def main(argv=None):
     say(2, nvcc_s=t_nvcc, triton_warmup_s=time.perf_counter() - t0 - t_nvcc,
         ptxas=ptxas)
 
-    # ---- host setup of the main path (used by phases 3 and 5) ----------
+    # ---- host setup of the main path (used by phases 3, 5 and 6) -------
     t0 = time.perf_counter()
     base, sigma, plan, b_np = problem(hz, args.n, 5, seed=0)
     t_plan = time.perf_counter() - t0
+    # the bench's default dense limit coarsens n = 32 once; a rehearsal size
+    # gets the limit that also coarsens it once (m = 1)
+    dense = {} if args.n == 32 else dict(coarse_mg_dense_limit=(args.n // 2 - 1) ** 3 + 1)
     solver = hz.MultigridSolver(plan, dtype=torch.float32, device=dev,
-                                smoother="chebyshev", coarse="chol")
+                                smoother="chebyshev", coarse="mg",
+                                coarse_mg_tol=5e-2, **dense)
     t_setup = time.perf_counter() - t0
     dofs = plan.base.nelements * plan.n_local(4)
 
@@ -369,60 +510,121 @@ def main(argv=None):
 
     coeff64 = torch.as_tensor(element_coefficients(base, sigma, 0.0), device=dev)
     timing, report = check_kernels(solver, plan, coeff64, dev)
+    timing_c, report_c = check_coarse_kernels(solver, coeff64, dev)
+    timing.update(timing_c)
     del coeff64
+    torch.cuda.empty_cache()
     kbuild.reset_launches()  # comparison launches do not count
-    say(3, ok=True, per_level=report,
-        finest_f32={k: dict(max_abs_err=v[0], ms=v[1], plain_ms=v[2])
-                    for k, v in timing.items()})
+    say(3, ok=True, per_level=report, coarse=report_c,
+        main_f32={k: dict(max_abs_err=v[0], ms=v[1], plain_ms=v[2])
+                  for k, v in timing.items()})
 
-    # ---- phase 4: small float64 solve vs scipy --------------------------
-    err, its = small_solve_error(hz, dev)
-    check(err <= 1e-7, f"small f64 solve: rel err {err} vs spsolve")
+    # ---- phase 4: small float64 solves vs scipy -------------------------
+    small = {}
+    for label, n_small, kw in (
+        ("chol", 4, dict(coarse="chol")),
+        # dense limit 30: coarsening depth 1, aux hierarchy on hypercube(3, 4)
+        ("mg", 8, dict(coarse="mg", coarse_mg_dense_limit=30)),
+    ):
+        err, its = small_solve_error(hz, dev, n_small, **kw)
+        check(err <= 1e-7, f"small f64 solve ({label}): rel err {err} vs spsolve")
+        small[label] = dict(n=n_small, rel_err_vs_spsolve=err, pcg_iters=its)
     kbuild.reset_launches()
-    say(4, ok=True, rel_err_vs_spsolve=err, pcg_iters=its)
+    say(4, ok=True, **small)
 
-    # ---- phase 5: the main path -----------------------------------------
+    # ---- phase 5: the main path (coarse="mg") ------------------------------
     b = torch.as_tensor(b_np, device=dev, dtype=torch.float32)
     del b_np
+
+    def solve_main(s):
+        return s.solve(b, sigma, 0.0, tol=1e-4, method="auto", max_cycles=30)
+
+    def iters_to(hist, tol):
+        return next((i - 1 for i in range(1, len(hist)) if hist[i] < tol), None)
+
+    def check_solve(label, x, hist, launches):
+        check(all(v > 0 for v in launches.values()), f"{label}: a kernel never ran: {launches}")
+        check(x.shape == b.shape and bool(torch.isfinite(x).all()), f"{label}: non-finite solution")
+        check(hist[-1] < 1e-4, f"{label}: relative residual {hist[-1]} >= 1e-4")
+        check(len(hist) - 2 <= 20, f"{label}: {len(hist) - 2} PCG iterations > 20")
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    solver.coarse_iterations.clear()
+    solver.host_syncs = 0
     kbuild.reset_launches()
     t0 = time.perf_counter()
-    x, hist = solver.solve(b, sigma, 0.0, tol=1e-4, method="auto", max_cycles=30)
+    x, hist = solve_main(solver)
     torch.cuda.synchronize()
     t_solve = time.perf_counter() - t0
     launches = dict(kbuild.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    check(all(v > 0 for v in launches.values()), f"a kernel never ran: {launches}")
-    check(x.shape == b.shape and bool(torch.isfinite(x).all()), "non-finite solution")
-    check(hist[-1] < 1e-4, f"relative residual {hist[-1]} >= 1e-4")
-    pcg_iters = len(hist) - 2
-    check(pcg_iters <= 20, f"{pcg_iters} PCG iterations > 20")
+    check_solve("coarse=mg", x, hist, launches)
+    cits = list(solver.coarse_iterations)
+    loop_syncs = solver.host_syncs
 
-    def iters_to(tol):
-        return next((i - 1 for i in range(1, len(hist)) if hist[i] < tol), None)
+    # the same solve again: bitwise equal history and solution; every
+    # synchronizing CUDA call of the solve is counted on this run
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            x2, hist2 = solve_main(solver)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    check(hist2 == hist, f"second solve: history differs: {hist2} vs {hist}")
+    check(torch.equal(_bits(x2), _bits(x)), "second solve: solution differs")
+    del x2
 
-    # timing of the cycle and of one PCG iteration (after the solve)
+    # timing of the cycle and of one PCG iteration (after the solves)
     coeff = solver.coefficients(sigma, 0.0)
-    chol = solver.coarse_setup(sigma, 0.0)
+    setup = solver.coarse_setup(sigma, 0.0)
     lam_max = solver.estimate_lambda_max(coeff)
     xv = torch.zeros_like(b)
     sec_vcycle = cuda_ms(
-        lambda: solver._vcycle_impl(xv, b, coeff, chol, lam_max), 5) / 1e3
-    state = list(solver._pcg_init_impl(torch.zeros_like(b), b, coeff, chol, lam_max))
+        lambda: solver._vcycle_impl(xv, b, coeff, setup, lam_max), 5) / 1e3
+    del xv
+    state = list(solver._pcg_init_impl(torch.zeros_like(b), b, coeff, setup, lam_max))
 
     def pcg_step():
-        state[:] = solver._pcg_step_impl(*state[:4], coeff, chol, lam_max)
+        state[:] = solver._pcg_step_impl(*state[:4], coeff, setup, lam_max, flexible=True)
 
     sec_iter = cuda_ms(pcg_step, 5) / 1e3
     if args.profile:
         profile_pcg_iteration(pcg_step, args.profile)
-    say(5, ok=True, dofs=dofs, history=hist, iters_to_1e3=iters_to(1e-3),
-        iters_to_1e4=iters_to(1e-4), solve_wall_s=t_solve,
-        sec_per_vcycle=sec_vcycle, sec_per_pcg_iter=sec_iter,
+    del state
+    say(5, ok=True, coarse="mg", dofs=dofs, history=hist,
+        iters_to_1e3=iters_to(hist, 1e-3), iters_to_1e4=iters_to(hist, 1e-4),
+        solve_wall_s=t_solve, sec_per_vcycle=sec_vcycle, sec_per_pcg_iter=sec_iter,
         vcycle_dof_per_s=dofs / sec_vcycle, pcg_dof_per_s=dofs / sec_iter,
-        max_memory_allocated=peak, host_plan_s=t_plan,
-        host_setup_s=t_setup, launches=launches, card=smi)
+        max_memory_allocated=peak, host_plan_s=t_plan, host_setup_s=t_setup,
+        coarse_solves=len(cits),
+        coarse_pcg_iters=dict(min=min(cits), mean=sum(cits) / len(cits), max=max(cits)),
+        coarse_loop_syncs=loop_syncs, sync_calls_per_solve=syncs,
+        second_solve_bitwise_equal=True, launches=launches, card=smi)
+
+    # ---- phase 6: the dense Cholesky coarse solve (coarse="chol") ----------
+    del solver, coeff, setup, x
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    solver_c = hz.MultigridSolver(plan, dtype=torch.float32, device=dev,
+                                  smoother="chebyshev", coarse="chol")
+    t_setup_c = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    xc, hist_c = solve_main(solver_c)
+    torch.cuda.synchronize()
+    t_solve_c = time.perf_counter() - t0
+    launches_c = {k: v for k, v in kbuild.LAUNCHES.items() if k != "lattice_stencil"}
+    check_solve("coarse=chol", xc, hist_c, launches_c)
+    say(6, ok=True, coarse="chol", n=args.n, history=hist_c,
+        iters_to_1e3=iters_to(hist_c, 1e-3), iters_to_1e4=iters_to(hist_c, 1e-4),
+        solve_wall_s=t_solve_c, host_solver_s=t_setup_c,
+        max_memory_allocated=torch.cuda.max_memory_allocated(), launches=dict(kbuild.LAUNCHES))
+    del solver_c, xc
 
     kernels = [
         dict(name=name, **meta, launches=launches[name],

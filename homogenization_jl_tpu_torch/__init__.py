@@ -11,9 +11,12 @@ Layer map (host precompute in NumPy, device compute in PyTorch):
   native/  — g++ host helper for plan construction (host copy)
   ops/     — grid plan (host copy) + device ops with their hand kernels:
              apply (K1, CUDA), structured combine (K2, CUDA),
-             chebyshev update (K3, Triton), transfer, interfaces
+             chebyshev update (K3, Triton), lattice stencil (K6, CUDA),
+             coarse gathers / segment sum (K7, CUDA, in interfaces),
+             transfer
   csrc/    — the CUDA sources and their nvcc build
-  solver/  — multigrid (structured, chebyshev, chol coarse; FMG + PCG)
+  solver/  — multigrid (structured, chebyshev; coarse chol / inv / cg / mg
+             with the aux hierarchy of coarse.py; FMG + PCG)
   models/  — checkerboard conductivity fields
 """
 

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
 On first use the sources are compiled by ``nvcc`` for Hopper
-(``-gencode arch=compute_90a,code=sm_90a``) into one shared library with a
-plain C interface under ``build/kernels/`` at the root of the checkout
-(listed in .gitignore), and loaded with ctypes. The library name carries a
+(``-gencode arch=compute_90a,code=sm_90a``), one ``nvcc`` process per source
+started together, and linked into one shared library with a plain C
+interface under ``build/kernels/`` at the root of the checkout (listed in
+.gitignore), and loaded with ctypes. The library name carries a
 hash of the sources, so an edited source is never served a stale build.
 Nothing here includes PyTorch's headers: a build takes seconds, not minutes.
 
@@ -21,7 +22,13 @@ import os
 import shutil
 import subprocess
 
-LAUNCHES = {"element_apply": 0, "structured_combine": 0, "chebyshev_update": 0}
+LAUNCHES = {
+    "element_apply": 0,
+    "structured_combine": 0,
+    "chebyshev_update": 0,
+    "lattice_stencil": 0,
+    "coarse_gather": 0,
+}
 
 _CSRC = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(
@@ -39,6 +46,18 @@ _SIGNATURES = {
     "hz_element_apply": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # dtype, x, out, E, n_local, i0, n, d, ept, type_major, mode, tab, stream
     "hz_structured_combine": [_I, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    # dtype, coeff, stack0, W, P, tab (host), stream
+    "hz_lattice_weights": [_I, _P, _P, _P, _I, _P, _P],
+    # dtype, u, W, m (or NULL), b (or NULL), out, tab, stream
+    "hz_lattice_apply": [_I, _P, _P, _P, _P, _P, _P, _P],
+    # dtype, y, out, tab, stream
+    "hz_lattice_assemble": [_I, _P, _P, _P, _P],
+    # dtype, u, out, tab, stream
+    "hz_lattice_distribute": [_I, _P, _P, _P, _P],
+    # dtype, itype (0 int32, 1 int64), vals, perm, start, out, n_seg, stream
+    "hz_segment_sum": [_I, _I, _P, _P, _P, _P, _L, _P],
+    # dtype, itype, src, idx, mask (or NULL), out, total, stream
+    "hz_gather_scale": [_I, _I, _P, _P, _P, _P, _L, _P],
 }
 
 
@@ -73,19 +92,36 @@ def kernels_lib() -> ctypes.CDLL:
     log = so[:-3] + ".log"
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
+        tag = f"{h.hexdigest()[:12]}.{os.getpid()}"
+        flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                 "-Xcompiler", "-fPIC"]
+        objs, procs = [], []
+        for src in srcs:
+            obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)[:-3]}.{tag}.o")
+            cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", obj, src]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        logs, failed = [], []
+        for cmd, proc in procs:
+            out, err = proc.communicate()
+            logs.append(" ".join(cmd) + "\n" + out + err)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-1]} (rc {proc.returncode}):\n{err[-4000:]}")
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", tmp, *srcs,
-        ]
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        if not failed:
+            cmd = [_nvcc(), *flags, "-shared", "-o", tmp, *objs]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+            if res.returncode != 0:
+                failed.append(f"link (rc {res.returncode}):\n{res.stderr[-4000:]}")
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
         with open(log, "w") as f:
-            f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (rc {res.returncode}):\n{res.stderr[-4000:]}"
-            )
+            f.write("\n".join(logs))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
         os.replace(tmp, so)
     if os.path.exists(log):
         with open(log) as f:

@@ -3,27 +3,46 @@
 Port of the main-path subset of homogenization_jl_tpu/solver/multigrid.py:
 the structured interface combine with the structured (mask-free) Dirichlet
 constraint, the Jacobi-preconditioned first-kind Chebyshev smoother, the
-dense Cholesky coarse solve, V-cycles, the FMG initializer, V-cycle-
-preconditioned CG and the one-call ``solve`` driver (``method="auto"`` =
-FMG start + PCG).
+coarse solves (``coarse=``):
+
+  * ``"chol"``: dense Cholesky of the interior base operator;
+  * ``"inv"``:  dense interior inverse, applied as one GEMV;
+  * ``"cg"``:   tolerance-stopped CG on the global base-node vector;
+  * ``"mg"``:   tolerance-stopped PCG on the global base-node vector,
+    preconditioned by Chebyshev smoothing on the exact level-0 operator
+    around one V-cycle of an auxiliary hierarchy on the coarsened box
+    (solver/coarse.py; the aux solver is a ``coarse="inv"`` instance of
+    this class);
+
+V-cycles, the FMG initializer, V-cycle-preconditioned CG (flexible beta for
+the tolerance-stopped coarse solves) and the one-call ``solve`` driver
+(``method="auto"`` = FMG start + PCG).
 
 Every device kernel on this path is a hand kernel on CUDA tensors:
   * K1 ``element_apply`` (ops/apply.py, CUDA C++);
   * K2 ``combine_structured`` / ``constrain_structured`` (ops/structured.py,
     CUDA C++);
-  * K3 ``chebyshev_update`` (ops/chebyshev.py, Triton).
+  * K3 ``chebyshev_update`` (ops/chebyshev.py, Triton), also the level-0
+    junction smoother of ``coarse="mg"``;
+  * K6 ``lattice_*`` (ops/stencil.py, CUDA C++): the level-0 operator of the
+    global-space coarse solves;
+  * K7 ``segment_sum`` / ``gather_scale`` (ops/interfaces.py, CUDA C++): the
+    local/global transfers of every coarse solve.
 Restriction/prolongation are ``torch.matmul`` (ops/transfer.py), dots are
-``torch.dot``, the coarse solve is ``torch.cholesky_solve`` — the JAX
-package leaves the same three to XLA and ``cho_solve``.
+``torch.dot``, the direct coarse solves ``torch.cholesky_solve`` and a
+``torch.mv`` with the inverse — the JAX package leaves the same to XLA and
+``cho_solve``.
 
 PyTorch runs eagerly: where the JAX package relies on dead-code elimination
 inside one jitted program (the post-smooth residual that no caller reads),
 this port skips the computation explicitly (``need_r``). State updates of
-the smoother and of PCG run in place.
+the smoother and of PCG run in place. The tolerance-stopped coarse loops
+(``lax.while_loop`` in JAX) are Python loops that read one device scalar
+per iteration (``host_syncs`` counts the reads).
 
 Not in this slice (raise on construction): the cg / cg_exact / chebyshev4
-smoothers, W-cycles, the inv / cg / mg coarse solves, the gather combine and
-the mask constraint, direction_dtype and mixed precision.
+smoothers, W-cycles, the gather combine and the mask constraint,
+direction_dtype and mixed precision.
 """
 
 from __future__ import annotations
@@ -38,7 +57,14 @@ from ..fem.local_operators import build_level_operators, element_coefficients
 from ..mesh.reference import prolongation_dense
 from ..ops.apply import element_apply
 from ..ops.chebyshev import chebyshev_update
-from ..ops.interfaces import apply_mask, copy_to_base, distribute
+from ..ops.interfaces import (
+    apply_mask,
+    build_segment_tables,
+    copy_to_base,
+    distribute,
+    gather_scale,
+    index_tensor,
+)
 from ..ops.plan import GridPlan
 from ..ops.structured import (
     build_structured_combine_auto,
@@ -47,9 +73,18 @@ from ..ops.structured import (
     detect_structured,
     flatten_structured,
 )
+from ..ops.stencil import (
+    build_lattice_stencil,
+    lattice_apply,
+    lattice_assemble,
+    lattice_distribute,
+    lattice_weights,
+)
 from ..ops.transfer import prolong_add, restrict
+from .coarse import build_coarse_geometry
 
 CHEBYSHEV_SMOOTHERS = ("chebyshev",)
+COARSE_SOLVES = ("chol", "inv", "cg", "mg")
 _PRECISIONS = (None, "default", "high", "highest")
 # safety margin on the Lanczos lambda_max estimate: underestimating lets
 # the Chebyshev polynomial amplify the top modes (the JAX package's value)
@@ -73,6 +108,18 @@ class LevelDevice:
     structured: object  # ops/structured.py::StructuredTables
 
 
+@dataclasses.dataclass
+class MGCoarseSetup:
+    """Per-(sigma, lam) payload of ``coarse="mg"`` (the JAX package's dict
+    minus the level tensors, which the aux solver owns)."""
+
+    coeff: torch.Tensor  # aux apply coefficients [E0, P]
+    inv: torch.Tensor  # aux interior inverse (its coarse="inv" payload)
+    lam_max: float  # aux Chebyshev bound
+    lam_max0: float  # junction Chebyshev bound (exact level-0 operator)
+    dinv: torch.Tensor  # [N] inverse assembled level-0 diagonal * interior mask
+
+
 class MultigridSolver:
     """Owns the device tensors of one (base mesh, nlevels) hierarchy.
 
@@ -94,10 +141,17 @@ class MultigridSolver:
         smoothing_steps: int = 3,
         coarse_smoothing_steps: int = 2,
         coarse: str = "chol",
+        coarse_cg_tol: float = 1e-12,
+        coarse_cg_maxiter: int = 500,
         combine: str = "auto",
         apply_precision=None,
         smoother: str = "chebyshev",
         cheb_ratio: float = 30.0,
+        coarse_mg_tol: float = 1e-8,
+        coarse_mg_maxiter: int = 40,
+        coarse_prec_cycles: int = 1,
+        coarse_prec_smooth: int = 2,
+        coarse_mg_dense_limit: int = 4000,
         constraint: str = "auto",
         smooth_precision=None,
         cycle: str = "V",
@@ -106,8 +160,8 @@ class MultigridSolver:
     ):
         if smoother not in CHEBYSHEV_SMOOTHERS:
             raise NotImplementedError(f"smoother={smoother!r} is not ported yet")
-        if coarse != "chol":
-            raise NotImplementedError(f"coarse={coarse!r} is not ported yet")
+        if coarse not in COARSE_SOLVES:
+            raise ValueError(f"coarse={coarse!r} not in {COARSE_SOLVES}")
         if cycle != "V":
             raise NotImplementedError("cycle='W' is not ported yet")
         if constraint != "auto":
@@ -126,6 +180,13 @@ class MultigridSolver:
         self.smoothing_steps = smoothing_steps
         self.coarse_smoothing_steps = coarse_smoothing_steps
         self.cheb_ratio = cheb_ratio
+        self.coarse_kind = coarse
+        self.coarse_cg_tol = coarse_cg_tol
+        self.coarse_cg_maxiter = coarse_cg_maxiter
+        self.coarse_mg_tol = coarse_mg_tol
+        self.coarse_mg_maxiter = coarse_mg_maxiter
+        self.coarse_prec_cycles = coarse_prec_cycles
+        self.coarse_prec_smooth = coarse_prec_smooth
         self._np_dtype = np.float32 if dtype == torch.float32 else np.float64
 
         det = detect_structured(plan.base)
@@ -162,13 +223,58 @@ class MultigridSolver:
                 )
             )
 
-        self.base_elements = tens(plan.base.elements, torch.int64)
-        self.n_base_nodes = plan.base.nnodes
-        self.interior_idx = tens(plan.interior_base_nodes, torch.int64)
+        base = plan.base
+        N = base.nnodes
+        self.n_base_nodes = N
+        ii = plan.interior_base_nodes
+        # level-0 transfer tables (kernel K7): the base element rows as an
+        # index table (distribute), their presorted segment sum (local
+        # contributions -> global nodes, the JAX _asm_perm/_asm_node), and
+        # for the direct coarse solves the interior gather plus the interior
+        # solution's way back to the duplicated layout in one gather
+        # (boundary nodes read an appended zero)
+        self._base_idx = index_tensor(base.elements, dev)
+        self._asm = build_segment_tables(base.elements, N, dev)
+        im = np.zeros(N, dtype=bool)
+        im[ii] = True
+        self._interior_mask_N = torch.as_tensor(im, device=dev)
+        pos = np.full(N, len(ii), dtype=np.int64)
+        pos[ii] = np.arange(len(ii))
+        self._int_idx = index_tensor(ii, dev)
+        self._int_dist = index_tensor(pos[base.elements], dev)
+        # on box bases the global-space coarse solves apply the level-0
+        # operator as a lattice stencil (kernel K6, ops/stencil.py)
+        self.lattice_stencil = build_lattice_stencil(base)
+
         self._dinv_key = None
         self._dinv = None
-        self._cheb_key = None
-        self._cheb_ab = None
+        self._lat_key = None
+        self._lat_W = None
+        self._cheb_ab = {}
+        # instrumentation of the tolerance-stopped coarse loops: iterations
+        # of each coarse solve, and device scalars read by the host
+        self.coarse_iterations: list[int] = []
+        self.host_syncs = 0
+
+        # base-mesh coarsening below level 0 (coarse="mg"): an auxiliary
+        # implicit hierarchy on the coarsened box preconditions PCG on the
+        # exact level-0 operator (solver/coarse.py)
+        self.coarse_geom = None
+        self.aux_solver = None
+        if coarse == "mg":
+            g = build_coarse_geometry(plan, dense_limit=coarse_mg_dense_limit)
+            if g is None:
+                raise ValueError(
+                    "coarse='mg' requires a full-box hypercube base mesh with an "
+                    "even cell count; use coarse='chol' or 'cg' otherwise"
+                )
+            self.coarse_geom = g
+            self.aux_solver = MultigridSolver(
+                g.plan, dtype=dtype, device=dev, smoother="chebyshev", coarse="inv"
+            )
+            self._node_map = index_tensor(g.node_map, dev)
+            self._aux_first_flat = index_tensor(g.aux_first_flat, dev)
+            self._aux_first_mask = torch.as_tensor(g.aux_first_mask != 0, device=dev)
 
     # ------------------------------------------------------------------ #
     # coefficient / coarse-operator setup (host precompute per field)
@@ -178,21 +284,67 @@ class MultigridSolver:
         c = element_coefficients(self.plan.base, sigma_el, lam, dtype=self._np_dtype)
         return torch.as_tensor(c, device=self.device)
 
+    def _interior_operator(self, sigma_el, lam: float):
+        """The dense f64 interior base operator, on the solver's device
+        (rows, then columns: scipy's fancy ``A[np.ix_(ii, ii)]`` is orders of
+        magnitude slower at a 36k-node base)."""
+        A = assemble_operator(self.plan.base, sigma_el, lam, dtype=np.float64).tocsr()
+        ii = self.plan.interior_base_nodes
+        return torch.as_tensor(A[ii][:, ii].toarray(), device=self.device)
+
     def coarse_cholesky(self, sigma_el, lam: float):
         """Cholesky factor of the interior coarse operator: the dense f64
         operator is assembled on the host, factored by
         ``torch.linalg.cholesky`` in f64 on the solver's device, and stored
         at the solver dtype (the JAX package factors in numpy; same math)."""
-        A = assemble_operator(self.plan.base, sigma_el, lam, dtype=np.float64)
-        ii = self.plan.interior_base_nodes
-        A_int = torch.as_tensor(A[np.ix_(ii, ii)].toarray(), device=self.device)
-        L = torch.linalg.cholesky(A_int)
-        del A_int
-        return L.to(self.dtype)
+        return torch.linalg.cholesky(self._interior_operator(sigma_el, lam)).to(self.dtype)
+
+    def coarse_inverse(self, sigma_el, lam: float):
+        """Dense inverse of the interior coarse operator, taken by
+        ``torch.linalg.inv`` in f64 on the solver's device and stored at the
+        solver dtype (the JAX package inverts in numpy; same math). Applying
+        it is one GEMV — the aux hierarchy's coarse solve."""
+        return torch.linalg.inv(self._interior_operator(sigma_el, lam)).to(self.dtype)
 
     def coarse_setup(self, sigma_el, lam: float):
-        """Per-(sigma, lam) coarse payload passed to the cycles: the factor."""
-        return self.coarse_cholesky(sigma_el, lam)
+        """Per-(sigma, lam) coarse payload passed to the cycles: the Cholesky
+        factor ("chol"), the interior inverse ("inv"), None ("cg"), or an
+        ``MGCoarseSetup`` ("mg": the aux hierarchy's coefficients, inverse
+        and Chebyshev bound, and the junction smoother's bound and inverse
+        diagonal on the exact level-0 operator)."""
+        if self.coarse_kind == "chol":
+            return self.coarse_cholesky(sigma_el, lam)
+        if self.coarse_kind == "inv":
+            return self.coarse_inverse(sigma_el, lam)
+        if self.coarse_kind == "cg":
+            return None
+        aux = self.aux_solver
+        sigma_aux = self.coarse_geom.average_sigma(sigma_el)
+        coeff_a = aux.coefficients(sigma_aux, lam)
+        inv_a = aux.coarse_setup(sigma_aux, lam)
+        lam_max = aux.estimate_lambda_max(coeff_a)
+        coeff0 = self.coefficients(sigma_el, lam)
+        lam_max0 = self.estimate_lambda_max(coeff0, k=0)
+        dinv_g = _inv_positive(self._diag_global(coeff0))
+        return self.mg_setup(coeff_a, inv_a, lam_max, lam_max0, dinv_g)
+
+    def mg_setup(self, coeff, inv, lam_max, lam_max0, dinv_g) -> MGCoarseSetup:
+        """The ``coarse="mg"`` payload from its parts (also the entry point
+        of interop.py, which carries the JAX package's parts across)."""
+        return MGCoarseSetup(
+            coeff=coeff, inv=inv, lam_max=float(lam_max), lam_max0=float(lam_max0),
+            dinv=dinv_g * self._interior_mask_N,
+        )
+
+    def _diag_global(self, coeff0):
+        """Assembled global diagonal of the level-0 operator, [N]."""
+        return self._to_global(torch.matmul(coeff0, self.levels[0].diag_ref))
+
+    def drop_caches(self) -> None:
+        """Forget the per-coefficient device caches (inverse diagonals,
+        lattice weights): needed after the level tensors are replaced."""
+        self._dinv_key = self._dinv = None
+        self._lat_key = self._lat_W = None
 
     # ------------------------------------------------------------------ #
     # building blocks
@@ -238,13 +390,16 @@ class MultigridSolver:
             self._dinv_key = coeff
         return self._dinv
 
-    def _cheb_coeffs(self, lam_max: float):
+    def _cheb_coeffs(self, lam_max: float, steps: int | None = None):
         """[steps, 2] device table of the Chebyshev (a, b) per step: row 0 is
         the first step (p = b z), row j-1 step j (p = a p + b z). Scalars
-        follow the JAX recurrence operation for operation."""
-        steps = max(self.smoothing_steps, self.coarse_smoothing_steps)
-        key = (float(lam_max), steps)
-        if self._cheb_key != key:
+        follow the JAX recurrence operation for operation. Cached by
+        (lam_max, steps): the V-cycle's smoother and the level-0 junction
+        smoother of coarse="mg" alternate between two keys."""
+        if steps is None:
+            steps = max(self.smoothing_steps, self.coarse_smoothing_steps)
+        key = (float(lam_max), int(steps))
+        if key not in self._cheb_ab:
             lam_max = float(lam_max)
             lam_min = lam_max / self.cheb_ratio
             theta = 0.5 * (lam_max + lam_min)
@@ -256,9 +411,62 @@ class MultigridSolver:
                 rho_new = 1.0 / (2.0 * sigma - rho)
                 rows.append((rho_new * rho, 2.0 * rho_new / delta))
                 rho = rho_new
-            self._cheb_ab = torch.tensor(rows, dtype=self.dtype, device=self.device)
-            self._cheb_key = key
-        return self._cheb_ab
+            if len(self._cheb_ab) >= 8:  # a new field per solve: stay bounded
+                self._cheb_ab.clear()
+            self._cheb_ab[key] = torch.tensor(rows, dtype=self.dtype, device=self.device)
+        return self._cheb_ab[key]
+
+    # ------------------------------------------------------------------ #
+    # level-0 global-space operators (coarse "cg" / "mg")
+    # ------------------------------------------------------------------ #
+    def _to_global(self, y):
+        """Sum duplicated-layout local contributions onto global base nodes:
+        [E, d+1] -> [N], the presorted segment sum (kernel K7)."""
+        return copy_to_base(y, self._asm)
+
+    def _lattice_weights(self, coeff):
+        """Stencil weights of the level-0 operator (kernel K6), computed
+        once per coefficient tensor (the JAX package rebuilds them in every
+        coarse solve, outside its while_loop)."""
+        if self._lat_key is not coeff:
+            self._lat_W = lattice_weights(coeff, self.levels[0].stack, self.lattice_stencil)
+            self._lat_key = coeff
+        return self._lat_W
+
+    def _level0_ops(self, coeff, m):
+        """(apply, to_global, distribute) for the global-space level-0
+        solves; ``apply(u, b=None)`` is m * (A u), or b - m * (A u). On box
+        bases: the lattice-stencil forms (K6); otherwise distribute + element
+        apply + segment sum (K7, K1)."""
+        st = self.lattice_stencil
+        if st is not None:
+            W = self._lattice_weights(coeff)
+            return (
+                lambda u, b=None: lattice_apply(u, W, st, m=m, b=b),
+                lambda y0: lattice_assemble(y0, st),
+                lambda u: lattice_distribute(u, st),
+            )
+        stack0 = self.levels[0].stack
+
+        def apply(u, b=None):
+            yd = element_apply(distribute(u, self._base_idx), coeff, stack0)
+            y = self._to_global(yd) * m
+            return y if b is None else b - y
+
+        return apply, self._to_global, lambda u: distribute(u, self._base_idx)
+
+    def _continue(self, rs, eps2, it, maxiter):
+        """The while_loop condition of the coarse loops: one device scalar
+        read by the host per iteration."""
+        if it >= maxiter:
+            return False
+        self.host_syncs += 1
+        return bool(rs > eps2)
+
+    def _eps2(self, tol, rs):
+        """tol**2 * (rs + 1e-300) in the state dtype on the device, as the
+        JAX expression (in float32, rs + 1e-300 rounds to rs)."""
+        return torch.tensor(tol, dtype=rs.dtype, device=rs.device) ** 2 * (rs + 1e-300)
 
     # ------------------------------------------------------------------ #
     # lambda_max estimate (D-inner-product Lanczos)
@@ -342,22 +550,134 @@ class MultigridSolver:
         self._apply_op(p, coeff, k, b=r_loc, out=r_loc)
         return x, r_loc
 
-    def _coarse_solve_chol(self, b0, chol):
-        """Direct coarse solve (reference: vcycle! k==1 branch,
-        src/multigrid.jl:74-93)."""
-        u = copy_to_base(b0, self.base_elements, self.n_base_nodes)
-        b_int = u[self.interior_idx]
-        sol_int = torch.cholesky_solve(b_int[:, None], chol)[:, 0]
-        sol = torch.zeros(self.n_base_nodes, dtype=b0.dtype, device=b0.device)
-        sol[self.interior_idx] = sol_int
-        return distribute(sol, self.base_elements)
+    def _coarse_solve(self, b0, coeff, setup):
+        """Level-0 solve of the V-cycle / FMG: [E, d+1] local rhs -> [E, d+1]
+        consistent solution, by the solver's ``coarse`` kind."""
+        kind = self.coarse_kind
+        if kind == "chol":
+            return self._coarse_solve_direct(
+                b0, lambda u: torch.cholesky_solve(u[:, None], setup)[:, 0]
+            )
+        if kind == "inv":
+            return self._coarse_solve_direct(b0, lambda u: torch.mv(setup, u))
+        if kind == "mg":
+            return self._coarse_solve_mg(b0, coeff, setup)
+        return self._coarse_solve_cg(b0, coeff)
+
+    def _coarse_solve_direct(self, b0, solve):
+        """Direct interior solve (reference: vcycle! k==1 branch,
+        src/multigrid.jl:74-93): assemble onto base nodes (K7 segment sum),
+        gather the interior (K7), solve, and gather the solution straight
+        back to the duplicated layout (K7; boundary nodes read the appended
+        zero)."""
+        u = copy_to_base(b0, self._asm)
+        sol = solve(gather_scale(u, self._int_idx))
+        return gather_scale(torch.cat((sol, sol.new_zeros(1))), self._int_dist)
+
+    def _coarse_solve_cg(self, b0, coeff):
+        """Matrix-free coarse solve: CG on the GLOBAL base-node vector to
+        ``coarse_cg_tol`` (JAX multigrid.py:884-917), one host read of the
+        stopping test per iteration."""
+        m = self._interior_mask_N
+        Aop, to_g, dist = self._level0_ops(coeff, m)
+        b = to_g(b0) * m
+        x = torch.zeros_like(b)
+        r = b
+        p = r
+        rs = self._vdot(r, r)
+        eps2 = self._eps2(self.coarse_cg_tol, rs)
+        it = 0
+        while self._continue(rs, eps2, it, self.coarse_cg_maxiter):
+            Ap = Aop(p)
+            alpha = self._safe_div(rs, self._vdot(p, Ap))
+            x = x + alpha * p
+            r = r - alpha * Ap
+            rs_new = self._vdot(r, r)
+            p = r + self._safe_div(rs_new, rs) * p
+            rs = rs_new
+            it += 1
+        self.coarse_iterations.append(it)
+        return dist(x)
+
+    def _coarse_solve_mg(self, b0, coeff, setup: MGCoarseSetup):
+        """Coarse solve via PCG on the exact level-0 operator in the GLOBAL
+        base-node space (JAX multigrid.py:945-1041), preconditioned by
+        Chebyshev junction smoothing on the exact operator around one aux-
+        hierarchy V-cycle (the sigma-averaged operator on the coarsened box);
+        stopped at ``coarse_mg_tol`` with one host read per iteration."""
+        m = self._interior_mask_N
+        Aop, to_g, dist = self._level0_ops(coeff, m)
+        aux = self.aux_solver
+        nu = self.coarse_prec_smooth
+        ab = self._cheb_coeffs(setup.lam_max0, nu) if nu > 0 else None
+
+        def aux_correct(r):
+            # global residual -> aux finest layout in local-contribution
+            # form (whole nodal value on the first aux copy) -> aux V-cycle
+            b_aux = gather_scale(r, self._node_map, self._aux_first_mask)
+            x_a = torch.zeros_like(b_aux)
+            for c in range(self.coarse_prec_cycles):
+                x_a, _ = aux._vcycle_impl(
+                    x_a, b_aux, setup.coeff, setup.inv, setup.lam_max,
+                    need_r=False, x_zero=c == 0,
+                )
+            # aux copies are interface-consistent: read any (the first)
+            return gather_scale(x_a, self._aux_first_flat, m)
+
+        def cheb(x, b, x_zero=False):
+            # Jacobi-preconditioned Chebyshev on the global vector (the
+            # recurrence of _smooth_chebyshev, kernel K3), x updated in
+            # place; r = b - A x is one K6 launch. With x == 0 the entry
+            # residual is b itself.
+            r = b if x_zero else Aop(x, b=b)
+            p = torch.empty_like(x)
+            chebyshev_update(x, p, r, setup.dinv, ab[0], first=True)
+            for j in range(2, nu + 1):
+                chebyshev_update(x, p, Aop(x, b=b), setup.dinv, ab[j - 1])
+            return x
+
+        def prec(r):
+            # one MG cycle at level 0: Chebyshev smoothing on the EXACT
+            # operator around the sigma-averaged aux correction (symmetric,
+            # linear -> an SPD preconditioner)
+            x1 = torch.zeros_like(r)
+            if nu > 0:
+                cheb(x1, r, x_zero=True)
+            x1 = x1 + aux_correct(Aop(x1, b=r))
+            if nu > 0:
+                cheb(x1, r)
+            return x1
+
+        b = to_g(b0) * m
+        x = torch.zeros_like(b)
+        r = b
+        z = prec(r)
+        p = z
+        rz = self._vdot(r, z)
+        rs = self._vdot(r, r)
+        eps2 = self._eps2(self.coarse_mg_tol, rs)
+        it = 0
+        while self._continue(rs, eps2, it, self.coarse_mg_maxiter):
+            Ap = Aop(p)
+            alpha = self._safe_div(rz, self._vdot(p, Ap))
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = prec(r)
+            rz_new = self._vdot(r, z)
+            p = z + self._safe_div(rz_new, rz) * p
+            rz = rz_new
+            rs = self._vdot(r, r)
+            it += 1
+        self.coarse_iterations.append(it)
+        return dist(x)
 
     def _vcycle_impl(
         self, x_top, b_top, coeff, chol, lam_max, top=None, need_r=True,
         x_zero=False,
     ):
-        """One V-cycle from level ``top``; x_top is updated in place.
-        Returns (x_top, r_finest) with r_finest the combined, constrained
+        """One V-cycle from level ``top``. The pre-smooth updates x_top in
+        place; the result is a new tensor (prolongation adds out of place):
+        returns (x, r_finest) with r_finest the combined, constrained
         residual after the post-smooth (None when ``need_r`` is False).
         ``x_zero``: x_top is known to be zero (the preconditioner cycles of
         PCG); every sub-top pre-smooth starts from zero anyway."""
@@ -367,32 +687,36 @@ class MultigridSolver:
         bs = [None] * self.nlevels
         xs[top], bs[top] = x_top, b_top
 
-        def descend(k):
-            if k == 0:
-                xs[0] = self._coarse_solve_chol(bs[0], chol)
-                return None
-            steps = self.smoothing_steps if k == top else self.coarse_smoothing_steps
-            x, r_local = self._smooth_chebyshev(
-                xs[k], bs[k], coeff, lam_max, k=k, steps=steps,
+        def steps(k):
+            return self.smoothing_steps if k == top else self.coarse_smoothing_steps
+
+        # the recursion of the JAX form as two loops: a self-referencing
+        # closure would be a reference cycle that keeps every level's
+        # buffers alive until Python's cycle collector runs (measured: the
+        # peak device memory grew by ~1 GB per PCG iteration at 190M DOFs)
+        for k in range(top, 0, -1):
+            xs[k], r_local = self._smooth_chebyshev(
+                xs[k], bs[k], coeff, lam_max, k=k, steps=steps(k),
                 x_zero=x_zero or k != top,
             )
             bs[k - 1] = restrict(r_local, self.levels[k].P_up)
             del r_local
             if k - 1 > 0:
                 xs[k - 1] = torch.zeros(
-                    (E, self.plan.n_local(k - 1)), dtype=x.dtype, device=x.device
+                    (E, self.plan.n_local(k - 1)), dtype=x_top.dtype, device=x_top.device
                 )
-            descend(k - 1)
-            x = prolong_add(x, xs[k - 1], self.levels[k].P_up)
-            xs[k - 1] = None
+        xs[0] = self._coarse_solve(bs[0], coeff, chol)
+        r_fine = None
+        for k in range(1, top + 1):
+            x = prolong_add(xs[k], xs[k - 1], self.levels[k].P_up)
+            xs[k - 1] = bs[k - 1] = None
             want = need_r and k == top
             x, r_local = self._smooth_chebyshev(
-                x, bs[k], coeff, lam_max, k=k, steps=steps, need_r=want
+                x, bs[k], coeff, lam_max, k=k, steps=steps(k), need_r=want
             )
             xs[k] = x
-            return self._combine_constrained(r_local, k) if want else None
-
-        r_fine = descend(top)
+            if want:
+                r_fine = self._combine_constrained(r_local, k)
         return xs[top], r_fine
 
     # ------------------------------------------------------------------ #
@@ -407,10 +731,18 @@ class MultigridSolver:
             torch.zeros(shape, dtype=self.dtype, device=self.device),
         )
 
-    def vcycle(self, x, b, coeff, chol, lam_max):
+    def vcycle(self, x, b, coeff, chol=None, lam_max=None):
         """One V-cycle: (x, b) -> (x, r_finest), both [E, n_local(finest)].
+        ``chol`` is ``coarse_setup(sigma, lam)`` (None for coarse="cg").
         ``x`` is not modified (the cycle runs on a copy)."""
+        self._check_setup(chol, lam_max)
         return self._vcycle_impl(x.clone(), b, coeff, chol, float(lam_max))
+
+    def _check_setup(self, chol, lam_max):
+        if chol is None and self.coarse_kind != "cg":
+            raise ValueError("pass coarse_setup(sigma, lam) as chol")
+        if lam_max is None:
+            raise ValueError("pass lam_max=estimate_lambda_max(coeff)")
 
     def _pcg_rnorm(self, r):
         """Exact first-copy residual norm from a local-form residual."""
@@ -427,38 +759,57 @@ class MultigridSolver:
         rz = self._vdot(z, r)
         return x, r, z, rz, self._pcg_rnorm(r)
 
-    def _pcg_step_impl(self, x, r, p, rz, coeff, chol, lam_max):
-        """One PCG iteration; x, r and p are updated in place. Exact global
-        dots without combines: p and z are interface-consistent, Ap and r
-        stay in local form (see the JAX method for the identity). The beta
-        is the classic one: with the direct coarse solve the V-cycle is a
-        fixed SPD operator (the JAX package's flexible beta serves its
-        tolerance-stopped coarse solves, not ported yet)."""
+    def _pcg_step_impl(self, x, r, p, rz, coeff, chol, lam_max, flexible=False):
+        """One PCG iteration; x and p are updated in place, and r too unless
+        ``flexible``. Exact global dots without combines: p and z are
+        interface-consistent, Ap and r stay in local form (see the JAX method
+        for the identity).
+
+        ``flexible``: the Polak-Ribiere beta (rz_new - <z, r_old>) / rz that
+        tolerates the mildly nonlinear preconditioner of a tolerance-stopped
+        coarse solve; otherwise the classic rz_new / rz. It needs r_old after
+        the V-cycle: the new residual goes to a new buffer and r_old lives
+        through the V-cycle in place of Ap (freed first), which keeps the
+        JAX package's arithmetic — the same peak memory as keeping Ap for
+        the algebraically equal -alpha <z, Ap>, and no extra copy pass."""
         top = self.nlevels - 1
         Ap = self._constrain(self._apply_op(p, coeff, top), top)
         alpha = self._safe_div(rz, self._vdot(p, Ap))
         x.addcmul_(p, alpha)
-        r.addcmul_(Ap, alpha, value=-1.0)
+        if flexible:
+            r_old, r = r, torch.addcmul(r, Ap, alpha, value=-1.0)
+        else:
+            r.addcmul_(Ap, alpha, value=-1.0)
         del Ap
         z, _ = self._vcycle_impl(
             torch.zeros_like(x), r, coeff, chol, lam_max, need_r=False, x_zero=True
         )
         rz_new = self._vdot(z, r)
-        p.mul_(self._safe_div(rz_new, rz)).add_(z)
+        num = rz_new - self._vdot(z, r_old) if flexible else rz_new
+        if flexible:
+            del r_old
+        p.mul_(self._safe_div(num, rz)).add_(z)
         return x, r, p, rz_new, self._pcg_rnorm(r)
 
-    def pcg(self, b, coeff, chol, lam_max, x=None, *, iters: int = 50,
-            tol: float = 0.0):
+    def pcg(self, b, coeff, chol=None, lam_max=None, x=None, *, iters: int = 50,
+            tol: float = 0.0, flexible: bool | None = None):
         """Solve A u = b by V-cycle-preconditioned CG; one V-cycle plus one
         fine-level apply per iteration. ``b`` is the local (duplicated-
-        contribution) rhs. Returns (x, history), history = exact first-copy
+        contribution) rhs. ``flexible`` (Polak-Ribiere beta) defaults to
+        True for the tolerance-stopped coarse solves ("cg", "mg") and False
+        for the direct ones. Returns (x, history), history = exact first-copy
         residual norms (index 0 = initial residual). ``x`` is not modified."""
+        self._check_setup(chol, lam_max)
+        if flexible is None:
+            flexible = self.coarse_kind not in ("chol", "inv")
         lam_max = float(lam_max)
         x = self.zero_states()[0] if x is None else x.clone()
         x, r, p, rz, rn = self._pcg_init_impl(x, b, coeff, chol, lam_max)
         history = [float(rn)]
         for _ in range(iters):
-            x, r, p, rz, rn = self._pcg_step_impl(x, r, p, rz, coeff, chol, lam_max)
+            x, r, p, rz, rn = self._pcg_step_impl(
+                x, r, p, rz, coeff, chol, lam_max, flexible=flexible
+            )
             history.append(float(rn))
             if tol and history[-1] <= tol * history[0]:
                 break
@@ -470,7 +821,7 @@ class MultigridSolver:
         bs[top] = b_top
         for k in range(top, 0, -1):
             bs[k - 1] = restrict(self._constrain(bs[k], k), self.levels[k].P_up)
-        x = self._coarse_solve_chol(bs[0], chol)
+        x = self._coarse_solve(bs[0], coeff, chol)
         r = None
         for k in range(1, top + 1):
             x = torch.matmul(x, self.levels[k].P_up.T)
@@ -481,12 +832,13 @@ class MultigridSolver:
                 )
         return x, r
 
-    def fmg(self, b, coeff, chol, lam_max, nu: int = 1):
+    def fmg(self, b, coeff, chol=None, lam_max=None, nu: int = 1):
         """Full-multigrid (F-cycle) initializer: restrict the rhs down the
         hierarchy, solve at the base, then ascend — prolong and run ``nu``
         V-cycles per level. Returns (x, r_finest) like ``vcycle``."""
         assert nu >= 1, "fmg needs at least one V-cycle per ascent level"
         assert self.nlevels >= 2, "fmg needs a hierarchy"
+        self._check_setup(chol, lam_max)
         return self._fmg_impl(b, coeff, chol, float(lam_max), int(nu))
 
     def solve(self, b, sigma_el, lam: float = 0.0, *, tol: float = 1e-8,

@@ -6,7 +6,9 @@ they skip at run time with a reason. Run them on the card with
 ``python -m pytest tests/test_torch_kernels.py -q``. Tolerances are those
 of chip_smoke.py's kernel phase: K1 relative norm error <= 1e-5 in float32
 (a 7n-term sum in another order) and 1e-12 in float64; K2 bitwise-equal
-copies and <= 1e-6 from the plain form; K3 <= 1e-6.
+copies and <= 1e-6 from the plain form; K3 <= 1e-6; K6 weights and apply
+<= 2e-6 (float32) / 1e-13 (float64) of their scale, distribute exact; K7
+gathers exact and the segment sum bitwise equal on two launches.
 
 The CPU tests check the wrappers' contract: CPU tensors take the plain path
 and count no launch; malformed inputs raise."""
@@ -20,6 +22,8 @@ from homogenization_jl_tpu_torch.fem.local_operators import build_level_operator
 from homogenization_jl_tpu_torch.mesh.grid import hypercube
 from homogenization_jl_tpu_torch.ops import apply as t_apply
 from homogenization_jl_tpu_torch.ops import chebyshev as t_cheb
+from homogenization_jl_tpu_torch.ops import interfaces as t_if
+from homogenization_jl_tpu_torch.ops import stencil as t_stencil
 from homogenization_jl_tpu_torch.ops import structured as t_st
 from homogenization_jl_tpu_torch.ops.plan import build_grid_plan
 
@@ -72,6 +76,17 @@ def test_cpu_tensors_take_plain_path_without_counting(plan):
     ab = torch.tensor([0.5, 2.0], dtype=x.dtype)
     t_cheb.chebyshev_update(x2, p, y, x.abs(), ab, first=True)
     assert torch.equal(p, 2.0 * (x.abs() * y))
+    st0 = t_stencil.build_lattice_stencil(plan.base)
+    c0 = torch.as_tensor(rng.uniform(0.5, 2.0, (E, ops[0].n_pieces)))
+    s0 = torch.as_tensor(ops[0].stack)
+    W = t_stencil.lattice_weights(c0, s0, st0)
+    assert torch.equal(W, t_stencil.lattice_weights_plain(c0, s0, st0))
+    u = torch.as_tensor(rng.standard_normal(plan.base.nnodes))
+    assert torch.equal(t_stencil.lattice_apply(u, W, st0), t_stencil.lattice_apply_plain(u, W, st0))
+    tab = t_if.build_segment_tables(plan.base.elements, plan.base.nnodes)
+    y0 = t_stencil.lattice_distribute(u, st0)
+    assert torch.equal(t_if.segment_sum(y0, tab), t_if.segment_sum_plain(y0, tab))
+    assert torch.equal(t_if.gather_scale(u, t_if.index_tensor(plan.base.elements)), y0)
     assert LAUNCHES == before
 
 
@@ -102,6 +117,30 @@ def test_wrappers_reject_malformed_inputs(plan):
         t_cheb.chebyshev_update(x, x.clone(), x.float(), x, torch.zeros(2, dtype=torch.float64))
     with pytest.raises(ValueError):
         t_cheb.chebyshev_update(x, x.clone(), x, x, torch.zeros(3, dtype=torch.float64))
+    st0 = t_stencil.build_lattice_stencil(plan.base)
+    N = plan.base.nnodes
+    u = torch.zeros(N, dtype=torch.float64)
+    W = torch.zeros((len(st0.deltas), N), dtype=torch.float64)
+    with pytest.raises(ValueError):
+        t_stencil.lattice_apply(u[:-1], W, st0)
+    with pytest.raises(TypeError):
+        t_stencil.lattice_apply(u.float(), W, st0)
+    with pytest.raises(TypeError):
+        t_stencil.lattice_apply(u, W, st0, m=torch.ones(N))  # mask must be bool
+    with pytest.raises(ValueError):
+        t_stencil.lattice_distribute(torch.zeros(2 * N, dtype=torch.float64)[::2], st0)
+    with pytest.raises(ValueError):
+        t_stencil.lattice_assemble(torch.zeros((E, 3), dtype=torch.float64), st0)
+    idx = t_if.index_tensor(plan.base.elements)
+    with pytest.raises(TypeError):
+        t_if.gather_scale(u, idx.to(torch.int16))
+    with pytest.raises(ValueError):
+        t_if.gather_scale(u, idx, torch.ones(idx.shape))  # mask must be bool
+    tab = t_if.build_segment_tables(plan.base.elements, N)
+    with pytest.raises(ValueError):
+        t_if.segment_sum(torch.zeros(5, dtype=torch.float64), tab)
+    with pytest.raises(ValueError):
+        t_if.build_segment_tables(plan.base.elements, N - 1)
 
 
 # --------------------------------------------------------------------- #
@@ -194,3 +233,78 @@ def test_chebyshev_update_kernel_matches_plain(cuda, dtype, first):
     assert LAUNCHES["chebyshev_update"] == n0 + 1
     assert (p - pr).abs().max() <= 1e-6 * pr.abs().max()
     assert (x - xr).abs().max() <= 1e-6 * xr.abs().max()
+
+
+# --------------------------------------------------------------------- #
+# K6 / K7 (the coarse solves)
+# --------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lattice_stencil_kernel_matches_plain(plan, cuda, dtype):
+    ops = build_level_operators(plan.reference)
+    st = t_stencil.build_lattice_stencil(plan.base)
+    rng = np.random.default_rng(5)
+    E, N = plan.base.nelements, plan.base.nnodes
+    tol = 2e-6 if dtype == torch.float32 else 1e-13
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(a, device=cuda).to(dt)
+
+    coeff = t(rng.uniform(0.5, 2.0, (E, ops[0].n_pieces)))
+    stack0 = t(ops[0].stack)
+    u, b = t(rng.standard_normal(N)), t(rng.standard_normal(N))
+    m = t(rng.random(N) < 0.8, torch.bool)
+    y = t(rng.standard_normal((E, plan.base.dim + 1)))
+    n0 = LAUNCHES["lattice_stencil"]
+    W = t_stencil.lattice_weights(coeff, stack0, st)
+    W_ref = t_stencil.lattice_weights_plain(coeff, stack0, st)
+    torch.cuda.synchronize()
+    assert (W - W_ref).abs().max() <= tol * W_ref.abs().max()
+    scale = t_stencil.lattice_apply_plain(u.abs(), W_ref.abs(), st).max()
+    for mm, bb in ((None, None), (m, None), (m, b)):
+        got = t_stencil.lattice_apply(u, W_ref, st, m=mm, b=bb)
+        ref = t_stencil.lattice_apply_plain(u, W_ref, st, m=mm, b=bb)
+        assert (got - ref).abs().max() <= tol * scale
+    ref = t_stencil.lattice_assemble_plain(y, st)
+    assert (t_stencil.lattice_assemble(y, st) - ref).abs().max() <= tol * ref.abs().max()
+    assert torch.equal(t_stencil.lattice_distribute(u, st), t_stencil.lattice_distribute_plain(u, st))
+    assert LAUNCHES["lattice_stencil"] == n0 + 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_coarse_gather_kernel_matches_plain(plan, cuda, dtype):
+    rng = np.random.default_rng(6)
+    E, N = plan.base.nelements, plan.base.nnodes
+    vals = torch.as_tensor(rng.standard_normal((E, plan.base.dim + 1)), device=cuda).to(dtype)
+    tab = t_if.build_segment_tables(plan.base.elements, N, cuda)
+    n0 = LAUNCHES["coarse_gather"]
+    got = t_if.segment_sum(vals, tab)
+    again = t_if.segment_sum(vals, tab)
+    ref = t_if.segment_sum_plain(vals, tab)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)  # deterministic: no atomics
+    assert (got - ref).abs().max() <= 1e-6 * ref.abs().max()
+    u = torch.as_tensor(rng.standard_normal(N), device=cuda).to(dtype)
+    for idx in (t_if.index_tensor(plan.base.elements, cuda),
+                torch.as_tensor(plan.base.elements, device=cuda, dtype=torch.int64)):
+        mask = torch.as_tensor(rng.random(idx.shape) < 0.5, device=cuda)
+        for mk in (None, mask):
+            assert torch.equal(t_if.gather_scale(u, idx, mk), t_if.gather_scale_plain(u, idx, mk))
+    assert LAUNCHES["coarse_gather"] == n0 + 6
+
+
+@pytest.mark.cuda
+def test_segment_sum_replaces_atomic_scatter(plan, cuda):
+    """copy_to_base on the card is reproducible bit for bit: fifty launches
+    of the segment sum on values of mixed magnitude give one result."""
+    rng = np.random.default_rng(7)
+    vals = torch.as_tensor(
+        rng.standard_normal((plan.base.nelements, plan.base.dim + 1))
+        * 10.0 ** rng.integers(-6, 7, (plan.base.nelements, plan.base.dim + 1)),
+        device=cuda, dtype=torch.float32,
+    )
+    tab = t_if.build_segment_tables(plan.base.elements, plan.base.nnodes, cuda)
+    first = t_if.copy_to_base(vals, tab)
+    for _ in range(50):
+        assert torch.equal(t_if.copy_to_base(vals, tab), first)

@@ -220,6 +220,9 @@ def test_port_never_imports_jax():
         "import homogenization_jl_tpu_torch.solver.multigrid\n"
         "import homogenization_jl_tpu_torch.interop\n"
         "import homogenization_jl_tpu_torch.ops.chebyshev\n"
+        "import homogenization_jl_tpu_torch.ops.stencil\n"
+        "import homogenization_jl_tpu_torch.ops.interfaces\n"
+        "import homogenization_jl_tpu_torch.solver.coarse\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'homogenization_jl_tpu' not in sys.modules\n"
     )
