@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (homogenization_jl_tpu_torch).
 
-Runs the port's main path on one NVIDIA card and checks every hand kernel
+Runs the port's main paths on one NVIDIA card and checks every hand kernel
 on it. Phases (each prints one line; any failure raises, and the script
 then exits non-zero without the final line):
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
-  2. build the CUDA kernels (K1, K2, K6, K7; one nvcc per source, started
-     together) from csrc/ into build/kernels/, warm up K3 (Triton);
+  2. build the CUDA kernels (K1, K2, K6, K7, K8, K9; one nvcc per source,
+     started together) from csrc/ into build/kernels/, warm up K3 (Triton);
   3. every kernel against its plain PyTorch version on the card, at the
      main path's shapes, float32 and float64: K1-K3 at every level (n =
      4..969, E = 196,608); K6 on the 33^3 lattice of the type-major base;
@@ -15,6 +15,16 @@ then exits non-zero without the final line):
      cube-major 98,304 -> 4,913 one, and the aux transfers ([24576, 10]);
      the kernel and plain times at the float32 shapes; the segment sum
      bitwise equal on two launches;
+ 3b. the driver's kernels against their plain versions, float32 and
+     float64: K9 (sigma integrals, all forms, both reference_quirk
+     branches) at E = 196,608, n = 969, bitwise equal on two launches; K8
+     (gather combine, with and without its mask) at the finest level of
+     the ordered 3D base ordered_hypercube(3, 16) (196,608 tets, n = 969)
+     and at every level of the 2D base of phase 8, bitwise equal to the
+     plain form with every copy of a shared DOF bitwise equal; the masked
+     K2 fold at n = 969, bitwise equal to the plain combine times the mask;
+     the time and bound of the main path's functions still to port (K4
+     restrict / prolong_add, K5 dot) at the finest float32 shape;
   4. small float64 solves through the kernels against scipy's sparse
      direct solve of the explicitly refined operator: coarse="chol" on
      hypercube(3, 4) and coarse="mg" on hypercube(3, 8), 3 levels each;
@@ -27,7 +37,21 @@ then exits non-zero without the final line):
      coarse solve, the host syncs of a solve, and a second solve whose
      history and solution must be bitwise equal to the first;
   6. the same problem with coarse="chol" (the dense Cholesky coarse solve);
-then one JSON line with the kernels, and last the device JSON line.
+  7. the flagship driver at full size, as scripts/run_flagship.py calls it:
+     checkerboard_homogenization(2, dim=3, refinements=4, geometry=
+     "lattice", float32, tolerance=1e-4, seed=7, coarse="mg", smoother=
+     "chebyshev", inner="pcg", coarse_mg_tol=5e-2): 190,513,152 DOFs, one
+     outer step; sigma within 1e-3 of the TPU record 1.2947696447 (7 PCG
+     iterations; ACCURACY.md) in at most 14 PCG iterations;
+  8. the 2D recurrence with a shrink, checkerboard_homogenization(5, dim=2,
+     refinements=4, float64, tolerance=1e-8, chebyshev, pcg, coarse="mg",
+     seed=3), with geometry="ordered" (the gather combine K8, the mask
+     constraint, a plan and solver per step) and "lattice" (the masked K2
+     fold, the masked coarse solve): two steps each (radius 56, then 55),
+     the two sigmas within 50 x tolerance;
+then one JSON line with the kernels (each kernel's launches on its path:
+K8 on phase 8's ordered run, the others on phase 7), and last the device
+JSON line.
 
 Usage: python3 chip_smoke.py            (one card, full size)
        python3 chip_smoke.py --n 16     (a smaller base, for rehearsals)
@@ -41,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -77,7 +102,69 @@ KERNELS = {
         source="homogenization_jl_tpu_torch/csrc/coarse_gather.cu",
         replaces="homogenization_jl_tpu/solver/multigrid.py:861",
     ),
+    "gather_combine": dict(
+        route="cuda",
+        source="homogenization_jl_tpu_torch/csrc/gather_combine.cu",
+        replaces="homogenization_jl_tpu/ops/interfaces.py:85",
+    ),
+    "integrals": dict(
+        route="cuda",
+        source="homogenization_jl_tpu_torch/csrc/integrals.cu",
+        replaces="homogenization_jl_tpu/models/checkerboard.py:188",
+    ),
 }
+# NVIDIA's data sheet for the H100 SXM:
+# float32 outside the tensor cores, and HBM bandwidth
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+# the JAX driver's flagship result on the TPU (ACCURACY.md, "Flagship
+# driver"): a check on the answer, not a yardstick of speed
+FLAGSHIP_SIGMA = 1.2947696447
+# scripts/run_flagship.py's call (phase 7) and phase 8's 2D recurrence
+FLAGSHIP = dict(n=2, dim=3, refinements=4)
+RECURRENCE_2D = dict(n=5, dim=2, refinements=4)
+# K8's 3D check: the ordered base with the flagship's element count
+ORDERED_3D_RADIUS = 16
+
+
+def bound(nbytes, flops):
+    """The least time the card could take: the larger of the bytes a
+    function must move over the HBM rate and its operations over the FP32
+    rate."""
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def entry(max_abs_err, ms, plain_ms, nbytes, flops, library_ms=None):
+    """One kernel's measured numbers and its bound."""
+    return dict(max_abs_err=float(max_abs_err), ms=ms, plain_ms=plain_ms,
+                **bound(nbytes, flops), library_ms=library_ms)
+
+
+def combine_adds(plan, k, E):
+    """Owner values a combine adds at level k: each output entry of a class
+    adds its group's valid owners."""
+    lay = plan.reference.layout[k]
+    lp = plan.levels[k]
+    total = 0
+    for tabs, width in ((lp.gather.face, lay.npf), (lp.gather.edge, lay.npe),
+                        (lp.gather.corner, 1)):
+        if tabs is None or width == 0:
+            continue
+        _, _, om, gmap = (np.asarray(a) for a in tabs)
+        total += int((om != 0).sum(axis=1)[gmap].sum()) * width
+    return total
+
+
+# the kernels each driven path must launch
+MAIN_PATH = ("element_apply", "structured_combine", "chebyshev_update", "lattice_stencil",
+             "coarse_gather")
+FLAGSHIP_PATH = MAIN_PATH + ("integrals",)
+ORDERED_2D_PATH = ("element_apply", "structured_combine", "chebyshev_update", "coarse_gather",
+                   "gather_combine", "integrals")
+LATTICE_2D_PATH = FLAGSHIP_PATH
 
 
 def check(cond, msg):
@@ -191,10 +278,12 @@ def check_kernels(solver, plan, coeff64, dev):
             check(rel <= tol, f"K1 level {k} {dtype}: rel err {rel} > {tol}")
             report["element_apply"].append((str(dtype)[6:], n, rel))
             if f32 and k == top:
-                timing["element_apply"] = (
-                    float((got - ref).abs().max()),
+                P = stack.shape[0]
+                timing["element_apply"] = entry(
+                    (got - ref).abs().max(),
                     cuda_ms(lambda: k_apply.element_apply(x, coeff, stack, b=b), 3),
                     cuda_ms(lambda: k_apply.element_apply_plain(x, coeff, stack, b=b), 3),
+                    nbytes=4 * (3 * E * n + E * P + P * n * n), flops=2 * E * n * n * P,
                 )
             del ref, got
 
@@ -219,10 +308,11 @@ def check_kernels(solver, plan, coeff64, dev):
             if f32 and k == top:
                 ref = k_st.combine_structured_plain(x, st, constrain=True)
                 got = k_st.combine_structured(x, st, constrain=True)
-                timing["structured_combine"] = (
-                    float((got - ref).abs().max()),
+                timing["structured_combine"] = entry(
+                    (got - ref).abs().max(),
                     cuda_ms(lambda: k_st.combine_structured(x, st, constrain=True), 10),
                     cuda_ms(lambda: k_st.combine_structured_plain(x, st, constrain=True), 3),
+                    nbytes=4 * 2 * E * n, flops=combine_adds(plan, k, E),
                 )
                 del ref, got
 
@@ -242,10 +332,12 @@ def check_kernels(solver, plan, coeff64, dev):
                     worst = max(worst, err)
             report["chebyshev_update"].append((str(dtype)[6:], n, worst))
             if f32 and k == top:
-                timing["chebyshev_update"] = (
-                    float((xk - xr).abs().max()),
+                # reads x, p, rc, dinv; writes x, p; 5 operations per entry
+                timing["chebyshev_update"] = entry(
+                    (xk - xr).abs().max(),
                     cuda_ms(lambda: k_cheb.chebyshev_update(xk, pk, rc, dinv, ab), 10),
                     cuda_ms(lambda: k_cheb.chebyshev_update_plain(xr, pr, rc, dinv, ab, False), 10),
+                    nbytes=4 * 6 * E * n, flops=5 * E * n,
                 )
             del x, b, dinv, xr, pr, xk, pk, rc
             torch.cuda.empty_cache()
@@ -296,11 +388,16 @@ def check_coarse_kernels(solver, coeff64, dev):
         e_a = rel(got, ref, scale)
         check(e_a <= tol, f"K6 apply {name}: rel err {e_a}")
         if f32:
-            timing["lattice_stencil"] = (
-                float((got - ref).abs().max()),
+            K = W_ref.shape[0]
+            A_csr = stencil_csr(W_ref, st)
+            timing["lattice_stencil"] = entry(
+                (got - ref).abs().max(),
                 cuda_ms(lambda: k_st.lattice_apply(u, W_ref, st, m=m, b=b), 50),
                 cuda_ms(lambda: k_st.lattice_apply_plain(u, W_ref, st, m=m, b=b), 20),
+                nbytes=4 * (K * N + 3 * N) + N, flops=2 * K * N + 2 * N,
+                library_ms=cuda_ms(lambda: torch.mv(A_csr, u), 50),
             )
+            del A_csr
             t_w = (cuda_ms(lambda: k_st.lattice_weights(coeff, stack0, st), 20),
                    cuda_ms(lambda: k_st.lattice_weights_plain(coeff, stack0, st), 5))
         ref = k_st.lattice_assemble_plain(y, st)
@@ -332,10 +429,15 @@ def check_coarse_kernels(solver, coeff64, dev):
             check(e <= tol, f"K7 segment sum {label} {name}: rel err {e}")
             seg[label] = dict(rel_err=e, bitwise_vs_plain=torch.equal(_bits(got), _bits(ref)))
             if f32 and label == "base":
-                timing["coarse_gather"] = (
-                    float((got - ref).abs().max()),
+                S = vals.numel()
+                keys = torch.as_tensor(solver.plan.base.elements.reshape(-1), device=dev)
+                timing["coarse_gather"] = entry(
+                    (got - ref).abs().max(),
                     cuda_ms(lambda: k_if.segment_sum(vals, tab), 50),
                     cuda_ms(lambda: k_if.segment_sum_plain(vals, tab), 20),
+                    nbytes=4 * (2 * S + 2 * tab.n_seg + 1), flops=S,
+                    library_ms=cuda_ms(lambda: torch.zeros(
+                        tab.n_seg, dtype=dtype, device=dev).index_add_(0, keys, vals.reshape(-1)), 50),
                 )
         r_aux = torch.randn(aux.levels[-1].stack.shape[1] * aux.plan.base.nelements,
                             generator=g, device=dev, dtype=dtype)
@@ -358,12 +460,191 @@ def check_coarse_kernels(solver, coeff64, dev):
         ))
         del W, W_ref, u, b, y, ref, got
     report.append(dict(f32_ms={
-        "lattice_weights": t_w, "lattice_apply": timing["lattice_stencil"][1:],
+        "lattice_weights": t_w, "lattice_apply": timing["lattice_stencil"]["ms"],
         "lattice_assemble": t_s, "lattice_distribute": t_d,
-        "segment_sum_base": timing["coarse_gather"][1:], "gather_node_map": t_g,
+        "segment_sum_base": timing["coarse_gather"]["ms"], "gather_node_map": t_g,
     }, shapes=dict(lattice_nodes=N, elements=E, aux_node_map=list(solver._node_map.shape),
                    aux_segments=aux._asm.n_seg, aux_values=aux._asm.perm.numel())))
     return timing, report
+
+
+def stencil_csr(W, st):
+    """The lattice stencil W [K, (n+1)^d] as a sparse CSR matrix on W's
+    device: row a, column a + delta_k, value W[k, a] (in-range neighbours),
+    the library yardstick of the K6 apply."""
+    import torch
+
+    n1 = st.n + 1
+    d = st.dim
+    idx = np.indices((n1,) * d).reshape(d, -1)
+    rows, cols, vals = [], [], []
+    Wn = W.cpu().numpy()
+    for k, delta in enumerate(st.deltas):
+        nb = idx + np.asarray(delta)[:, None]
+        ok = ((nb >= 0) & (nb < n1)).all(axis=0)
+        a = np.flatnonzero(ok)
+        col = np.ravel_multi_index(tuple(nb[:, ok]), (n1,) * d)
+        rows.append(a)
+        cols.append(col)
+        vals.append(Wn[k, a])
+    import scipy.sparse as sp
+
+    A = sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+                      shape=(n1**d, n1**d))
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(A.indptr, dtype=torch.int64), torch.as_tensor(A.indices, dtype=torch.int64),
+        torch.as_tensor(A.data, dtype=W.dtype), size=A.shape,
+    ).to(W.device)
+
+
+# --------------------------------------------------------------------- #
+# phase 3b: the driver's kernels (K9, K8, the masked K2 fold)
+# --------------------------------------------------------------------- #
+def check_driver_kernels(hz, solver, plan, dev):
+    """K9 at the flagship's finest shape, K8 on the ordered 3D base's finest
+    level and on every level of phase 8's 2D base, and the masked K2 fold
+    at n = 969. Returns ({kernel: entry}, report)."""
+    import torch
+
+    from homogenization_jl_tpu_torch.models.checkerboard import (
+        compute_boundary_layer,
+        compute_box_radius,
+        ordered_hypercube,
+    )
+    from homogenization_jl_tpu_torch.ops import integrals as k_int
+    from homogenization_jl_tpu_torch.ops import interfaces as k_if
+    from homogenization_jl_tpu_torch.ops import structured as k_st
+
+    rng = np.random.default_rng(77)
+    top = solver.nlevels - 1
+    E, n = plan.base.nelements, plan.n_local(top)
+    timing, report = {}, {}
+
+    # K9: every form, both quirk branches (modes FIRST_QUIRK and FIRST)
+    modes = {"terms": k_int.TERMS, "first_quirk": k_int.FIRST_QUIRK,
+             "first": k_int.FIRST, "area": k_int.AREA}
+    x_np = rng.random((E, n))
+    w_np = rng.standard_normal((E, n))
+    detJ_np = rng.uniform(0.5, 2.0, E)
+    mask_np = (rng.random(E) < 0.6).astype(np.float64)
+    for dtype in (torch.float32, torch.float64):
+        f32 = dtype == torch.float32
+        tol = 1e-5 if f32 else 1e-12
+
+        def t(a):
+            return torch.as_tensor(a).to(dtype).to(dev)
+
+        x, w, detJ, mask = t(x_np), t(w_np), t(detJ_np), t(mask_np)
+        mass = solver.levels[top].stack[-1].to(dtype).contiguous()
+        errs = {}
+        for label, mode in modes.items():
+            args = (None, None, None) if mode == k_int.AREA else (x, mass, w)
+            got = k_int.sigma_integral(mode, *args, detJ, mask)
+            again = k_int.sigma_integral(mode, *args, detJ, mask)
+            ref = k_int.sigma_integral_plain(mode, *args, detJ, mask)
+            absargs = (None, None, None) if mode == k_int.AREA else (x.abs(), mass.abs(), w.abs())
+            scale = float(k_int.sigma_integral_plain(mode, *absargs, detJ, mask))
+            check(torch.equal(_bits(got), _bits(again)), f"K9 {label} {dtype}: two launches differ")
+            err = abs(float(got) - float(ref)) / scale
+            check(err <= tol, f"K9 {label} {dtype}: rel err {err} > {tol}")
+            errs[label] = err
+            if f32 and label == "terms":
+                u = x + w
+                dm = detJ * mask
+                timing["integrals"] = entry(
+                    abs(float(got) - float(ref)),
+                    cuda_ms(lambda: k_int.sigma_integral(mode, x, mass, w, detJ, mask), 5),
+                    cuda_ms(lambda: k_int.sigma_integral_plain(mode, x, mass, w, detJ, mask), 3),
+                    nbytes=4 * (2 * E * n + n * n + 2 * E), flops=2 * E * n * n + 4 * E * n,
+                    library_ms=cuda_ms(lambda: torch.einsum("e,em,mn,en->", dm, u, mass, x), 3),
+                )
+                del u, dm
+        report[f"K9_{str(dtype)[6:]}"] = errs
+        del x, w, detJ, mask, ref, got, again
+    torch.cuda.empty_cache()
+
+    # masked K2 fold at the finest main-path level
+    st = solver.levels[top].structured
+    for dtype in (torch.float32, torch.float64):
+        x = torch.as_tensor(rng.standard_normal((E, n))).to(dtype).to(dev)
+        m = torch.as_tensor(rng.random((E, n)) < 0.8, device=dev)
+        got = k_st.combine_structured(x, st, mask=m)
+        ref = k_st.combine_structured_plain(x, st) * m
+        check(torch.equal(_bits(got), _bits(ref)), f"masked K2 {dtype}: differs from plain * mask")
+        if dtype == torch.float32:
+            report["K2_masked_f32_ms"] = dict(
+                ms=cuda_ms(lambda: k_st.combine_structured(x, st, mask=m), 10),
+                plain_ms=cuda_ms(lambda: k_st.combine_structured_plain(x, st) * m, 3))
+        del x, m, got, ref
+    torch.cuda.empty_cache()
+
+    # K8: the ordered 3D base's finest level, then every level of phase 8's
+    # 2D base
+    t0 = time.perf_counter()
+    mesh3, _, _ = ordered_hypercube(3, ORDERED_3D_RADIUS)
+    plan3 = hz.build_grid_plan(mesh3, FLAGSHIP["refinements"] + 1, slot_tables=False)
+    report["K8_ordered3d_plan_s"] = time.perf_counter() - t0
+    r = RECURRENCE_2D
+    mesh2, _, _ = ordered_hypercube(2, compute_box_radius(0, r["n"]) + compute_boundary_layer(1.0, r["n"]))
+    plan2 = hz.build_grid_plan(mesh2, r["refinements"] + 1, slot_tables=False)
+    cases = [("3d", plan3, plan3.nlevels - 1)] + [("2d", plan2, k) for k in range(plan2.nlevels)]
+    for label, pl, k in cases:
+        gt = k_if.build_gather_tables(pl, k, dev)
+        Ek, nk = pl.base.nelements, pl.n_local(k)
+        bm = torch.as_tensor(pl.levels[k].boundary_mask != 0, device=dev)
+        for dtype in (torch.float32, torch.float64):
+            x = torch.as_tensor(rng.standard_normal((Ek, nk))).to(dtype).to(dev)
+            for mk in (None, bm):
+                got = k_if.combine_gather_rows(x, gt, mask=mk)
+                ref = k_if.combine_gather_rows_plain(x, gt, mask=mk)
+                check(torch.equal(_bits(got), _bits(ref)),
+                      f"K8 {label} level {k} {dtype} mask={mk is not None}: differs from plain")
+                if mk is None:
+                    check(copies_bitwise_equal(got, pl, k), f"K8 {label} level {k}: copies differ")
+            if label == "3d" and dtype == torch.float32:
+                tab_bytes = sum(c.oe.numel() * 9 + c.gmap.numel() * 4 for c in gt.classes)
+                timing["gather_combine"] = entry(
+                    (got - ref).abs().max(),
+                    cuda_ms(lambda: k_if.combine_gather_rows(x, gt, mask=bm), 10),
+                    cuda_ms(lambda: k_if.combine_gather_rows_plain(x, gt, mask=bm), 3),
+                    nbytes=4 * 2 * Ek * nk + Ek * nk + tab_bytes, flops=combine_adds(pl, k, Ek),
+                )
+            del x, got, ref
+        report[f"K8_{label}_level{k}"] = dict(E=Ek, n=nk, classes=len(gt.classes))
+        del gt, bm
+    del plan3, plan2, mesh3, mesh2
+    torch.cuda.empty_cache()
+    return timing, report
+
+
+def rows_to_port(solver, plan, dev):
+    """The main path's device functions that are still plain PyTorch, K4
+    (restrict, prolong_add: a matrix product with the prolongation, counted
+    as the <= 2 nonzeros per fine row its sparse form needs) and K5 (the dot
+    of two finest vectors): their time at the finest float32 shape and their
+    bound. Returns {row: {plain_ms, bound_ms, bound_by}}."""
+    import torch
+
+    from homogenization_jl_tpu_torch.ops.transfer import prolong_add, restrict
+
+    top = solver.nlevels - 1
+    E, n, nc = plan.base.nelements, plan.n_local(top), plan.n_local(top - 1)
+    P = solver.levels[top].P_up
+    nnz = int((P != 0).sum())
+    g = torch.Generator(device=dev).manual_seed(5)
+    r = torch.randn((E, n), generator=g, device=dev, dtype=P.dtype)
+    xc = torch.randn((E, nc), generator=g, device=dev, dtype=P.dtype)
+    out = {
+        "K4_restrict": dict(plain_ms=cuda_ms(lambda: restrict(r, P), 10),
+                            **bound(4 * (E * n + E * nc), 2 * E * nnz)),
+        "K4_prolong_add": dict(plain_ms=cuda_ms(lambda: prolong_add(r, xc, P), 10),
+                               **bound(4 * (2 * E * n + E * nc), 2 * E * nnz + E * n)),
+        "K5_vdot": dict(plain_ms=cuda_ms(lambda: solver._vdot(r, r), 10),
+                        **bound(4 * E * n, 2 * E * n)),
+    }
+    del r, xc
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -450,6 +731,79 @@ def profile_pcg_iteration(step, out):
 
 
 # --------------------------------------------------------------------- #
+# phases 7 and 8: the homogenization driver
+# --------------------------------------------------------------------- #
+def flagship_driver(hz, kbuild, dev, timing, smi):
+    """Phase 7: scripts/run_flagship.py's call at full size on the card.
+    Returns the launches of the run."""
+    import torch
+
+    from homogenization_jl_tpu_torch.models.checkerboard import checkerboard_homogenization
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    sigma, trace = checkerboard_homogenization(
+        **FLAGSHIP, geometry="lattice", dtype=torch.float32, tolerance=1e-4,
+        seed=7, coarse="mg", smoother="chebyshev", inner="pcg",
+        solver_opts=dict(smooth_precision="high", coarse_mg_tol=5e-2),
+        return_trace=True, device=dev,
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kbuild.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(launches[k] > 0 for k in FLAGSHIP_PATH), f"flagship: a kernel never ran: {launches}")
+    check(math.isfinite(sigma), f"flagship: sigma {sigma}")
+    check(abs(sigma - FLAGSHIP_SIGMA) < 1e-3, f"flagship: sigma {sigma} vs {FLAGSHIP_SIGMA}")
+    its = sum(trace.cycles_per_step)
+    check(its <= 14, f"flagship: {its} PCG iterations > 14")
+    iters = [t for step in trace.iteration_seconds for t in step]
+    say(7, ok=True, sigma=sigma, sigma_steps=trace.sigma_steps,
+        cycles_per_step=trace.cycles_per_step, residuals=trace.residuals, wall_s=wall,
+        host_init_s=trace.init_seconds, step_setup_s=trace.setup_seconds,
+        sec_per_iteration=iters, sec_per_iteration_mean=sum(iters) / len(iters),
+        k9_ms_per_launch=timing["integrals"]["ms"], max_memory_allocated=peak,
+        sigma_minus_tpu_record=sigma - FLAGSHIP_SIGMA, launches=launches, card=smi)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def recurrence_2d(kbuild, dev):
+    """Phase 8: the 2D recurrence with a shrink in both geometries. Returns
+    {geometry: launches}."""
+    import torch
+
+    from homogenization_jl_tpu_torch.models.checkerboard import checkerboard_homogenization
+
+    out, sig, rep = {}, {}, {}
+    tol = 1e-8
+    for geometry, path in (("ordered", ORDERED_2D_PATH), ("lattice", LATTICE_2D_PATH)):
+        kbuild.reset_launches()
+        t0 = time.perf_counter()
+        sigma, trace = checkerboard_homogenization(
+            **RECURRENCE_2D, dtype=torch.float64, tolerance=tol,
+            smoother="chebyshev", inner="pcg", coarse="mg", seed=3, geometry=geometry,
+            return_trace=True, device=dev,
+        )
+        torch.cuda.synchronize()
+        out[geometry] = dict(kbuild.LAUNCHES)
+        check(all(out[geometry][k] > 0 for k in path),
+              f"2D {geometry}: a kernel never ran: {out[geometry]}")
+        check(len(trace.sigma_steps) == 2, f"2D {geometry}: {len(trace.sigma_steps)} steps, expected 2")
+        check(math.isfinite(sigma), f"2D {geometry}: sigma {sigma}")
+        sig[geometry] = sigma
+        rep[geometry] = dict(sigma=sigma, sigma_steps=trace.sigma_steps,
+                             cycles_per_step=trace.cycles_per_step, residuals=trace.residuals,
+                             wall_s=time.perf_counter() - t0, launches=out[geometry])
+    diff = abs(sig["ordered"] - sig["lattice"])
+    check(diff < 50 * tol, f"2D: ordered {sig['ordered']} vs lattice {sig['lattice']}")
+    say(8, ok=True, sigma_diff=diff, **rep)
+    return out
+
+
+# --------------------------------------------------------------------- #
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=32, help="cubes per axis of the base")
@@ -515,9 +869,13 @@ def main(argv=None):
     del coeff64
     torch.cuda.empty_cache()
     kbuild.reset_launches()  # comparison launches do not count
-    say(3, ok=True, per_level=report, coarse=report_c,
-        main_f32={k: dict(max_abs_err=v[0], ms=v[1], plain_ms=v[2])
-                  for k, v in timing.items()})
+    say(3, ok=True, per_level=report, coarse=report_c, main_f32=timing)
+    timing_d, report_d = check_driver_kernels(hz, solver, plan, dev)
+    timing.update(timing_d)
+    kbuild.reset_launches()
+    say("3b", ok=True, report=report_d,
+        f32={k: timing[k] for k in ("integrals", "gather_combine")},
+        to_port=rows_to_port(solver, plan, dev))
 
     # ---- phase 4: small float64 solves vs scipy -------------------------
     small = {}
@@ -542,8 +900,8 @@ def main(argv=None):
     def iters_to(hist, tol):
         return next((i - 1 for i in range(1, len(hist)) if hist[i] < tol), None)
 
-    def check_solve(label, x, hist, launches):
-        check(all(v > 0 for v in launches.values()), f"{label}: a kernel never ran: {launches}")
+    def check_solve(label, x, hist, launches, path):
+        check(all(launches[k] > 0 for k in path), f"{label}: a kernel never ran: {launches}")
         check(x.shape == b.shape and bool(torch.isfinite(x).all()), f"{label}: non-finite solution")
         check(hist[-1] < 1e-4, f"{label}: relative residual {hist[-1]} >= 1e-4")
         check(len(hist) - 2 <= 20, f"{label}: {len(hist) - 2} PCG iterations > 20")
@@ -559,7 +917,7 @@ def main(argv=None):
     t_solve = time.perf_counter() - t0
     launches = dict(kbuild.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    check_solve("coarse=mg", x, hist, launches)
+    check_solve("coarse=mg", x, hist, launches, MAIN_PATH)
     cits = list(solver.coarse_iterations)
     loop_syncs = solver.host_syncs
 
@@ -618,18 +976,26 @@ def main(argv=None):
     xc, hist_c = solve_main(solver_c)
     torch.cuda.synchronize()
     t_solve_c = time.perf_counter() - t0
-    launches_c = {k: v for k, v in kbuild.LAUNCHES.items() if k != "lattice_stencil"}
-    check_solve("coarse=chol", xc, hist_c, launches_c)
+    launches_c = dict(kbuild.LAUNCHES)
+    check_solve("coarse=chol", xc, hist_c, launches_c,
+                [k for k in MAIN_PATH if k != "lattice_stencil"])
     say(6, ok=True, coarse="chol", n=args.n, history=hist_c,
         iters_to_1e3=iters_to(hist_c, 1e-3), iters_to_1e4=iters_to(hist_c, 1e-4),
         solve_wall_s=t_solve_c, host_solver_s=t_setup_c,
         max_memory_allocated=torch.cuda.max_memory_allocated(), launches=dict(kbuild.LAUNCHES))
     del solver_c, xc
+    torch.cuda.empty_cache()
 
+    # ---- phase 7: the flagship driver at full size ------------------------
+    launches_f = flagship_driver(hz, kbuild, dev, timing, smi)
+
+    # ---- phase 8: the 2D recurrence with a shrink -------------------------
+    launches_2d = recurrence_2d(kbuild, dev)
+
+    path_launches = {name: launches_f[name] for name in KERNELS}
+    path_launches["gather_combine"] = launches_2d["ordered"]["gather_combine"]
     kernels = [
-        dict(name=name, **meta, launches=launches[name],
-             max_abs_err=timing[name][0], ms=timing[name][1],
-             plain_ms=timing[name][2])
+        dict(name=name, **meta, launches=path_launches[name], **timing[name])
         for name, meta in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -28,6 +28,8 @@ LAUNCHES = {
     "chebyshev_update": 0,
     "lattice_stencil": 0,
     "coarse_gather": 0,
+    "gather_combine": 0,
+    "integrals": 0,
 }
 
 _CSRC = os.path.dirname(os.path.abspath(__file__))
@@ -40,12 +42,14 @@ BUILD_LOG = ""
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 # C entry points: name -> argtypes (every entry returns cudaGetLastError())
 _SIGNATURES = {
     # dtype(0 f32, 1 f64), x, coeff, stack, b (or NULL), out, E, n, P, stream
     "hz_element_apply": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # dtype, x, out, E, n_local, i0, n, d, ept, type_major, mode, tab, stream
-    "hz_structured_combine": [_I, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    # dtype, x, out, mask (or NULL), E, n_local, i0, n, d, ept, type_major,
+    # mode, tab, stream
+    "hz_structured_combine": [_I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     # dtype, coeff, stack0, W, P, tab (host), stream
     "hz_lattice_weights": [_I, _P, _P, _P, _I, _P, _P],
     # dtype, u, W, m (or NULL), b (or NULL), out, tab, stream
@@ -58,6 +62,11 @@ _SIGNATURES = {
     "hz_segment_sum": [_I, _I, _P, _P, _P, _P, _L, _P],
     # dtype, itype, src, idx, mask (or NULL), out, total, stream
     "hz_gather_scale": [_I, _I, _P, _P, _P, _P, _L, _P],
+    # dtype, x, out, mask (or NULL), E, n_local, i0, ncls, classes (host), stream
+    "hz_gather_combine": [_I, _P, _P, _P, _L, _I, _I, _I, _P, _P],
+    # dtype, mode, x, M, w, detJ, mask, partA, partB, blocksum, out, E, n,
+    # ntile, scale, stream
+    "hz_integrals": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _P],
 }
 
 

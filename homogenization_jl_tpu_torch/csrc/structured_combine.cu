@@ -24,6 +24,9 @@
 //
 // Modes: 0 = combine, 1 = combine with the zero-Dirichlet fold,
 //        2 = constraint only (box test, no sum).
+// Optional bool mask [E, n_local] (mode 0 only): the store multiplies by it,
+// so combine-then-mask-constraint (the per-step Dirichlet masks of the
+// driver's lattice geometry) stays one pass. Multiplying by 0/1 is exact.
 //
 // Table layout (int32, built by ops/structured.py::flatten_structured):
 //   tab[0] = ncell, tab[1..7] = offsets of
@@ -40,7 +43,9 @@ namespace {
 
 template <typename T>
 __global__ void structured_combine_kernel(const T* __restrict__ x,
-                                          T* __restrict__ out, long long total,
+                                          T* __restrict__ out,
+                                          const bool* __restrict__ mask,
+                                          long long total,
                                           int n_local, int i0, int n, int d,
                                           int ept, int type_major, int mode,
                                           const int* __restrict__ tab) {
@@ -49,7 +54,7 @@ __global__ void structured_combine_kernel(const T* __restrict__ x,
   const long long e = idx / n_local;
   const int j = (int)(idx - e * n_local);
   if (j < i0) {
-    out[idx] = x[idx];
+    out[idx] = mask ? x[idx] * T(mask[idx]) : x[idx];
     return;
   }
   const int ncell = tab[0];
@@ -114,35 +119,37 @@ __global__ void structured_combine_kernel(const T* __restrict__ x,
                                     : cb * ept + pq[3];
     acc += x[e2 * n_local + pq[4] + w];
   }
-  out[idx] = acc;
+  out[idx] = mask ? acc * T(mask[idx]) : acc;
 }
 
 template <typename T>
-void launch_combine(const void* x, void* out, long long E, int n_local,
-                    int i0, int n, int d, int ept, int type_major, int mode,
-                    const void* tab, cudaStream_t stream) {
+void launch_combine(const void* x, void* out, const void* mask, long long E,
+                    int n_local, int i0, int n, int d, int ept, int type_major,
+                    int mode, const void* tab, cudaStream_t stream) {
   const long long total = E * n_local;
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
   structured_combine_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), total, n_local, i0, n,
-      d, ept, type_major, mode, static_cast<const int*>(tab));
+      static_cast<const T*>(x), static_cast<T*>(out),
+      static_cast<const bool*>(mask), total, n_local, i0, n, d, ept,
+      type_major, mode, static_cast<const int*>(tab));
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = float64. out must not alias x for modes 0 and 1.
-// Returns cudaGetLastError().
+// mask (bool, or NULL) is read in mode 0 only. Returns cudaGetLastError().
 extern "C" int hz_structured_combine(int dtype, const void* x, void* out,
-                                     long long E, int n_local, int i0, int n,
-                                     int d, int ept, int type_major, int mode,
+                                     const void* mask, long long E,
+                                     int n_local, int i0, int n, int d,
+                                     int ept, int type_major, int mode,
                                      const void* tab, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    launch_combine<float>(x, out, E, n_local, i0, n, d, ept, type_major, mode,
-                          tab, s);
+    launch_combine<float>(x, out, mask, E, n_local, i0, n, d, ept, type_major,
+                          mode, tab, s);
   else
-    launch_combine<double>(x, out, E, n_local, i0, n, d, ept, type_major,
-                           mode, tab, s);
+    launch_combine<double>(x, out, mask, E, n_local, i0, n, d, ept,
+                           type_major, mode, tab, s);
   return static_cast<int>(cudaGetLastError());
 }

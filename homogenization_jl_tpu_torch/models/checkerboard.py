@@ -1,16 +1,91 @@
-"""Random checkerboard conductivity (host, NumPy).
+"""Checkerboard homogenized-coefficient estimation (the flagship model).
 
-Host copy of ``generate_conductivity`` and ``conductivity_per_element`` from
-homogenization_jl_tpu/models/checkerboard.py: the same numpy ``rng`` gives
-the same field in both packages. The homogenization driver itself is not
-ported yet.
+Port of homogenization_jl_tpu/models/checkerboard.py (reference:
+src/examples/homogenized_coefficients.jl): the recurrence v_0, v_1, ... of
+"Efficient methods for the estimation of homogenized coefficients"
+(arXiv:1609.06674, section 11) on a random checkerboard conductivity field,
+with domain shrinking and lambda halving per outer step. It estimates a
+correction sigma to E[xi . A xi] (= 5 for a in {1, 9} with equal odds):
+xi . A_hom xi ~ E - sigma.
+
+Host layer (NumPy, copied from the JAX module): the schedule, the ordered
+mesh and its radius queries, the conductivity field, the initial right-hand
+side, the lattice DOF norms and the consistent random start. Device layer
+(PyTorch): the solver (solver/multigrid.py) and the integrals
+(ops/integrals.py, kernel K9; ``next_rhs`` is kernel K1).
+
+Both geometries of the JAX driver:
+  * "ordered" (the default): the reference's inf-norm element order; a
+    shrink slices a prefix of the mesh and rebuilds the plan and the solver
+    (the gather combine K8 and the mask constraint on these bases);
+  * "lattice": one full lexicographic box and one solver for the whole run;
+    a shrink swaps the per-step Dirichlet masks (``Ls``, ``interior``).
+
+The driver looks up ``compute_boundary_layer`` as a module global, so a
+caller can patch the schedule, as the JAX package's tests do.
+
+Not ported yet (``NotImplementedError``, ROADMAP.md queue 1):
+``device_mesh`` (item 10, parallel/), ``solver="multishift"`` (item 9),
+``checkpoint_dir`` / ``resume_from`` and ``save_level`` (item 11, utils/);
+the driver's default ``smoother="cg"`` raises in the solver until kernel
+K10 is ported (item 7).
 """
 
 from __future__ import annotations
 
-import numpy as np
+import dataclasses
+import math
+import time
 
-from ..mesh.grid import Mesh
+import numpy as np
+import torch
+
+from ..fem.local_operators import partial_derivative_functionals
+from ..mesh.grid import Mesh, affine_maps, hypercube
+from ..ops.integrals import integrals_fns
+from ..ops.plan import build_grid_plan
+from ..solver.coarse import coarsening_depth
+from ..solver.multigrid import CHEBYSHEV_SMOOTHERS, MultigridSolver, resolve_device
+
+
+# ---------------------------------------------------------------------------
+# schedule (homogenized_coefficients.jl:9-10)
+# ---------------------------------------------------------------------------
+def compute_boundary_layer(lam: float, n: int) -> int:
+    return int(math.floor(4 * (n + 1) * lam**-0.5))
+
+
+def compute_box_radius(k: int, n: int, eps: float = 0.0) -> int:
+    return int(math.floor(2 ** (n - k * (0.5 - eps))))
+
+
+# ---------------------------------------------------------------------------
+# ordered mesh + radius queries (homogenized_coefficients.jl:21-48)
+# ---------------------------------------------------------------------------
+def ordered_hypercube(dim: int, radius: int) -> tuple[Mesh, np.ndarray, np.ndarray]:
+    """[-radius, radius]^dim unit-cell mesh with nodes and elements sorted by
+    distance (inf-norm) to the origin, so domain shrinking is prefix slicing.
+
+    Returns (mesh, node_norms, element_center_norms), both norms ascending.
+    """
+    mesh = hypercube(dim, 2 * radius, origin=-np.full(dim, float(radius)))
+    node_norm = np.abs(mesh.nodes).max(axis=1)
+    I = np.argsort(node_norm, kind="stable")
+    Jperm = np.empty_like(I)
+    Jperm[I] = np.arange(len(I))
+    nodes = mesh.nodes[I]
+    elements = np.sort(Jperm[mesh.elements], axis=1)
+    centers = nodes[elements].mean(axis=1)
+    cnorm = np.abs(centers).max(axis=1)
+    order = np.argsort(cnorm, kind="stable")
+    elements = elements[order]
+    return Mesh(nodes, elements), node_norm[I], cnorm[order]
+
+
+def prefix_in_radius(sorted_norms: np.ndarray, radius: float, eps: float = 0.0) -> int:
+    """Length of the prefix with norm <= radius (+eps). Reference:
+    find_{nodes,elements}_in_radius, homogenized_coefficients.jl:34-48."""
+    return int(np.searchsorted(sorted_norms, radius + eps, side="right"))
 
 
 # ---------------------------------------------------------------------------
@@ -29,3 +104,560 @@ def conductivity_per_element(mesh: Mesh, field: np.ndarray, offset: np.ndarray) 
     idx = np.floor(centers + offset).astype(np.int64)
     idx = np.clip(idx, 0, field.shape[0] - 1)
     return field[tuple(idx[:, k] for k in range(mesh.dim))]
+
+
+# ---------------------------------------------------------------------------
+# rhs, DOF norms, random start (homogenized_coefficients.jl:246-248, 449-474)
+# ---------------------------------------------------------------------------
+def initial_rhs(plan, sigma_el: np.ndarray, xi: np.ndarray, dtype=np.float64) -> np.ndarray:
+    """b0[e, i] = f_i . P_e with P_e = -detJ_e J_e^{-1} (sigma_e * xi) and
+    f_i = int_ref grad phi_i over the finest reference mesh.
+
+    (Reference: rhs_axi_grad_v!, homogenized_coefficients.jl:449-474.)
+    """
+    fine = plan.reference.levels[plan.nlevels - 1]
+    f = partial_derivative_functionals(fine, dtype)  # [n_local, d]
+    _, _, detJ, Jinv = affine_maps(plan.base)
+    P = -detJ[:, None] * np.einsum("ekm,em->ek", Jinv, sigma_el * xi)
+    return (f @ P.T).T.astype(dtype)  # [E, n_local]
+
+
+def lattice_dof_norms(plan, k: int, chunk: int = 100_000) -> np.ndarray:
+    """[E, n_local(k)] inf-norm of every fine-DOF coordinate, f32 (exact for
+    the dyadic lattice coordinates of hypercube plans). Chunked over elements
+    — the [E, n_local, d] coordinate intermediate would be tens of GB at the
+    flagship sizes."""
+    J, shift, _, _ = affine_maps(plan.base)
+    ref = plan.reference.levels[k].nodes  # [n_local, d]
+    E = plan.base.nelements
+    out = np.empty((E, ref.shape[0]), dtype=np.float32)
+    for s in range(0, E, chunk):
+        e = min(s + chunk, E)
+        coords = np.einsum("eij,nj->eni", J[s:e], ref) + shift[s:e, None, :]
+        out[s:e] = np.abs(coords).max(axis=2)
+    return out
+
+
+def consistent_random(plan, k: int, rng) -> np.ndarray:
+    """Random [E, n_local] state, interface-consistent and zero on the
+    boundary (reference: rand! + broadcast_interfaces! + apply_constraint!,
+    homogenized_coefficients.jl:246-248), on the host over the gather
+    (owner) tables."""
+    E = plan.base.nelements
+    n = plan.n_local(k)
+    x = rng.random((E, n))
+    gt = plan.levels[k].gather
+    lay = plan.reference.layout[k]
+    assert lay is not None, "consistent_random needs the contiguous layout"
+
+    def sum_scatter(tables, offsets, width):
+        # every owner copy of a shared cell receives the owners' sum;
+        # single-owner (boundary) cells reproduce their own value
+        if tables is None or width == 0 or len(offsets) == 0:
+            return
+        oe, ol, om, gmap = tables
+        offs = np.asarray(offsets, dtype=np.int64)
+        cols = offs[ol.astype(np.int64)][..., None] + np.arange(width)
+        sums = (x[oe[..., None].astype(np.int64), cols] * om[..., None]).sum(
+            axis=1
+        )  # [G, width]
+        for l in range(len(offsets)):
+            x[:, offs[l] : offs[l] + width] = sums[gmap[:, l]]
+
+    sum_scatter(gt.face, lay.face_offsets, lay.npf)
+    sum_scatter(gt.edge, lay.edge_offsets, lay.npe)
+    sum_scatter(gt.corner, lay.corner_cols, 1)
+    return x * plan.levels[k].boundary_mask
+
+
+# ---------------------------------------------------------------------------
+# solver factory and integrals
+# ---------------------------------------------------------------------------
+def _make_solver(plan, dtype, device, smoothing_steps, coarse, coarse_dense_limit,
+                 smoother, solver_opts=None):
+    """The solver of one ordered-geometry step (JAX checkerboard.py:160-185):
+    "mg" where the base coarsens, else "chol", and "cg" past the dense
+    limit."""
+    kind = coarse
+    if kind == "mg" and coarsening_depth(plan.base, 4000) == 0:
+        # a base that is not a coarsenable box keeps the direct solve
+        kind = "chol"
+    if kind == "chol" and len(plan.interior_base_nodes) > coarse_dense_limit:
+        kind = "cg"
+    return MultigridSolver(
+        plan, dtype=dtype, device=device, smoothing_steps=smoothing_steps,
+        coarse=kind, smoother=smoother, **(solver_opts or {}),
+    )
+
+
+def _solver_integrals(solver, detJ_np):
+    """K9 integrals closed over the solver's finest mass matrix (the last
+    slice of the finest operator stack) and |det J| on its device."""
+    mass = solver.levels[solver.nlevels - 1].stack[-1]
+    detJ = torch.as_tensor(detJ_np, device=solver.device).to(solver.dtype)
+    return integrals_fns(mass, detJ)
+
+
+# ---------------------------------------------------------------------------
+# driver (homogenized_coefficients.jl:174-343)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class HomogenizationTrace:
+    """The JAX package's trace, plus host-clock seconds: ``init_seconds``
+    from the call to the first outer step (plan, solver, initial state),
+    ``setup_seconds`` per step before its inner loop (coefficients, coarse
+    setup, lambda_max; for "ordered", the shrink's rebuild too), and
+    ``iteration_seconds`` per step and inner iteration (each ends when the
+    host reads the integral, which waits for the device)."""
+
+    sigma: float
+    sigma_steps: list
+    residuals: list
+    cycles_per_step: list
+    init_seconds: float = 0.0
+    setup_seconds: list = dataclasses.field(default_factory=list)
+    iteration_seconds: list = dataclasses.field(default_factory=list)
+
+
+_NOT_PORTED = {
+    "device_mesh": "element-axis sharding (ROADMAP.md queue 1 item 10, parallel/)",
+    "checkpoint_dir": "checkpoints (ROADMAP.md queue 1 item 11, utils/checkpoint.py)",
+    "resume_from": "checkpoints (ROADMAP.md queue 1 item 11, utils/checkpoint.py)",
+    "save_level": "VTK export (ROADMAP.md queue 1 item 11, utils/vtk.py)",
+}
+
+
+def _inner_loop(k, step_once, integral, sigma, domain_area, tolerance, max_cycles,
+                verbose, rnorm):
+    """Iterate the inner solve until the sigma increment stabilizes
+    (reference stopping rule, homogenized_coefficients.jl:269-290).
+    Returns (d_sigma, cycles, seconds of each iteration)."""
+    d_sigma = 0.0
+    d_sigma_prev = 0.0
+    cycles = 0
+    seconds = []
+    t_prev = time.perf_counter()
+    for i in range(max_cycles):
+        step_once()
+        cycles += 1
+        d_sigma = 2.0**k * float(integral()) / domain_area
+        t_now = time.perf_counter()
+        seconds.append(t_now - t_prev)
+        if verbose:
+            print(
+                f"  cycle {i + 1}: |r|={float(rnorm()):.3e} "
+                f"sigma+ds={sigma + d_sigma:.10f} "
+                f"|ds-ds_prev|={abs(d_sigma - d_sigma_prev):.3e} "
+                f"dt={t_now - t_prev:.2f}s",
+                flush=True,
+            )
+        t_prev = t_now
+        if abs(d_sigma - d_sigma_prev) < tolerance:
+            break
+        d_sigma_prev = d_sigma
+    return d_sigma, cycles, seconds
+
+
+def checkerboard_homogenization(
+    n: int = 4,
+    dim: int = 2,
+    refinements: int = 2,
+    smoothing_steps: int = 3,
+    tolerance: float = 1e-4,
+    xi: np.ndarray | None = None,
+    cond_field: np.ndarray | None = None,
+    seed: int | None = None,
+    dtype=torch.float64,
+    coarse: str = "chol",
+    coarse_dense_limit: int = 8_000,
+    max_cycles: int = 1000,
+    verbose: bool = False,
+    return_trace: bool = False,
+    save_level: int | None = None,
+    save_prefix: str = "ahom",
+    checkpoint_dir: str | None = None,
+    resume_from: str | None = None,
+    device_mesh=None,
+    smoother: str = "cg",
+    shrink: bool = True,
+    solver: str = "vcycle",
+    lanczos_iters: int = 120,
+    geometry: str = "ordered",
+    lattice_order: str | None = None,
+    solver_opts: dict | None = None,
+    inner: str = "vcycle",
+    device=None,
+):
+    """Estimate the correction sigma for one sampled domain: the JAX
+    package's driver with its signature and defaults, plus ``device`` (the
+    card unless the caller asks for the CPU; see ``resolve_device``).
+
+    ``cond_field``: optional pinned conductivity field of shape [2R]^dim +
+    [dim] with R = compute_box_radius(0, n) + compute_boundary_layer(1, n);
+    if None it is sampled with ``seed``. ``smoother``: "chebyshev" (the "cg"
+    default raises until it is ported). ``shrink``: domain shrinking per
+    outer step (reference behavior); False keeps the k=0 domain.
+    ``geometry``: "ordered" (reference element order, prefix-slice shrink,
+    a plan and solver per step) or "lattice" (one box, shrink by masks).
+    ``inner``: "vcycle" (plain V-cycles until the sigma increment
+    stabilizes) or "pcg" (V-cycle-preconditioned CG steps under the same
+    stopping rule; requires smoother="chebyshev"). ``lanczos_iters`` belongs
+    to ``solver="multishift"`` and is accepted for signature parity.
+    Returns sigma, or (sigma, HomogenizationTrace) with ``return_trace``.
+    """
+    for name, value in (("device_mesh", device_mesh), ("checkpoint_dir", checkpoint_dir),
+                        ("resume_from", resume_from), ("save_level", save_level)):
+        if value is not None:
+            raise NotImplementedError(f"{name}= is not ported yet: {_NOT_PORTED[name]}")
+    if solver == "multishift":
+        raise NotImplementedError(
+            "solver='multishift' is not ported yet (ROADMAP.md queue 1 item 9)"
+        )
+    if solver != "vcycle":
+        raise ValueError(f"solver={solver!r}")
+    if inner == "pcg":
+        if smoother not in CHEBYSHEV_SMOOTHERS:
+            raise ValueError(
+                "inner='pcg' needs a linear SPD preconditioner: pass "
+                "smoother='chebyshev'"
+            )
+    elif inner != "vcycle":
+        raise ValueError(f"inner={inner!r}")
+    device = resolve_device(device)
+    kw = dict(
+        n=n, dim=dim, refinements=refinements, smoothing_steps=smoothing_steps,
+        tolerance=tolerance, xi=xi, cond_field=cond_field, seed=seed, dtype=dtype,
+        coarse=coarse, coarse_dense_limit=coarse_dense_limit, max_cycles=max_cycles,
+        verbose=verbose, smoother=smoother, shrink=shrink, solver_opts=solver_opts,
+        inner=inner, device=device,
+    )
+    if geometry == "lattice":
+        sigma, trace = _checkerboard_lattice(lattice_order=lattice_order, **kw)
+    elif geometry == "ordered":
+        sigma, trace = _checkerboard_ordered(**kw)
+    else:
+        raise ValueError(f"geometry={geometry!r}")
+    return (sigma, trace) if return_trace else sigma
+
+
+def _to_device(dtype, device):
+    """Host array -> tensor of the state dtype on the device, cast on the
+    host (an [E, n] float64 array would otherwise take twice its size on
+    the card for a moment)."""
+
+    def to_dev(a):
+        return torch.as_tensor(np.asarray(a)).to(dtype).contiguous().to(device)
+
+    return to_dev
+
+
+def _field_and_xi(dim, R0, xi, cond_field, seed):
+    if xi is None:
+        xi = np.ones(dim) / np.sqrt(dim)  # reference random_unit_vec (:62-65)
+    xi = np.asarray(xi, dtype=np.float64)
+    rng = np.random.default_rng(seed)
+    if cond_field is None:
+        cond_field = generate_conductivity(dim, 2 * R0, rng)
+    elif cond_field.shape != (2 * R0,) * dim + (dim,):
+        raise ValueError(f"cond_field shape {cond_field.shape}, expected {(2 * R0,) * dim + (dim,)}")
+    return xi, cond_field, rng
+
+
+def _checkerboard_ordered(
+    n, dim, refinements, smoothing_steps, tolerance, xi, cond_field, seed, dtype,
+    coarse, coarse_dense_limit, max_cycles, verbose, smoother, shrink, solver_opts,
+    inner, device,
+):
+    """Reference-order geometry (JAX checkerboard.py:356-573): prefix-slice
+    domain shrinking with a plan and solver rebuild per outer step."""
+    t_start = time.perf_counter()
+    lam = 1.0
+    sigma = 0.0
+    box_radius = compute_box_radius(0, n)
+    boundary_layer = compute_boundary_layer(lam, n)
+    total_radius = box_radius + boundary_layer
+    xi, cond_field, rng = _field_and_xi(dim, total_radius, xi, cond_field, seed)
+
+    offset = np.full(dim, float(total_radius))  # field indexing uses R0
+    base, node_norms, center_norms = ordered_hypercube(dim, total_radius)
+    sigma_el = conductivity_per_element(base, cond_field, offset)
+
+    nlevels = refinements + 1
+    plan = build_grid_plan(base, nlevels, slot_tables=False)
+
+    def make_solver(plan):
+        sol = _make_solver(
+            plan, dtype, device, smoothing_steps, coarse, coarse_dense_limit,
+            smoother, solver_opts,
+        )
+        _, _, detJ_np, _ = affine_maps(plan.base)
+        return sol, _solver_integrals(sol, detJ_np)
+
+    to_dev = _to_device(dtype, device)
+    sol, (area_fn, first_fn, terms_fn, next_rhs_fn) = make_solver(plan)
+    # random consistent x with zero boundary values (:246-248)
+    x = to_dev(consistent_random(plan, nlevels - 1, rng))
+    b = to_dev(initial_rhs(plan, sigma_el, xi))
+    v_prev = None
+    trace = HomogenizationTrace(0.0, [], [], [])
+    t_step = time.perf_counter()
+    trace.init_seconds = t_step - t_start
+
+    for k in range(n + 1):
+        if verbose:
+            print(
+                f"[step {k}] domain [-{total_radius},{total_radius}]^{dim} "
+                f"box={box_radius} layer={boundary_layer} E={base.nelements} "
+                f"unknowns<= {plan.max_unknowns}",
+                flush=True,
+            )
+        coeff = sol.coefficients(sigma_el, lam)
+        setup = sol.coarse_setup(sigma_el, lam)
+        lam_max = sol.estimate_lambda_max(coeff)
+        n_box = prefix_in_radius(center_norms, box_radius)
+        mask = to_dev((np.arange(base.nelements) < n_box).astype(np.float64))
+        domain_area = float(area_fn(mask))
+        trace.setup_seconds.append(time.perf_counter() - t_step)
+        x, d_sigma, cycles, rn, secs = _solve_step(
+            sol, k, x, b, v_prev, coeff, setup, lam_max, mask, inner, first_fn,
+            terms_fn, sigma, domain_area, tolerance, max_cycles, verbose,
+        )
+        t_step = time.perf_counter()
+        sigma += d_sigma
+        trace.sigma_steps.append(sigma)
+        trace.cycles_per_step.append(cycles)
+        trace.residuals.append(rn)
+        trace.iteration_seconds.append(secs)
+
+        # ---- shrink the domain (:297-340) --------------------------------
+        lam /= 2.0
+        box_radius = compute_box_radius(k + 1, n)
+        boundary_layer = compute_boundary_layer(lam, n)
+        if box_radius + boundary_layer > total_radius:
+            break
+        if not shrink:
+            # fixed-domain variant: same operators, only lambda and the
+            # integration box change
+            v_prev = x
+            b = next_rhs_fn(x, lam)
+            continue
+        total_radius = box_radius + boundary_layer
+
+        n_nodes = prefix_in_radius(node_norms, total_radius, eps=1e-12)
+        n_elems = prefix_in_radius(center_norms, total_radius)
+        base = Mesh(base.nodes[:n_nodes], base.elements[:n_elems])
+        node_norms = node_norms[:n_nodes]
+        center_norms = center_norms[:n_elems]
+        sigma_el = sigma_el[:n_elems]
+
+        plan = build_grid_plan(base, nlevels, slot_tables=False)
+        del sol, coeff, setup
+        sol, (area_fn, first_fn, terms_fn, next_rhs_fn) = make_solver(plan)
+        # slice state, re-apply the (new) boundary condition
+        x = x[:n_elems] * torch.as_tensor(plan.levels[nlevels - 1].boundary_mask, device=device)
+        v_prev = x
+        b = next_rhs_fn(x, lam)
+
+    trace.sigma = sigma
+    return sigma, trace
+
+
+def _solve_step(sol, k, x, b, v_prev, coeff, setup, lam_max, mask, inner, first_fn,
+                terms_fn, sigma, domain_area, tolerance, max_cycles, verbose,
+                Ls=None, interior=None):
+    """One outer step's inner iteration; returns (x, d_sigma, cycles, the
+    final residual norm, seconds per iteration). ``x`` is not modified."""
+    cur = {}
+    if inner == "pcg":
+        init, step = sol.pcg_stepper(coeff, setup, lam_max, Ls=Ls, interior=interior)
+        cur["state"] = init(b, x=x)
+
+        def step_once():
+            cur["state"] = step(cur["state"])
+            cur["x"] = cur["state"][0]
+
+        def rnorm():
+            return cur["state"][4]
+    else:
+        cur["x"] = x
+
+        def step_once():
+            cur["x"], cur["r"] = sol.vcycle(
+                cur["x"], b, coeff, setup, lam_max=lam_max, Ls=Ls, interior=interior
+            )
+
+        def rnorm():
+            return sol.residual_norm(cur["r"])
+
+    def integral():
+        if k == 0:
+            return first_fn(cur["x"], b, mask)
+        return terms_fn(cur["x"], v_prev, mask)
+
+    d_sigma, cycles, seconds = _inner_loop(
+        k, step_once, integral, sigma, domain_area, tolerance, max_cycles, verbose, rnorm
+    )
+    return cur["x"], d_sigma, cycles, float(rnorm()), seconds
+
+
+def _checkerboard_lattice(
+    n, dim, refinements, smoothing_steps, tolerance, xi, cond_field, seed, dtype,
+    coarse, coarse_dense_limit, max_cycles, verbose, smoother, shrink, solver_opts,
+    inner, device, lattice_order=None,
+):
+    """Lattice-geometry recurrence (JAX checkerboard.py:576-855): one
+    full-box plan and ONE solver for the whole run; a shrink swaps the
+    per-step Dirichlet masks (``Ls``), the coarse interior-node mask
+    (``interior``), lambda and the integration-box mask."""
+    t_start = time.perf_counter()
+    lam = 1.0
+    sigma = 0.0
+    box_radius = compute_box_radius(0, n)
+    boundary_layer = compute_boundary_layer(lam, n)
+    total_radius = box_radius + boundary_layer
+    R0 = total_radius
+    xi, cond_field, rng = _field_and_xi(dim, R0, xi, cond_field, seed)
+
+    # type-major order single-device (the slab-sharded order "cube" is
+    # reachable through lattice_order)
+    base = hypercube(dim, 2 * R0, origin=-np.full(dim, float(R0)), order=lattice_order or "type")
+    offset = np.full(dim, float(R0))
+    sigma_el = conductivity_per_element(base, cond_field, offset)
+
+    nlevels = refinements + 1
+    plan = build_grid_plan(base, nlevels, slot_tables=False)
+    E = base.nelements
+    n_top = plan.n_local(nlevels - 1)
+
+    # will any step actually shrink? (decides whether the coarse solve needs
+    # the masked global-space forms)
+    lam_t, tot_t, shrinks = 1.0, R0, False
+    for kk in range(n + 1):
+        lam_t /= 2.0
+        br = compute_box_radius(kk + 1, n)
+        bl = compute_boundary_layer(lam_t, n)
+        if br + bl > tot_t:
+            break
+        if shrink and br + bl < tot_t:
+            shrinks = True
+            tot_t = br + bl
+
+    kind = coarse
+    can_mg = coarsening_depth(base, 4000) > 0
+    if kind == "mg" and not can_mg:
+        kind = "cg"
+    if kind in ("chol", "inv") and (
+        len(plan.interior_base_nodes) > coarse_dense_limit or shrinks
+    ):
+        # chol/inv factor the FULL-box interior; shrunken steps solve the
+        # sub-box operator, which only the global-space cg/mg forms mask
+        kind = "mg" if can_mg else "cg"
+
+    sol = MultigridSolver(
+        plan, dtype=dtype, device=device, smoothing_steps=smoothing_steps, coarse=kind,
+        smoother=smoother, **(solver_opts or {}),
+    )
+    if sol.combine_kind != "structured":
+        raise AssertionError("the lattice geometry needs the structured combine")
+    _, _, detJ_np, _ = affine_maps(base)
+    area_fn, first_fn, terms_fn, next_rhs_fn = _solver_integrals(sol, detJ_np)
+
+    to_dev = _to_device(dtype, device)
+
+    def put_bool(a):
+        return torch.as_tensor(a, device=device)
+
+    cnorm = np.abs(base.nodes[base.elements].mean(axis=1)).max(axis=1)
+    node_norm = np.abs(base.nodes).max(axis=1)
+    dof_norms = [None] * nlevels
+
+    def level_norms(k2):
+        if dof_norms[k2] is None:
+            dof_norms[k2] = lattice_dof_norms(plan, k2)
+        return dof_norms[k2]
+
+    def level_Ls(R):
+        return [put_bool(level_norms(k2) < (R - 1e-9)) for k2 in range(nlevels)]
+
+    # initial state: random, interface-consistent (one device combine — the
+    # table-free form of rand! + broadcast_interfaces! + apply_constraint!,
+    # homogenized_coefficients.jl:246-248), zero on the boundary
+    x = sol._constrain(sol.combine(to_dev(rng.random((E, n_top)))), nlevels - 1)
+    b = to_dev(initial_rhs(plan, sigma_el, xi))
+    v_prev = None
+    trace = HomogenizationTrace(0.0, [], [], [])
+    t_step = time.perf_counter()
+    trace.init_seconds = t_step - t_start
+
+    for k in range(n + 1):
+        if verbose:
+            print(
+                f"[step {k}] domain [-{total_radius},{total_radius}]^{dim} "
+                f"(masked, full box [-{R0},{R0}]) box={box_radius} "
+                f"layer={boundary_layer} E={E} unknowns<= {plan.max_unknowns}",
+                flush=True,
+            )
+        shrunk = total_radius < R0
+        Ls_k = level_Ls(total_radius) if shrunk else None
+        int_k = (
+            put_bool(node_norm < (total_radius - 1e-9))
+            if (shrunk and kind in ("cg", "mg"))
+            else None
+        )
+        coeff = sol.coefficients(sigma_el, lam)
+        setup = sol.coarse_setup(sigma_el, lam)
+        lam_max = sol.estimate_lambda_max(coeff)
+        mask = to_dev((cnorm <= box_radius).astype(np.float64))
+        domain_area = float(area_fn(mask))
+        trace.setup_seconds.append(time.perf_counter() - t_step)
+        x, d_sigma, cycles, rn, secs = _solve_step(
+            sol, k, x, b, v_prev, coeff, setup, lam_max, mask, inner, first_fn,
+            terms_fn, sigma, domain_area, tolerance, max_cycles, verbose,
+            Ls=Ls_k, interior=int_k,
+        )
+        t_step = time.perf_counter()
+        del Ls_k, int_k
+        sigma += d_sigma
+        trace.sigma_steps.append(sigma)
+        trace.cycles_per_step.append(cycles)
+        trace.residuals.append(rn)
+        trace.iteration_seconds.append(secs)
+
+        # ---- schedule tail: lambda halving + masked shrink ----------------
+        lam /= 2.0
+        box_radius = compute_box_radius(k + 1, n)
+        boundary_layer = compute_boundary_layer(lam, n)
+        if box_radius + boundary_layer > total_radius:
+            break
+        if shrink and box_radius + boundary_layer < total_radius:
+            total_radius = box_radius + boundary_layer
+            # re-apply the (new, smaller) sub-box Dirichlet condition to x
+            x = x * put_bool(level_norms(nlevels - 1) < (total_radius - 1e-9))
+        v_prev = x
+        b = next_rhs_fn(x, lam)
+
+    trace.sigma = sigma
+    return sigma, trace
+
+
+def compare_refinements_on_same_material(
+    n: int = 2,
+    dim: int = 2,
+    refinements=(1, 2, 3),
+    tolerance: float = 1e-4,
+    seed: int = 0,
+    **kwargs,
+):
+    """Run the recurrence on the SAME sampled conductivity field at several
+    refinement levels (reference: compare_refinements_on_same_material,
+    homogenized_coefficients.jl:574-583). Returns {refinements: sigma}."""
+    lam0_radius = compute_box_radius(0, n) + compute_boundary_layer(1.0, n)
+    rng = np.random.default_rng(seed)
+    field = generate_conductivity(dim, 2 * lam0_radius, rng)
+    return {
+        r: checkerboard_homogenization(
+            n, dim=dim, refinements=r, tolerance=tolerance,
+            cond_field=field, seed=seed, **kwargs,
+        )
+        for r in refinements
+    }

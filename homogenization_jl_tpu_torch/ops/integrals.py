@@ -1,0 +1,176 @@
+"""The sigma integrals of the checkerboard driver (device, PyTorch + CUDA
+kernel K9).
+
+Port of homogenization_jl_tpu/models/checkerboard.py::_integrals_fns
+(reference: homogenized_coefficients.jl:592-713). With the finest reference
+mass matrix M [n, n] (symmetric: the last slice of the finest operator
+stack), the per-element |det J| and a 0/1 element mask, each integral is a
+masked sum over element rows:
+
+  * ``area(mask)``           = sum(M) * sum_e detJ_e mask_e;
+  * ``first_term(x, b0, m)`` = sum_e m_e detJ_e sum_i x (b0 + M x)   (quirk)
+                             or sum_e m_e (sum_i x b0 + detJ_e sum_i x M x);
+  * ``terms(x, v_prev, m)``  = sum_e m_e detJ_e sum_i (x + v_prev) M x;
+  * ``next_rhs(x, lam)``     = lam detJ_e (M x)[e], kernel K1 with the
+    one-piece stack [M] and the coefficient lam * detJ.
+
+``sigma_integral`` computes the first three: kernel K9
+(csrc/integrals.cu) for CUDA tensors, the plain form for CPU tensors. The
+plain form is the JAX expression with the sum over elements taken in the
+kernel's fixed order (RED_BLOCKS blocks of RED_THREADS strided partials
+and a tree); only the row sums, which the kernel takes inside its GEMM
+tiles, round differently.
+
+``reference_quirk``: the reference's integrate_first_term multiplies the
+b0 part, which already carries detJ, by detJ again. On unit cells (every
+detJ == 1) both forms agree and the quirk form is the reference's bit for
+bit; otherwise the quirk is wrong. None picks the quirk form exactly when
+every detJ == 1, as the JAX package does (ROADMAP.md, section 3).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..csrc.build import LAUNCHES, launch
+from .apply import element_apply
+
+_DTYPES = {torch.float32: 0, torch.float64: 1}
+
+TERMS, FIRST_QUIRK, FIRST, AREA = 0, 1, 2, 3
+# the kernel's fixed reduction grid (csrc/integrals.cu)
+RED_BLOCKS, RED_THREADS = 264, 256
+
+
+def _tile_count(dtype, n: int) -> int:
+    """Column tiles of K9's GEMM pass: K1's tile width for (dtype, n)."""
+    bn = 128 if (dtype == torch.float32 and n > 64) else (64 if n > 16 else 16)
+    return -(-n // bn)
+
+
+def _fixed_order_sum(v):
+    """sum(v) in the kernel's order: RED_BLOCKS contiguous chunks; within a
+    chunk, RED_THREADS strided running sums, then a pairwise tree; the block
+    sums the same way in one block."""
+
+    def block(parts):  # [B, k * RED_THREADS] -> [B]
+        acc = parts[:, :RED_THREADS].clone()
+        for s in range(RED_THREADS, parts.shape[1], RED_THREADS):
+            acc = acc + parts[:, s : s + RED_THREADS]
+        s = RED_THREADS // 2
+        while s > 0:
+            acc = torch.cat((acc[:, :s] + acc[:, s : 2 * s], acc[:, 2 * s :]), dim=1)
+            s //= 2
+        return acc[:, 0]
+
+    def padded(a, rows, cols):
+        out = a.new_zeros(rows * cols)
+        out[: a.numel()] = a
+        return out.reshape(rows, cols)
+
+    E = v.numel()
+    chunk = -(-E // RED_BLOCKS)
+    per = -(-chunk // RED_THREADS) * RED_THREADS
+    chunks = padded(v, RED_BLOCKS, chunk)
+    sums = block(torch.cat((chunks, chunks.new_zeros(RED_BLOCKS, per - chunk)), dim=1))
+    per_f = -(-RED_BLOCKS // RED_THREADS) * RED_THREADS
+    return block(padded(sums, 1, per_f))[0]
+
+
+def sigma_integral_plain(mode, x, mass, w, detJ, mask, scale=1.0):
+    """Plain form of ``sigma_integral`` (the JAX expressions)."""
+    if mode == AREA:
+        s = detJ
+    else:
+        Mx = torch.matmul(x, mass.T)
+        a = ((x + w if mode == TERMS else x) * Mx).sum(dim=1)
+        if mode == TERMS:
+            s = detJ * a
+        else:
+            b = (x * w).sum(dim=1)
+            s = detJ * (a + b) if mode == FIRST_QUIRK else b + detJ * a
+    return scale * _fixed_order_sum(s * mask)
+
+
+def _check(name, t, dtype, device, shape):
+    if t.dtype != dtype:
+        raise TypeError(f"sigma_integral: {name} dtype {t.dtype}, expected {dtype}")
+    if t.device != device:
+        raise ValueError(f"sigma_integral: {name} on {t.device}, expected {device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"sigma_integral: {name} shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"sigma_integral: {name} must be contiguous")
+
+
+def sigma_integral(mode, x, mass, w, detJ, mask, scale=1.0):
+    """One of the driver's integrals as a 0-d tensor: ``mode`` TERMS (w =
+    v_prev), FIRST_QUIRK / FIRST (w = b0) or AREA (x, mass, w unused: pass
+    None). x, w: [E, n]; mass: [n, n] symmetric; detJ, mask: [E]; one dtype
+    (float32/float64) and device. Kernel K9 for CUDA tensors, the plain form
+    for CPU tensors."""
+    if mode not in (TERMS, FIRST_QUIRK, FIRST, AREA):
+        raise ValueError(f"sigma_integral: unknown mode {mode}")
+    dtype, dev = detJ.dtype, detJ.device
+    if dtype not in _DTYPES:
+        raise TypeError(f"sigma_integral: unsupported dtype {dtype}")
+    E = detJ.shape[0]
+    _check("detJ", detJ, dtype, dev, (E,))
+    _check("mask", mask, dtype, dev, (E,))
+    n = 0
+    if mode != AREA:
+        n = x.shape[1] if x.dim() == 2 else -1
+        _check("x", x, dtype, dev, (E, n))
+        _check("w", w, dtype, dev, (E, n))
+        _check("mass", mass, dtype, dev, (n, n))
+    if dev.type == "cpu":
+        return sigma_integral_plain(mode, x, mass, w, detJ, mask, scale)
+    if dev.type != "cuda":
+        raise ValueError(f"sigma_integral: unsupported device {dev}")
+    ntile = _tile_count(dtype, n) if mode != AREA else 0
+    part_a = torch.empty((E, ntile), dtype=dtype, device=dev) if mode != AREA else None
+    part_b = (
+        torch.empty((E, ntile), dtype=dtype, device=dev) if mode in (FIRST_QUIRK, FIRST) else None
+    )
+    blocksum = torch.empty(RED_BLOCKS, dtype=dtype, device=dev)
+    out = torch.empty((), dtype=dtype, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    LAUNCHES["integrals"] += 1
+    launch(
+        "hz_integrals", _DTYPES[dtype], mode, ptr(x), ptr(mass), ptr(w), detJ.data_ptr(),
+        mask.data_ptr(), ptr(part_a), ptr(part_b), blocksum.data_ptr(), out.data_ptr(),
+        E, n, ntile, float(scale),
+    )
+    return out
+
+
+def integrals_fns(mass, detJ, reference_quirk: bool | None = None):
+    """(area, first_term, terms, next_rhs), closed over the finest reference
+    mass matrix ``mass`` [n, n] and the per-element |det J| ``detJ`` [E]
+    (tensors of one dtype and device); see the module docstring."""
+    mass = mass.contiguous()
+    detJ = detJ.contiguous()
+    # the JAX form sums the mass matrix in the state dtype
+    mass_total = float(mass.sum())
+    if reference_quirk is None:
+        reference_quirk = bool(np.allclose(detJ.cpu().numpy(), 1.0))
+    first_mode = FIRST_QUIRK if reference_quirk else FIRST
+    stack = mass[None]
+
+    def area(mask):
+        return sigma_integral(AREA, None, None, None, detJ, mask, scale=mass_total)
+
+    def first_term(x, b0, mask):
+        return sigma_integral(first_mode, x, mass, b0, detJ, mask)
+
+    def terms(x, v_prev, mask):
+        return sigma_integral(TERMS, x, mass, v_prev, detJ, mask)
+
+    def next_rhs(x, lam):
+        return element_apply(x, (lam * detJ)[:, None].contiguous(), stack)
+
+    return area, first_term, terms, next_rhs

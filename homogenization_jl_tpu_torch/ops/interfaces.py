@@ -1,15 +1,17 @@
-"""Constraint and base-grid transfer ops (device, PyTorch + CUDA kernel K7).
+"""Interface combine, constraint and base-grid transfer ops (device,
+PyTorch + CUDA kernels K7 and K8).
 
-Port of the parts of homogenization_jl_tpu/ops/interfaces.py that the
-structured solver path uses: apply_mask, copy_to_base and distribute, plus
-the coarse-solve plumbing of homogenization_jl_tpu/solver/multigrid.py that
+Port of homogenization_jl_tpu/ops/interfaces.py: apply_mask, copy_to_base,
+distribute and the general-mesh gather combine ``combine_gather_rows``
+(kernel K8, csrc/gather_combine.cu; see ``GatherTables``), plus the
+coarse-solve plumbing of homogenization_jl_tpu/solver/multigrid.py that
 shares their shape: ``_to_global`` (a presorted gather + sorted
 segment_sum), the ``aux_correct`` transfers and the interior gathers of the
-direct coarse solves. The general-mesh gather combine (combine_gather_rows)
-is not ported yet.
+direct coarse solves. The flat ``combine_interfaces`` form is not ported:
+the JAX package keeps it as its counting oracle.
 
-Two primitives carry all of them, each a plain PyTorch form for CPU tensors
-and kernel K7 (csrc/coarse_gather.cu) for CUDA tensors:
+Two primitives carry the transfers, each a plain PyTorch form for CPU
+tensors and kernel K7 (csrc/coarse_gather.cu) for CUDA tensors:
 
   * ``segment_sum``: out[s] = sum of vals[perm[j]] over the contiguous run
     j in [start[s], start[s+1]) of the presorted order, summed left to right
@@ -202,3 +204,146 @@ def distribute(u, base_elements):
     (reference: distribute!, src/implicit_fine_grid.jl:178-202);
     ``base_elements`` is an int32/int64 index tensor [E, n]."""
     return gather_scale(u, base_elements)
+
+
+# --------------------------------------------------------------------- #
+# gather-form interface combine (kernel K8)
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class GatherClass:
+    """One interface class (faces, edges or corners) of a level: the columns
+    [c0, c0 + L*W) of every element row, L cells of W DOFs. Owner tables
+    oe/ol [G, M] (int32, padded with 0), om [G, M] (bool: a real owner),
+    gmap [E, L] (int32: group of each element's cell); flat [G, M] (int64)
+    = oe * L + ol, the owner rows of the [E*L, W] view (plain form)."""
+
+    c0: int
+    L: int
+    W: int
+    oe: torch.Tensor
+    ol: torch.Tensor
+    om: torch.Tensor
+    gmap: torch.Tensor
+    flat: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherTables:
+    """A level's gather combine: the classes in layout order (faces, edges,
+    corners), tiling the columns [i0, n_local); the head columns pass
+    through."""
+
+    n_local: int
+    i0: int
+    classes: tuple
+
+    def descriptor(self) -> np.ndarray:
+        """The kernel's host record: 8 int64 per class (c0, L, W, M, then
+        the device addresses of oe, ol, om, gmap)."""
+        rows = [
+            [c.c0, c.L, c.W, c.oe.shape[1], c.oe.data_ptr(), c.ol.data_ptr(),
+             c.om.data_ptr(), c.gmap.data_ptr()]
+            for c in self.classes
+        ]
+        return np.ascontiguousarray(np.asarray(rows, dtype=np.int64))
+
+
+def build_gather_tables(plan, k: int, device="cpu") -> GatherTables:
+    """The gather-combine tables of level k of ``plan`` on ``device``, from
+    its owner tables (ops/plan.py) and contiguous interface layout. Every
+    class span must be contiguous (each cell's W columns right after the
+    previous cell's), and the spans must tile [i0, n_local) in the order
+    faces, edges, corners, as the JAX form's concatenation assumes."""
+    lay = plan.reference.layout[k]
+    if lay is None:
+        raise ValueError("the gather combine needs the contiguous interface layout")
+    gt = plan.levels[k].gather
+    n_local = plan.n_local(k)
+    i0 = int(min(list(lay.face_offsets) + list(lay.edge_offsets) + list(lay.corner_cols)))
+    classes = []
+    cursor = i0
+    for tables, offsets, width in (
+        (gt.face, lay.face_offsets, lay.npf),
+        (gt.edge, lay.edge_offsets, lay.npe),
+        (gt.corner, lay.corner_cols, 1),
+    ):
+        if tables is None or width == 0 or len(offsets) == 0:
+            continue
+        oe, ol, om, gmap = (np.asarray(a) for a in tables)
+        L = len(offsets)
+        c0 = int(min(offsets))
+        if any(int(offsets[l]) != c0 + l * width for l in range(L)):
+            raise ValueError("interface layout not contiguous per class")
+        if c0 != cursor:
+            raise ValueError(f"class span starts at column {c0}, expected {cursor}")
+        cursor = c0 + L * width
+        classes.append(
+            GatherClass(
+                c0=c0, L=L, W=int(width),
+                oe=torch.as_tensor(oe.astype(np.int32), device=device),
+                ol=torch.as_tensor(ol.astype(np.int32), device=device),
+                om=torch.as_tensor(om != 0, device=device),
+                gmap=torch.as_tensor(np.ascontiguousarray(gmap.astype(np.int32)), device=device),
+                flat=torch.as_tensor(
+                    oe.astype(np.int64) * L + ol.astype(np.int64), device=device
+                ),
+            )
+        )
+    if cursor != n_local:
+        raise ValueError(f"class spans end at column {cursor}, n_local is {n_local}")
+    return GatherTables(n_local=n_local, i0=i0, classes=tuple(classes))
+
+
+def combine_gather_rows_plain(x, gt: GatherTables, mask=None):
+    """Plain form of ``combine_gather_rows``: per class, the owner rows
+    gathered from the [E*L, W] view, each group's valid owners added in
+    table order from +0, and the sums gathered back per (element, cell).
+    Kernel K8 adds the same values in the same order, so the two agree bit
+    for bit."""
+    E = x.shape[0]
+    parts = [x[:, : gt.i0]]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    for c in gt.classes:
+        xr = x[:, c.c0 : c.c0 + c.L * c.W].reshape(E * c.L, c.W)
+        rows = xr[c.flat]  # [G, M, W]
+        acc = torch.zeros((rows.shape[0], c.W), dtype=x.dtype, device=x.device)
+        for m in range(rows.shape[1]):
+            acc = acc + torch.where(c.om[:, m, None], rows[:, m], zero)
+        parts.append(acc[c.gmap].reshape(E, c.L * c.W))
+    out = torch.cat(parts, dim=1)
+    return out if mask is None else out * mask
+
+
+def combine_gather_rows(x, gt: GatherTables, mask=None):
+    """Interface combine of x [E, n_local] on any base mesh with the
+    contiguous layout (reference: broadcast_interfaces!,
+    src/implicit_fine_grid.jl:209-328): every copy of a shared face/edge/
+    corner DOF gets the sum of all copies. ``mask`` (bool, x's shape)
+    multiplies the result: the mask constraint after the combine
+    (``apply_mask(combine(x), mask)``), in the same pass. Kernel K8 for
+    CUDA tensors, the plain form for CPU tensors."""
+    _check_values("combine_gather_rows: x", x)
+    if x.dim() != 2 or x.shape[1] != gt.n_local:
+        raise ValueError(f"combine_gather_rows: x shape {tuple(x.shape)}, n_local {gt.n_local}")
+    dev = x.device
+    for c in gt.classes:
+        if c.gmap.shape[0] != x.shape[0] or c.gmap.device != dev:
+            raise ValueError("combine_gather_rows: tables do not match x (rows or device)")
+    if mask is not None:
+        if mask.dtype != torch.bool or mask.shape != x.shape or mask.device != dev:
+            raise ValueError("combine_gather_rows: mask must be a bool tensor shaped like x")
+        if not mask.is_contiguous():
+            raise ValueError("combine_gather_rows: mask must be contiguous")
+    if dev.type == "cpu":
+        return combine_gather_rows_plain(x, gt, mask)
+    if dev.type != "cuda":
+        raise ValueError(f"combine_gather_rows: unsupported device {dev}")
+    out = torch.empty_like(x)
+    desc = gt.descriptor()
+    LAUNCHES["gather_combine"] += 1
+    launch(
+        "hz_gather_combine", _DTYPES[x.dtype], x.data_ptr(), out.data_ptr(),
+        None if mask is None else mask.data_ptr(), x.shape[0], gt.n_local, gt.i0,
+        len(gt.classes), desc.ctypes.data,
+    )
+    return out

@@ -815,7 +815,7 @@ def constrain_structured_plain(x, st: StructuredTables):
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 
 
-def _structured_kernel(x, st: StructuredTables, mode: int):
+def _structured_kernel(x, st: StructuredTables, mode: int, mask=None):
     sc = st.sc
     E = sc.ept * sc.n**sc.d
     if x.dtype not in _DTYPES:
@@ -827,6 +827,11 @@ def _structured_kernel(x, st: StructuredTables, mode: int):
     if not x.is_contiguous():
         raise ValueError("structured combine: x must be contiguous")
     dev = x.device
+    if mask is not None:
+        if mask.dtype != torch.bool or mask.shape != x.shape or mask.device != dev:
+            raise ValueError("structured combine: mask must be a bool tensor shaped like x")
+        if not mask.is_contiguous():
+            raise ValueError("structured combine: mask must be contiguous")
     if dev.type == "cpu":
         return None
     if dev.type != "cuda":
@@ -837,21 +842,28 @@ def _structured_kernel(x, st: StructuredTables, mode: int):
     LAUNCHES["structured_combine"] += 1
     launch(
         "hz_structured_combine", _DTYPES[x.dtype], x.data_ptr(), out.data_ptr(),
+        None if mask is None else mask.data_ptr(),
         E, sc.n_local, st.i0, sc.n, sc.d, sc.ept, int(sc.order == "type"),
         mode, st.tab.data_ptr(),
     )
     return out
 
 
-def combine_structured(x, st: StructuredTables, constrain: bool = False):
+def combine_structured(x, st: StructuredTables, constrain: bool = False, mask=None):
     """Interface combine of x [E, n_local] on a full-box hypercube base:
     every copy of a shared face/edge/corner DOF gets the sum of all copies.
     ``constrain=True`` folds in the zero-Dirichlet constraint (boundary
-    groups come out zero): equal to combine(constrain(x)). Kernel K2 for
-    CUDA tensors, the plain form for CPU tensors."""
-    out = _structured_kernel(x, st, 1 if constrain else 0)
+    groups come out zero): equal to combine(constrain(x)). ``mask`` (bool,
+    x's shape) multiplies the combined result instead: the mask constraint
+    after the combine (``apply_mask(combine(x), mask)`` of the JAX solver),
+    in the same pass. Kernel K2 for CUDA tensors, the plain form for CPU
+    tensors."""
+    if constrain and mask is not None:
+        raise ValueError("combine_structured: pass constrain=True or a mask, not both")
+    out = _structured_kernel(x, st, 1 if constrain else 0, mask)
     if out is None:
-        return combine_structured_plain(x, st, constrain)
+        out = combine_structured_plain(x, st, constrain)
+        return out if mask is None else out * mask
     return out
 
 

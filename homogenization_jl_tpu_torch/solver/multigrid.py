@@ -1,9 +1,12 @@
 """Matrix-free geometric multigrid on the implicit fine grid (device, PyTorch).
 
-Port of the main-path subset of homogenization_jl_tpu/solver/multigrid.py:
-the structured interface combine with the structured (mask-free) Dirichlet
-constraint, the Jacobi-preconditioned first-kind Chebyshev smoother, the
-coarse solves (``coarse=``):
+Port of the Chebyshev subset of homogenization_jl_tpu/solver/multigrid.py:
+the interface combines (``combine=``: the structured slice-add form on
+lexicographic full-box hypercube bases, the gather form on any other base
+with the contiguous layout), the Dirichlet constraints (``constraint=``: the
+structured mask-free form, or a resident bool mask; the gather combine
+always takes the mask), the Jacobi-preconditioned first-kind Chebyshev
+smoother, the coarse solves (``coarse=``):
 
   * ``"chol"``: dense Cholesky of the interior base operator;
   * ``"inv"``:  dense interior inverse, applied as one GEMV;
@@ -15,13 +18,24 @@ coarse solves (``coarse=``):
     this class);
 
 V-cycles, the FMG initializer, V-cycle-preconditioned CG (flexible beta for
-the tolerance-stopped coarse solves) and the one-call ``solve`` driver
-(``method="auto"`` = FMG start + PCG).
+the tolerance-stopped coarse solves), its stepwise form ``pcg_stepper`` and
+the one-call ``solve`` driver (``method="auto"`` = FMG start + PCG).
+
+Per-call Dirichlet masks, as the JAX package's ``Ls=``/``interior=``
+arguments: ``Ls`` is a list of per-level bool boundary masks ([E, n_k],
+True on interior DOFs) that replace the solver's constraint for that call
+(the lattice-geometry driver shrinks its Dirichlet box this way without a
+rebuild), and ``interior`` an [N] bool interior-node mask for the
+global-space coarse solves ("cg", "mg"). The port takes the masks alone
+where the JAX package takes whole ``LevelDevice`` tuples whose other
+fields are the solver's own.
 
 Every device kernel on this path is a hand kernel on CUDA tensors:
   * K1 ``element_apply`` (ops/apply.py, CUDA C++);
   * K2 ``combine_structured`` / ``constrain_structured`` (ops/structured.py,
-    CUDA C++);
+    CUDA C++), with the mask constraint folded into its store;
+  * K8 ``combine_gather_rows`` (ops/interfaces.py, CUDA C++): the gather
+    combine, with the mask constraint folded into its store;
   * K3 ``chebyshev_update`` (ops/chebyshev.py, Triton), also the level-0
     junction smoother of ``coarse="mg"``;
   * K6 ``lattice_*`` (ops/stencil.py, CUDA C++): the level-0 operator of the
@@ -40,9 +54,12 @@ the smoother and of PCG run in place. The tolerance-stopped coarse loops
 (``lax.while_loop`` in JAX) are Python loops that read one device scalar
 per iteration (``host_syncs`` counts the reads).
 
-Not in this slice (raise on construction): the cg / cg_exact / chebyshev4
-smoothers, W-cycles, the gather combine and the mask constraint,
-direction_dtype and mixed precision.
+Not ported yet (raise on construction): the cg / cg_exact / chebyshev4
+smoothers, W-cycles, the flat combine of meshes without the contiguous
+layout, direction_dtype and mixed precision.
+
+The solver's tensors live on ``device``: the card (``"cuda"``) unless the
+caller asks for the CPU; without a CUDA device the default raises.
 """
 
 from __future__ import annotations
@@ -59,7 +76,9 @@ from ..ops.apply import element_apply
 from ..ops.chebyshev import chebyshev_update
 from ..ops.interfaces import (
     apply_mask,
+    build_gather_tables,
     build_segment_tables,
+    combine_gather_rows,
     copy_to_base,
     distribute,
     gather_scale,
@@ -91,6 +110,19 @@ _PRECISIONS = (None, "default", "high", "highest")
 _LAM_SAFETY = 1.1
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device of an entry point: the card unless the caller asks for
+    another. A CUDA device without a card raises instead of running on the
+    CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device='cpu' to run on the CPU"
+        )
+    return dev
+
+
 def _inv_positive(d):
     """1/d where d > 0, else 0 (the Jacobi inverse diagonal)."""
     pos = d > 0
@@ -105,7 +137,9 @@ class LevelDevice:
     diag_ref: torch.Tensor  # [P, n] diagonals of the stack slices
     first_copy_mask: torch.Tensor  # [E, n] bool
     P_up: torch.Tensor | None  # prolongation to this level from below [n_k, n_{k-1}]
-    structured: object  # ops/structured.py::StructuredTables
+    structured: object  # ops/structured.py::StructuredTables, or None
+    gather: object  # ops/interfaces.py::GatherTables, or None
+    boundary_mask: torch.Tensor | None  # [E, n] bool (mask constraint), or None
 
 
 @dataclasses.dataclass
@@ -117,15 +151,17 @@ class MGCoarseSetup:
     inv: torch.Tensor  # aux interior inverse (its coarse="inv" payload)
     lam_max: float  # aux Chebyshev bound
     lam_max0: float  # junction Chebyshev bound (exact level-0 operator)
-    dinv: torch.Tensor  # [N] inverse assembled level-0 diagonal * interior mask
+    dinv_g: torch.Tensor  # [N] inverse assembled level-0 diagonal
+    dinv: torch.Tensor  # [N] dinv_g * the solver's interior mask
 
 
 class MultigridSolver:
     """Owns the device tensors of one (base mesh, nlevels) hierarchy.
 
-    ``device`` places every tensor; ``dtype`` is torch.float32 or
-    torch.float64. Coefficients (sigma, lambda) are arguments of the cycle
-    methods, as in the JAX class.
+    ``device`` places every tensor (default: the card; see
+    ``resolve_device``); ``dtype`` is torch.float32 or torch.float64.
+    Coefficients (sigma, lambda) are arguments of the cycle methods, as in
+    the JAX class.
 
     Precision knobs (``apply/smooth/restrict/krylov_precision``) are
     accepted for signature parity: "high" and "highest" (and None) all run
@@ -137,7 +173,7 @@ class MultigridSolver:
         self,
         plan: GridPlan,
         dtype=torch.float64,
-        device="cpu",
+        device="cuda",
         smoothing_steps: int = 3,
         coarse_smoothing_steps: int = 2,
         coarse: str = "chol",
@@ -164,9 +200,9 @@ class MultigridSolver:
             raise ValueError(f"coarse={coarse!r} not in {COARSE_SOLVES}")
         if cycle != "V":
             raise NotImplementedError("cycle='W' is not ported yet")
-        if constraint != "auto":
-            raise NotImplementedError("constraint='mask' is not ported yet")
-        if combine not in ("auto", "structured"):
+        if constraint not in ("auto", "mask"):
+            raise ValueError(f"constraint={constraint!r} not in ('auto', 'mask')")
+        if combine not in ("auto", "structured", "gather"):
             raise NotImplementedError(f"combine={combine!r} is not ported yet")
         for p in (apply_precision, smooth_precision, restrict_precision, krylov_precision):
             if p not in _PRECISIONS:
@@ -175,7 +211,7 @@ class MultigridSolver:
             raise TypeError(f"dtype {dtype} not supported")
         self.plan = plan
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.nlevels = plan.nlevels
         self.smoothing_steps = smoothing_steps
         self.coarse_smoothing_steps = coarse_smoothing_steps
@@ -189,12 +225,26 @@ class MultigridSolver:
         self.coarse_prec_smooth = coarse_prec_smooth
         self._np_dtype = np.float32 if dtype == torch.float32 else np.float64
 
-        det = detect_structured(plan.base)
-        if det is None or plan.reference.layout is None:
+        if plan.reference.layout is None:
             raise NotImplementedError(
-                "the port needs a full-box hypercube base (structured combine); "
-                "the gather combine is not ported yet"
+                "the port needs the contiguous interface layout (the flat "
+                "combine is not ported)"
             )
+        # combine="auto": the structured form on a lexicographic full-box
+        # hypercube base, the gather form on any other (the driver's
+        # reference-order prefix domains)
+        det = detect_structured(plan.base) if combine != "gather" else None
+        if det is None and combine == "structured":
+            raise ValueError(
+                "combine='structured' requires a lexicographic full-box "
+                "hypercube base mesh; use combine='gather'"
+            )
+        self.combine_kind = "structured" if det is not None else "gather"
+        self.constraint_kind = (
+            "mask"
+            if (constraint == "mask" or self.combine_kind != "structured")
+            else "structured"
+        )
 
         ref_ops = build_level_operators(plan.reference, dtype=np.float64)
         dev = self.device
@@ -211,7 +261,14 @@ class MultigridSolver:
                     + list(lay.corner_cols)
                 )
             )
-            sc = build_structured_combine_auto(plan, k, det=det)
+            structured = gather = bmask = None
+            if self.combine_kind == "structured":
+                sc = build_structured_combine_auto(plan, k, det=det)
+                structured = flatten_structured(sc, i0, device=dev)
+            else:
+                gather = build_gather_tables(plan, k, device=dev)
+            if self.constraint_kind == "mask":
+                bmask = tens(plan.levels[k].boundary_mask != 0, torch.bool)
             stack = ref_ops[k].stack
             self.levels.append(
                 LevelDevice(
@@ -219,7 +276,9 @@ class MultigridSolver:
                     diag_ref=tens(np.diagonal(stack, axis1=1, axis2=2)),
                     first_copy_mask=tens(plan.levels[k].first_copy_mask, torch.bool),
                     P_up=tens(prolongation_dense(plan.reference, k - 1)) if k > 0 else None,
-                    structured=flatten_structured(sc, i0, device=dev),
+                    structured=structured,
+                    gather=gather,
+                    boundary_mask=bmask,
                 )
             )
 
@@ -333,7 +392,7 @@ class MultigridSolver:
         of interop.py, which carries the JAX package's parts across)."""
         return MGCoarseSetup(
             coeff=coeff, inv=inv, lam_max=float(lam_max), lam_max0=float(lam_max0),
-            dinv=dinv_g * self._interior_mask_N,
+            dinv_g=dinv_g, dinv=dinv_g * self._interior_mask_N,
         )
 
     def _diag_global(self, coeff0):
@@ -349,15 +408,67 @@ class MultigridSolver:
     # ------------------------------------------------------------------ #
     # building blocks
     # ------------------------------------------------------------------ #
+    def _bmask(self, k, Ls=None):
+        """Level k's boundary mask of this call: the per-call ``Ls`` mask,
+        else the solver's own (None: the structured constraint)."""
+        return self.levels[k].boundary_mask if Ls is None else Ls[k]
+
     def _combine(self, x, k):
-        return combine_structured(x, self.levels[k].structured)
+        L = self.levels[k]
+        if L.structured is not None:
+            return combine_structured(x, L.structured)
+        return combine_gather_rows(x, L.gather)
 
-    def _constrain(self, x, k):
-        return constrain_structured(x, self.levels[k].structured)
+    def _constrain(self, x, k, Ls=None):
+        """Zero-Dirichlet constraint: the structured shell zeroing, or the
+        multiply by the level's bool mask (the call's ``Ls`` mask first)."""
+        bm = self._bmask(k, Ls)
+        if bm is None:
+            return constrain_structured(x, self.levels[k].structured)
+        return apply_mask(x, bm)
 
-    def _combine_constrained(self, x, k):
-        """combine(constrain(x)) in one pass (the zero-Dirichlet fold)."""
-        return combine_structured(x, self.levels[k].structured, constrain=True)
+    def _combine_constrained(self, x, k, Ls=None):
+        """combine(constrain(x)) in one pass: the structured zero-Dirichlet
+        fold, or the combine with the mask multiply at its store (K2 or K8),
+        which is the JAX form's apply_mask(combine(x), mask)."""
+        L = self.levels[k]
+        bm = self._bmask(k, Ls)
+        if bm is None:
+            return combine_structured(x, L.structured, constrain=True)
+        if L.structured is not None:
+            return combine_structured(x, L.structured, mask=bm)
+        return combine_gather_rows(x, L.gather, mask=bm)
+
+    def _check_Ls(self, Ls):
+        """Validate per-call level masks: one bool [E, n_k] tensor per level
+        on the solver's device."""
+        if Ls is None:
+            return None
+        Ls = list(Ls)
+        if len(Ls) != self.nlevels:
+            raise ValueError(f"Ls: {len(Ls)} masks, expected {self.nlevels}")
+        E = self.plan.base.nelements
+        for k, m in enumerate(Ls):
+            shape = (E, self.plan.n_local(k))
+            if (not isinstance(m, torch.Tensor) or m.dtype != torch.bool
+                    or tuple(m.shape) != shape or m.device != self.device):
+                raise ValueError(f"Ls[{k}] must be a bool tensor {shape} on {self.device}")
+        return Ls
+
+    def _check_interior(self, interior):
+        """Validate a per-call coarse interior-node mask ([N] bool; only the
+        global-space coarse solves "cg" and "mg" take one)."""
+        if interior is None:
+            return None
+        if self.coarse_kind not in ("cg", "mg"):
+            raise ValueError("interior= applies to coarse='cg'/'mg' only")
+        if (not isinstance(interior, torch.Tensor) or interior.dtype != torch.bool
+                or tuple(interior.shape) != (self.n_base_nodes,)
+                or interior.device != self.device):
+            raise ValueError(
+                f"interior must be a bool tensor ({self.n_base_nodes},) on {self.device}"
+            )
+        return interior
 
     @staticmethod
     def _vdot(a, b):
@@ -372,13 +483,14 @@ class MultigridSolver:
     def _apply_op(self, x, coeff, k, b=None, out=None):
         return element_apply(x, coeff, self.levels[k].stack, b=b, out=out)
 
-    def _local_residual(self, x, b, coeff, k):
+    def _local_residual(self, x, b, coeff, k, Ls=None):
         """r = constrain(b - A x)."""
-        return self._constrain(self._apply_op(x, coeff, k, b=b), k)
+        return self._constrain(self._apply_op(x, coeff, k, b=b), k, Ls)
 
-    def diagonal(self, coeff, k):
+    def diagonal(self, coeff, k, Ls=None):
         """Assembled diagonal on the duplicated layout: each copy gets the
-        full assembled diagonal entry."""
+        full assembled diagonal entry. ``Ls`` changes no combine, so the
+        diagonal is the same with or without it."""
         d = torch.matmul(coeff, self.levels[k].diag_ref)
         return self._combine(d.contiguous(), k)
 
@@ -528,31 +640,49 @@ class MultigridSolver:
     # smoother, coarse solve, cycles
     # ------------------------------------------------------------------ #
     def _smooth_chebyshev(
-        self, x, b, coeff, lam_max, *, k, steps, need_r=True, x_zero=False
+        self, x, b, coeff, lam_max, *, k, steps, need_r=True, x_zero=False,
+        Ls=None,
     ):
         """Jacobi-preconditioned first-kind Chebyshev smoother on D^{-1}A over
         [lam_max/cheb_ratio, lam_max]. Updates x in place; returns
         (x, r_loc) with the LOCAL residual maintained incrementally (None
         when ``need_r`` is False: the final r -= A p is skipped).
         ``x_zero``: the caller guarantees x == 0, so the entry residual
-        b - A x is b itself and its apply is skipped (same values)."""
+        b - A x is b itself and its apply is skipped (same values).
+        Under a mask constraint (the solver's, or the call's ``Ls``) the
+        entry residual is constrained and each update subtracts the
+        constrained A p, as the JAX smoother does; the structured
+        constraint skips both (dead boundary rows, see the JAX
+        ``_combine_constrained``)."""
         dinv = self._dinv_all(coeff)[k]
         ab = self._cheb_coeffs(lam_max)
+        bm = self._bmask(k, Ls)
         # entry residual, then incremental r_loc -= A p (fused epilogue)
-        r_loc = b.clone() if x_zero else self._apply_op(x, coeff, k, b=b)
+        if bm is None:
+            r_loc = b.clone() if x_zero else self._apply_op(x, coeff, k, b=b)
+        else:
+            r_loc = b * bm if x_zero else self._apply_op(x, coeff, k, b=b).mul_(bm)
         p = torch.empty_like(x)
-        chebyshev_update(x, p, self._combine_constrained(r_loc, k), dinv, ab[0], first=True)
+
+        def update_residual():
+            if bm is None:
+                self._apply_op(p, coeff, k, b=r_loc, out=r_loc)
+            else:
+                r_loc.sub_(self._apply_op(p, coeff, k).mul_(bm))
+
+        chebyshev_update(x, p, self._combine_constrained(r_loc, k, Ls), dinv, ab[0], first=True)
         for j in range(2, steps + 1):
-            self._apply_op(p, coeff, k, b=r_loc, out=r_loc)
-            chebyshev_update(x, p, self._combine_constrained(r_loc, k), dinv, ab[j - 1])
+            update_residual()
+            chebyshev_update(x, p, self._combine_constrained(r_loc, k, Ls), dinv, ab[j - 1])
         if not need_r:
             return x, None
-        self._apply_op(p, coeff, k, b=r_loc, out=r_loc)
+        update_residual()
         return x, r_loc
 
-    def _coarse_solve(self, b0, coeff, setup):
+    def _coarse_solve(self, b0, coeff, setup, interior=None):
         """Level-0 solve of the V-cycle / FMG: [E, d+1] local rhs -> [E, d+1]
-        consistent solution, by the solver's ``coarse`` kind."""
+        consistent solution, by the solver's ``coarse`` kind; ``interior``
+        (cg, mg) replaces the solver's interior-node mask."""
         kind = self.coarse_kind
         if kind == "chol":
             return self._coarse_solve_direct(
@@ -561,8 +691,8 @@ class MultigridSolver:
         if kind == "inv":
             return self._coarse_solve_direct(b0, lambda u: torch.mv(setup, u))
         if kind == "mg":
-            return self._coarse_solve_mg(b0, coeff, setup)
-        return self._coarse_solve_cg(b0, coeff)
+            return self._coarse_solve_mg(b0, coeff, setup, interior)
+        return self._coarse_solve_cg(b0, coeff, interior)
 
     def _coarse_solve_direct(self, b0, solve):
         """Direct interior solve (reference: vcycle! k==1 branch,
@@ -574,11 +704,11 @@ class MultigridSolver:
         sol = solve(gather_scale(u, self._int_idx))
         return gather_scale(torch.cat((sol, sol.new_zeros(1))), self._int_dist)
 
-    def _coarse_solve_cg(self, b0, coeff):
+    def _coarse_solve_cg(self, b0, coeff, interior=None):
         """Matrix-free coarse solve: CG on the GLOBAL base-node vector to
         ``coarse_cg_tol`` (JAX multigrid.py:884-917), one host read of the
         stopping test per iteration."""
-        m = self._interior_mask_N
+        m = self._interior_mask_N if interior is None else interior
         Aop, to_g, dist = self._level0_ops(coeff, m)
         b = to_g(b0) * m
         x = torch.zeros_like(b)
@@ -599,13 +729,18 @@ class MultigridSolver:
         self.coarse_iterations.append(it)
         return dist(x)
 
-    def _coarse_solve_mg(self, b0, coeff, setup: MGCoarseSetup):
+    def _coarse_solve_mg(self, b0, coeff, setup: MGCoarseSetup, interior=None):
         """Coarse solve via PCG on the exact level-0 operator in the GLOBAL
         base-node space (JAX multigrid.py:945-1041), preconditioned by
         Chebyshev junction smoothing on the exact operator around one aux-
         hierarchy V-cycle (the sigma-averaged operator on the coarsened box);
-        stopped at ``coarse_mg_tol`` with one host read per iteration."""
-        m = self._interior_mask_N
+        stopped at ``coarse_mg_tol`` with one host read per iteration. The
+        junction diagonal is masked by the call's interior, when one is
+        given, not by the solver's."""
+        if interior is None:
+            m, dinv = self._interior_mask_N, setup.dinv
+        else:
+            m, dinv = interior, setup.dinv_g * interior
         Aop, to_g, dist = self._level0_ops(coeff, m)
         aux = self.aux_solver
         nu = self.coarse_prec_smooth
@@ -631,9 +766,9 @@ class MultigridSolver:
             # residual is b itself.
             r = b if x_zero else Aop(x, b=b)
             p = torch.empty_like(x)
-            chebyshev_update(x, p, r, setup.dinv, ab[0], first=True)
+            chebyshev_update(x, p, r, dinv, ab[0], first=True)
             for j in range(2, nu + 1):
-                chebyshev_update(x, p, Aop(x, b=b), setup.dinv, ab[j - 1])
+                chebyshev_update(x, p, Aop(x, b=b), dinv, ab[j - 1])
             return x
 
         def prec(r):
@@ -673,14 +808,15 @@ class MultigridSolver:
 
     def _vcycle_impl(
         self, x_top, b_top, coeff, chol, lam_max, top=None, need_r=True,
-        x_zero=False,
+        x_zero=False, Ls=None, interior=None,
     ):
         """One V-cycle from level ``top``. The pre-smooth updates x_top in
         place; the result is a new tensor (prolongation adds out of place):
         returns (x, r_finest) with r_finest the combined, constrained
         residual after the post-smooth (None when ``need_r`` is False).
         ``x_zero``: x_top is known to be zero (the preconditioner cycles of
-        PCG); every sub-top pre-smooth starts from zero anyway."""
+        PCG); every sub-top pre-smooth starts from zero anyway. ``Ls`` /
+        ``interior``: the call's level masks and coarse interior mask."""
         top = self.nlevels - 1 if top is None else top
         E = x_top.shape[0]
         xs = [None] * self.nlevels
@@ -697,7 +833,7 @@ class MultigridSolver:
         for k in range(top, 0, -1):
             xs[k], r_local = self._smooth_chebyshev(
                 xs[k], bs[k], coeff, lam_max, k=k, steps=steps(k),
-                x_zero=x_zero or k != top,
+                x_zero=x_zero or k != top, Ls=Ls,
             )
             bs[k - 1] = restrict(r_local, self.levels[k].P_up)
             del r_local
@@ -705,18 +841,18 @@ class MultigridSolver:
                 xs[k - 1] = torch.zeros(
                     (E, self.plan.n_local(k - 1)), dtype=x_top.dtype, device=x_top.device
                 )
-        xs[0] = self._coarse_solve(bs[0], coeff, chol)
+        xs[0] = self._coarse_solve(bs[0], coeff, chol, interior)
         r_fine = None
         for k in range(1, top + 1):
             x = prolong_add(xs[k], xs[k - 1], self.levels[k].P_up)
             xs[k - 1] = bs[k - 1] = None
             want = need_r and k == top
             x, r_local = self._smooth_chebyshev(
-                x, bs[k], coeff, lam_max, k=k, steps=steps(k), need_r=want
+                x, bs[k], coeff, lam_max, k=k, steps=steps(k), need_r=want, Ls=Ls
             )
             xs[k] = x
             if want:
-                r_fine = self._combine_constrained(r_local, k)
+                r_fine = self._combine_constrained(r_local, k, Ls)
         return xs[top], r_fine
 
     # ------------------------------------------------------------------ #
@@ -731,12 +867,17 @@ class MultigridSolver:
             torch.zeros(shape, dtype=self.dtype, device=self.device),
         )
 
-    def vcycle(self, x, b, coeff, chol=None, lam_max=None):
+    def vcycle(self, x, b, coeff, chol=None, lam_max=None, Ls=None, interior=None):
         """One V-cycle: (x, b) -> (x, r_finest), both [E, n_local(finest)].
         ``chol`` is ``coarse_setup(sigma, lam)`` (None for coarse="cg").
+        ``Ls`` / ``interior`` replace the level boundary masks and the
+        coarse interior-node mask for this call (see the module docstring).
         ``x`` is not modified (the cycle runs on a copy)."""
         self._check_setup(chol, lam_max)
-        return self._vcycle_impl(x.clone(), b, coeff, chol, float(lam_max))
+        return self._vcycle_impl(
+            x.clone(), b, coeff, chol, float(lam_max), Ls=self._check_Ls(Ls),
+            interior=self._check_interior(interior),
+        )
 
     def _check_setup(self, chol, lam_max):
         if chol is None and self.coarse_kind != "cg":
@@ -750,16 +891,18 @@ class MultigridSolver:
         rr = apply_mask(self._combine(r, top), self.levels[top].first_copy_mask)
         return torch.sqrt(self._vdot(rr, rr))
 
-    def _pcg_init_impl(self, x, b, coeff, chol, lam_max):
+    def _pcg_init_impl(self, x, b, coeff, chol, lam_max, Ls=None, interior=None):
         top = self.nlevels - 1
-        r = self._local_residual(x, b, coeff, top)
+        r = self._local_residual(x, b, coeff, top, Ls)
         z, _ = self._vcycle_impl(
-            torch.zeros_like(x), r, coeff, chol, lam_max, need_r=False, x_zero=True
+            torch.zeros_like(x), r, coeff, chol, lam_max, need_r=False, x_zero=True,
+            Ls=Ls, interior=interior,
         )
         rz = self._vdot(z, r)
         return x, r, z, rz, self._pcg_rnorm(r)
 
-    def _pcg_step_impl(self, x, r, p, rz, coeff, chol, lam_max, flexible=False):
+    def _pcg_step_impl(self, x, r, p, rz, coeff, chol, lam_max, flexible=False,
+                       Ls=None, interior=None):
         """One PCG iteration; x and p are updated in place, and r too unless
         ``flexible``. Exact global dots without combines: p and z are
         interface-consistent, Ap and r stay in local form (see the JAX method
@@ -773,7 +916,7 @@ class MultigridSolver:
         JAX package's arithmetic — the same peak memory as keeping Ap for
         the algebraically equal -alpha <z, Ap>, and no extra copy pass."""
         top = self.nlevels - 1
-        Ap = self._constrain(self._apply_op(p, coeff, top), top)
+        Ap = self._constrain(self._apply_op(p, coeff, top), top, Ls)
         alpha = self._safe_div(rz, self._vdot(p, Ap))
         x.addcmul_(p, alpha)
         if flexible:
@@ -782,7 +925,8 @@ class MultigridSolver:
             r.addcmul_(Ap, alpha, value=-1.0)
         del Ap
         z, _ = self._vcycle_impl(
-            torch.zeros_like(x), r, coeff, chol, lam_max, need_r=False, x_zero=True
+            torch.zeros_like(x), r, coeff, chol, lam_max, need_r=False, x_zero=True,
+            Ls=Ls, interior=interior,
         )
         rz_new = self._vdot(z, r)
         num = rz_new - self._vdot(z, r_old) if flexible else rz_new
@@ -792,54 +936,84 @@ class MultigridSolver:
         return x, r, p, rz_new, self._pcg_rnorm(r)
 
     def pcg(self, b, coeff, chol=None, lam_max=None, x=None, *, iters: int = 50,
-            tol: float = 0.0, flexible: bool | None = None):
+            tol: float = 0.0, Ls=None, interior=None, flexible: bool | None = None):
         """Solve A u = b by V-cycle-preconditioned CG; one V-cycle plus one
         fine-level apply per iteration. ``b`` is the local (duplicated-
         contribution) rhs. ``flexible`` (Polak-Ribiere beta) defaults to
         True for the tolerance-stopped coarse solves ("cg", "mg") and False
         for the direct ones. Returns (x, history), history = exact first-copy
         residual norms (index 0 = initial residual). ``x`` is not modified."""
+        init, step = self.pcg_stepper(
+            coeff, chol, lam_max, flexible=flexible, Ls=Ls, interior=interior
+        )
+        state = init(b, x=x)
+        history = [float(state[4])]
+        for _ in range(iters):
+            state = step(state)
+            history.append(float(state[4]))
+            if tol and history[-1] <= tol * history[0]:
+                break
+        return state[0], history
+
+    def pcg_stepper(self, coeff, chol=None, lam_max=None, *, flexible=None,
+                    Ls=None, interior=None):
+        """Stepwise PCG: returns ``(init, step)`` with ``init(b, x=None) ->
+        state`` and ``step(state) -> state``, ``state = (x, r, p, rz, rn)``:
+        state[0] is the iterate and state[4] the exact first-copy residual
+        norm (a device scalar). The homogenization driver's ``inner="pcg"``
+        evaluates its integrals on the iterate between steps. ``init``
+        copies a given start ``x`` (a non-zero start is allowed); ``step``
+        updates the state's tensors in place where it can, so a state must
+        not be stepped twice."""
         self._check_setup(chol, lam_max)
         if flexible is None:
             flexible = self.coarse_kind not in ("chol", "inv")
         lam_max = float(lam_max)
-        x = self.zero_states()[0] if x is None else x.clone()
-        x, r, p, rz, rn = self._pcg_init_impl(x, b, coeff, chol, lam_max)
-        history = [float(rn)]
-        for _ in range(iters):
-            x, r, p, rz, rn = self._pcg_step_impl(
-                x, r, p, rz, coeff, chol, lam_max, flexible=flexible
-            )
-            history.append(float(rn))
-            if tol and history[-1] <= tol * history[0]:
-                break
-        return x, history
+        Ls = self._check_Ls(Ls)
+        interior = self._check_interior(interior)
 
-    def _fmg_impl(self, b_top, coeff, chol, lam_max, nu):
+        def init(b, x=None):
+            x = self.zero_states()[0] if x is None else x.clone()
+            return self._pcg_init_impl(x, b, coeff, chol, lam_max, Ls=Ls, interior=interior)
+
+        def step(state):
+            x, r, p, rz, _ = state
+            return self._pcg_step_impl(
+                x, r, p, rz, coeff, chol, lam_max, flexible=flexible, Ls=Ls,
+                interior=interior,
+            )
+
+        return init, step
+
+    def _fmg_impl(self, b_top, coeff, chol, lam_max, nu, Ls=None, interior=None):
         top = self.nlevels - 1
         bs = [None] * self.nlevels
         bs[top] = b_top
         for k in range(top, 0, -1):
-            bs[k - 1] = restrict(self._constrain(bs[k], k), self.levels[k].P_up)
-        x = self._coarse_solve(bs[0], coeff, chol)
+            bs[k - 1] = restrict(self._constrain(bs[k], k, Ls), self.levels[k].P_up)
+        x = self._coarse_solve(bs[0], coeff, chol, interior)
         r = None
         for k in range(1, top + 1):
             x = torch.matmul(x, self.levels[k].P_up.T)
             for i in range(nu):
                 x, r = self._vcycle_impl(
                     x, bs[k], coeff, chol, lam_max, top=k,
-                    need_r=(k == top and i == nu - 1),
+                    need_r=(k == top and i == nu - 1), Ls=Ls, interior=interior,
                 )
         return x, r
 
-    def fmg(self, b, coeff, chol=None, lam_max=None, nu: int = 1):
+    def fmg(self, b, coeff, chol=None, lam_max=None, nu: int = 1, Ls=None,
+            interior=None):
         """Full-multigrid (F-cycle) initializer: restrict the rhs down the
         hierarchy, solve at the base, then ascend — prolong and run ``nu``
         V-cycles per level. Returns (x, r_finest) like ``vcycle``."""
         assert nu >= 1, "fmg needs at least one V-cycle per ascent level"
         assert self.nlevels >= 2, "fmg needs a hierarchy"
         self._check_setup(chol, lam_max)
-        return self._fmg_impl(b, coeff, chol, float(lam_max), int(nu))
+        return self._fmg_impl(
+            b, coeff, chol, float(lam_max), int(nu), Ls=self._check_Ls(Ls),
+            interior=self._check_interior(interior),
+        )
 
     def solve(self, b, sigma_el, lam: float = 0.0, *, tol: float = 1e-8,
               max_cycles: int = 100, method: str = "auto", x=None,
@@ -851,12 +1025,12 @@ class MultigridSolver:
             method=method, x=x, verbose=verbose,
         )
 
-    def initial_residual_norm(self, b, coeff, x=None):
+    def initial_residual_norm(self, b, coeff, x=None, Ls=None):
         """Exact first-copy norm of the constrained combined residual
         b - A x (x=None means zero)."""
         top = self.nlevels - 1
         r = b if x is None else self._apply_op(x, coeff, top, b=b)
-        return self.residual_norm(self._combine_constrained(r, top))
+        return self.residual_norm(self._combine_constrained(r, top, self._check_Ls(Ls)))
 
     def combine(self, x, k=None):
         """Interface combine at level k (default: finest)."""

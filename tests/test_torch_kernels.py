@@ -8,7 +8,12 @@ of chip_smoke.py's kernel phase: K1 relative norm error <= 1e-5 in float32
 (a 7n-term sum in another order) and 1e-12 in float64; K2 bitwise-equal
 copies and <= 1e-6 from the plain form; K3 <= 1e-6; K6 weights and apply
 <= 2e-6 (float32) / 1e-13 (float64) of their scale, distribute exact; K7
-gathers exact and the segment sum bitwise equal on two launches.
+gathers exact and the segment sum bitwise equal on two launches; K2 with
+the mask epilogue bitwise equal to the plain combine times the mask; K8
+(gather combine) bitwise equal to its plain form, with and without the
+mask; K9 (sigma integrals) within 1e-5 (float32) / 1e-12 (float64) of its
+plain form, relative to the sum of the absolute terms, and bitwise equal on
+two launches.
 
 The CPU tests check the wrappers' contract: CPU tensors take the plain path
 and count no launch; malformed inputs raise."""
@@ -21,7 +26,9 @@ from homogenization_jl_tpu_torch.csrc.build import LAUNCHES
 from homogenization_jl_tpu_torch.fem.local_operators import build_level_operators
 from homogenization_jl_tpu_torch.mesh.grid import hypercube
 from homogenization_jl_tpu_torch.ops import apply as t_apply
+from homogenization_jl_tpu_torch.models.checkerboard import ordered_hypercube
 from homogenization_jl_tpu_torch.ops import chebyshev as t_cheb
+from homogenization_jl_tpu_torch.ops import integrals as t_int
 from homogenization_jl_tpu_torch.ops import interfaces as t_if
 from homogenization_jl_tpu_torch.ops import stencil as t_stencil
 from homogenization_jl_tpu_torch.ops import structured as t_st
@@ -308,3 +315,78 @@ def test_segment_sum_replaces_atomic_scatter(plan, cuda):
     first = t_if.copy_to_base(vals, tab)
     for _ in range(50):
         assert torch.equal(t_if.copy_to_base(vals, tab), first)
+
+
+# --------------------------------------------------------------------- #
+# K2 mask epilogue, K8, K9 (the driver)
+# --------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_structured_combine_mask_epilogue(plan, cuda, dtype):
+    rng = np.random.default_rng(8)
+    k = plan.nlevels - 1
+    st = _tables(plan, k, cuda)
+    shape = (plan.base.nelements, plan.n_local(k))
+    x = torch.as_tensor(rng.standard_normal(shape), device=cuda).to(dtype)
+    m = torch.as_tensor(rng.random(shape) < 0.7, device=cuda)
+    n0 = LAUNCHES["structured_combine"]
+    got = t_st.combine_structured(x, st, mask=m)
+    torch.cuda.synchronize()
+    assert LAUNCHES["structured_combine"] == n0 + 1
+    assert torch.equal(got, t_st.combine_structured(x, st) * m)
+    with pytest.raises(ValueError):
+        t_st.combine_structured(x, st, constrain=True, mask=m)
+
+
+@pytest.fixture(scope="module", params=[(2, 3), (3, 2)], ids=["2d", "3d"])
+def ordered_plan(request):
+    dim, radius = request.param
+    return build_grid_plan(ordered_hypercube(dim, radius)[0], 3, slot_tables=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gather_combine_kernel_matches_plain(ordered_plan, cuda, dtype):
+    rng = np.random.default_rng(9)
+    for k in range(ordered_plan.nlevels):
+        gt = t_if.build_gather_tables(ordered_plan, k, cuda)
+        shape = (ordered_plan.base.nelements, ordered_plan.n_local(k))
+        x = torch.as_tensor(rng.standard_normal(shape), device=cuda).to(dtype)
+        m = torch.as_tensor(ordered_plan.levels[k].boundary_mask != 0, device=cuda)
+        n0 = LAUNCHES["gather_combine"]
+        for mk in (None, m):
+            got = t_if.combine_gather_rows(x, gt, mask=mk)
+            ref = t_if.combine_gather_rows_plain(x, gt, mask=mk)
+            torch.cuda.synchronize()
+            # same values added in the same order: the same bits
+            assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8)), (k, mk is None)
+        assert LAUNCHES["gather_combine"] == n0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_local", [15, 35, 165])
+def test_integrals_kernel_matches_plain(cuda, dtype, n_local):
+    rng = np.random.default_rng(10)
+    E = 5000
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+
+    def t(a):
+        return torch.as_tensor(a, device=cuda).to(dtype)
+
+    A = rng.standard_normal((n_local, n_local))
+    mass = t(A @ A.T / n_local)
+    x, w = t(rng.random((E, n_local))), t(rng.standard_normal((E, n_local)))
+    detJ, mask = t(rng.uniform(0.5, 2.0, E)), t((rng.random(E) < 0.8).astype(float))
+    n0 = LAUNCHES["integrals"]
+    for mode in (t_int.TERMS, t_int.FIRST_QUIRK, t_int.FIRST, t_int.AREA):
+        args = (None, None, None) if mode == t_int.AREA else (x, mass, w)
+        got = t_int.sigma_integral(mode, *args, detJ, mask, scale=1.5)
+        again = t_int.sigma_integral(mode, *args, detJ, mask, scale=1.5)
+        ref = t_int.sigma_integral_plain(mode, *args, detJ, mask, scale=1.5)
+        absargs = (None, None, None) if mode == t_int.AREA else (x.abs(), mass.abs(), w.abs())
+        scale = t_int.sigma_integral_plain(mode, *absargs, detJ, mask, scale=1.5)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), mode  # fixed order: the same bits
+        assert abs(float(got) - float(ref)) <= tol * float(scale), mode
+    assert LAUNCHES["integrals"] == n0 + 8
