@@ -6,15 +6,17 @@ on it. Phases (each prints one line; any failure raises, and the script
 then exits non-zero without the final line):
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
-  2. build the CUDA kernels (K1, K2, K6, K7, K8, K9; one nvcc per source,
+  2. build the CUDA kernels (K1, K2, K4-K10 but K3; one nvcc per source,
      started together) from csrc/ into build/kernels/, warm up K3 (Triton);
   3. every kernel against its plain PyTorch version on the card, at the
-     main path's shapes, float32 and float64: K1-K3 at every level (n =
-     4..969, E = 196,608); K6 on the 33^3 lattice of the type-major base;
-     K7 on the base's 786,432 -> 35,937 segment sum, the aux hierarchy's
-     cube-major 98,304 -> 4,913 one, and the aux transfers ([24576, 10]);
-     the kernel and plain times at the float32 shapes; the segment sum
-     bitwise equal on two launches;
+     main path's shapes, float32 and float64: K1-K5 and K10 at every level
+     (n = 4..969, E = 196,608; K4 prolong_add bitwise equal to the dense
+     product, K5 bitwise equal on two launches and to its plain form, K10
+     bitwise equal to its plain form, den == 0 included); K6 on the 33^3
+     lattice of the type-major base; K7 on the base's 786,432 -> 35,937
+     segment sum, the aux hierarchy's cube-major 98,304 -> 4,913 one, and
+     the aux transfers ([24576, 10]); the kernel, plain and library times
+     at the float32 shapes; the segment sum bitwise equal on two launches;
  3b. the driver's kernels against their plain versions, float32 and
      float64: K9 (sigma integrals, all forms, both reference_quirk
      branches) at E = 196,608, n = 969, bitwise equal on two launches; K8
@@ -23,11 +25,11 @@ then exits non-zero without the final line):
      and at every level of the 2D base of phase 8, bitwise equal to the
      plain form with every copy of a shared DOF bitwise equal; the masked
      K2 fold at n = 969, bitwise equal to the plain combine times the mask;
-     the time and bound of the main path's functions still to port (K4
-     restrict / prolong_add, K5 dot) at the finest float32 shape;
   4. small float64 solves through the kernels against scipy's sparse
-     direct solve of the explicitly refined operator: coarse="chol" on
-     hypercube(3, 4) and coarse="mg" on hypercube(3, 8), 3 levels each;
+     direct solve of the explicitly refined operator, 3 levels each:
+     Chebyshev with coarse="chol" on hypercube(3, 4) and coarse="mg" on
+     hypercube(3, 8); smoother="cg", "cg_exact" and a W-cycle ("cg_exact")
+     with coarse="chol" on hypercube(3, 4);
   5. the main path at full size: the 3D checkerboard on
      hypercube(3, 32, order="type"), 5 levels (190,513,152 DOFs), float32,
      MultigridSolver(smoother="chebyshev", coarse="mg",
@@ -48,10 +50,27 @@ then exits non-zero without the final line):
      seed=3), with geometry="ordered" (the gather combine K8, the mask
      constraint, a plan and solver per step) and "lattice" (the masked K2
      fold, the masked coarse solve): two steps each (radius 56, then 55),
-     the two sigmas within 50 x tolerance;
+     the two sigmas within 50 x tolerance; then the same call with the
+     driver's defaults (ordered, smoother="cg", inner="vcycle",
+     coarse="chol"), its sigma within 50 x tolerance of the ordered
+     Chebyshev one;
+  9. the JAX bench's vcycle mode (bench.py, BENCH_SOLVE_MODE=vcycle) at
+     full size: phase 5's problem with MultigridSolver(float32,
+     smoother="cg_exact", coarse="mg", coarse_mg_tol=5e-2,
+     smooth_precision="high"), solve(method="vcycle", tol=1e-3,
+     max_cycles=30), twice (bitwise equal), then the same in float64:
+     1e-2 within 13 cycles and below 1e-3 within 30 in both, float32
+     within 5% of float64 while float64 is above 2e-2; seconds per
+     V-cycle, peak memory; and, as a control, the float32 solve with K1's
+     residual form unshifted (b - A x summed as is), which stalls above
+     1e-3, and the error of both forms' fresh residual against float64;
+ 10. the flagship driver with FLAGSHIP_INNER=vcycle, as
+     scripts/run_flagship.py calls it: phase 7's call with
+     smoother="cg_exact", inner="vcycle"; sigma within 1e-3 of the TPU
+     record 1.2947099209 (12 cycles; ACCURACY.md) in at most 24 cycles;
 then one JSON line with the kernels (each kernel's launches on its path:
-K8 on phase 8's ordered run, the others on phase 7), and last the device
-JSON line.
+K4, K5 and K10 on phase 10, K8 on phase 8's ordered run, the others on
+phase 7), and last the device JSON line.
 
 Usage: python3 chip_smoke.py            (one card, full size)
        python3 chip_smoke.py --n 16     (a smaller base, for rehearsals)
@@ -112,6 +131,21 @@ KERNELS = {
         source="homogenization_jl_tpu_torch/csrc/integrals.cu",
         replaces="homogenization_jl_tpu/models/checkerboard.py:188",
     ),
+    "transfer": dict(
+        route="cuda",
+        source="homogenization_jl_tpu_torch/csrc/transfer.cu",
+        replaces="homogenization_jl_tpu/ops/transfer.py:18",
+    ),
+    "masked_dot": dict(
+        route="cuda",
+        source="homogenization_jl_tpu_torch/csrc/dots.cu",
+        replaces="homogenization_jl_tpu/solver/multigrid.py:510",
+    ),
+    "cg_update": dict(
+        route="cuda",
+        source="homogenization_jl_tpu_torch/csrc/cg_smoother.cu",
+        replaces="homogenization_jl_tpu/solver/multigrid.py:765",
+    ),
 }
 # NVIDIA's data sheet for the H100 SXM:
 # float32 outside the tensor cores, and HBM bandwidth
@@ -120,6 +154,14 @@ PEAK_HBM_BYTES = 3.35e12
 # the JAX driver's flagship result on the TPU (ACCURACY.md, "Flagship
 # driver"): a check on the answer, not a yardstick of speed
 FLAGSHIP_SIGMA = 1.2947696447
+# the same with FLAGSHIP_INNER=vcycle (the cg_exact smoother; phase 10)
+FLAGSHIP_VCYCLE_SIGMA = 1.2947099209
+# phase 9's bars: the bench's vcycle mode takes 11 cycles to 1e-2 in
+# float32 and float64, and reaches 1e-3 within BENCH_MAX_CYCLES = 30 (the
+# TPU took 19, PERFORMANCE.md; float32 needs K1's shifted residual form,
+# ops/apply.py)
+VCYCLE_TO_1E2 = 13
+VCYCLE_MAX = 30
 # scripts/run_flagship.py's call (phase 7) and phase 8's 2D recurrence
 FLAGSHIP = dict(n=2, dim=3, refinements=4)
 RECURRENCE_2D = dict(n=5, dim=2, refinements=4)
@@ -160,11 +202,17 @@ def combine_adds(plan, k, E):
 
 # the kernels each driven path must launch
 MAIN_PATH = ("element_apply", "structured_combine", "chebyshev_update", "lattice_stencil",
-             "coarse_gather")
+             "coarse_gather", "transfer", "masked_dot")
 FLAGSHIP_PATH = MAIN_PATH + ("integrals",)
 ORDERED_2D_PATH = ("element_apply", "structured_combine", "chebyshev_update", "coarse_gather",
-                   "gather_combine", "integrals")
+                   "gather_combine", "integrals", "transfer", "masked_dot")
 LATTICE_2D_PATH = FLAGSHIP_PATH
+# the CG smoothers' paths (K3 runs there as the level-0 junction smoother
+# of coarse="mg")
+VCYCLE_PATH = MAIN_PATH + ("cg_update",)
+FLAGSHIP_VCYCLE_PATH = FLAGSHIP_PATH + ("cg_update",)
+DEFAULTS_2D_PATH = ("element_apply", "coarse_gather", "gather_combine", "integrals",
+                    "transfer", "masked_dot", "cg_update")
 
 
 def check(cond, msg):
@@ -285,6 +333,14 @@ def check_kernels(solver, plan, coeff64, dev):
                     cuda_ms(lambda: k_apply.element_apply_plain(x, coeff, stack, b=b), 3),
                     nbytes=4 * (3 * E * n + E * P + P * n * n), flops=2 * E * n * n * P,
                 )
+                # the plain apply A x (the smoothers' direction applies), and
+                # how dense the stack K1 multiplies is: nonzero columns per
+                # row of the union of its P slices
+                report["element_apply_f32_ms"] = dict(
+                    residual=timing["element_apply"]["ms"],
+                    apply=cuda_ms(lambda: k_apply.element_apply(x, coeff, stack), 3),
+                    stack_nonzeros_per_row=float((stack != 0).any(0).sum(1).double().mean()),
+                    n=n)
             del ref, got
 
             # K2: all three modes, <= 1e-6 vs plain, copies bitwise equal
@@ -617,40 +673,134 @@ def check_driver_kernels(hz, solver, plan, dev):
     return timing, report
 
 
-def rows_to_port(solver, plan, dev):
-    """The main path's device functions that are still plain PyTorch, K4
-    (restrict, prolong_add: a matrix product with the prolongation, counted
-    as the <= 2 nonzeros per fine row its sparse form needs) and K5 (the dot
-    of two finest vectors): their time at the finest float32 shape and their
-    bound. Returns {row: {plain_ms, bound_ms, bound_by}}."""
+def check_cg_kernels(solver, plan, dev):
+    """Phase 3, the kernels of the CG smoothers' path at every level of the
+    main path (E = 196,608, n = 4..969), float32 and float64: K4
+    (prolong_add bitwise equal to the dense product, restrict within 1e-6 /
+    1e-14 of it), K5 (every mask/scale form bitwise equal on two launches
+    and equal to its plain form, which sums in the kernel's order) and K10
+    (bitwise equal to its plain form). Returns ({kernel: entry} at the
+    finest float32 shape, a per-level report)."""
     import torch
 
-    from homogenization_jl_tpu_torch.ops.transfer import prolong_add, restrict
+    from homogenization_jl_tpu_torch.ops import cg as k_cg
+    from homogenization_jl_tpu_torch.ops import dots as k_dots
+    from homogenization_jl_tpu_torch.ops import transfer as k_tr
 
+    g = torch.Generator(device=dev).manual_seed(2468)
     top = solver.nlevels - 1
-    E, n, nc = plan.base.nelements, plan.n_local(top), plan.n_local(top - 1)
-    P = solver.levels[top].P_up
-    nnz = int((P != 0).sum())
-    g = torch.Generator(device=dev).manual_seed(5)
-    r = torch.randn((E, n), generator=g, device=dev, dtype=P.dtype)
-    xc = torch.randn((E, nc), generator=g, device=dev, dtype=P.dtype)
-    out = {
-        "K4_restrict": dict(plain_ms=cuda_ms(lambda: restrict(r, P), 10),
-                            **bound(4 * (E * n + E * nc), 2 * E * nnz)),
-        "K4_prolong_add": dict(plain_ms=cuda_ms(lambda: prolong_add(r, xc, P), 10),
-                               **bound(4 * (2 * E * n + E * nc), 2 * E * nnz + E * n)),
-        "K5_vdot": dict(plain_ms=cuda_ms(lambda: solver._vdot(r, r), 10),
-                        **bound(4 * E * n, 2 * E * n)),
-    }
-    del r, xc
-    torch.cuda.empty_cache()
-    return out
+    E = plan.base.nelements
+    report = {"transfer": [], "masked_dot": [], "cg_update": []}
+    timing, extra = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        f32 = dtype == torch.float32
+        name = str(dtype)[6:]
+        isz = 4 if f32 else 8
+        for k in range(solver.nlevels):
+            n = plan.n_local(k)
+            fin = f32 and k == top
+            # K4: the transfer between level k and k - 1
+            if k > 0:
+                T = k_tr.build_transfer_tables(solver.levels[k].P_up.to(dtype))
+                P = T.P
+                n_c = P.shape[1]
+                nnz = int(T.rows.numel())
+                xf = torch.randn((E, n), generator=g, device=dev, dtype=dtype)
+                xc = torch.randn((E, n_c), generator=g, device=dev, dtype=dtype)
+                got = k_tr.prolong_add(xf, xc, T)
+                check(torch.equal(got, k_tr.prolong_add_plain(xf, xc, P)),
+                      f"K4 prolong_add level {k} {name}: differs from the dense product")
+                check(torch.equal(k_tr.prolong_add(None, xc, T), k_tr.prolong_add_plain(None, xc, P)),
+                      f"K4 prolongation level {k} {name}: differs from the dense product")
+                r = k_tr.restrict(xf, T)
+                ref = k_tr.restrict_plain(xf, P)
+                err = float((r - ref).abs().max() / ref.abs().max())
+                check(err <= (1e-6 if f32 else 1e-14), f"K4 restrict level {k} {name}: rel err {err}")
+                report["transfer"].append((name, n, n_c, err))
+                if fin:
+                    timing["transfer"] = entry(
+                        (got - k_tr.prolong_add_plain(xf, xc, P)).abs().max(),
+                        cuda_ms(lambda: k_tr.prolong_add(xf, xc, T), 10),
+                        cuda_ms(lambda: k_tr.prolong_add_plain(xf, xc, P), 10),
+                        nbytes=isz * (2 * E * n + E * n_c), flops=2 * E * nnz,
+                        library_ms=cuda_ms(lambda: torch.addmm(xf, xc, P.T), 10),
+                    )
+                    extra["restrict"] = entry(
+                        err, cuda_ms(lambda: k_tr.restrict(xf, T), 10),
+                        cuda_ms(lambda: k_tr.restrict_plain(xf, P), 10),
+                        nbytes=isz * (E * n + E * n_c), flops=2 * E * nnz - E * n_c,
+                        library_ms=cuda_ms(lambda: torch.matmul(xf, P), 10),
+                    )
+                del xf, xc, got, r, ref, T, P
+            # K5: every form, two launches and the plain form
+            a = torch.randn((E, n), generator=g, device=dev, dtype=dtype)
+            bb = torch.randn((E, n), generator=g, device=dev, dtype=dtype)
+            w = solver.levels[k].first_copy_mask
+            d = torch.rand((E, n), generator=g, device=dev, dtype=dtype) + 0.5
+            worst = 0.0
+            for mask, scale in ((None, None), (w, None), (w, d)):
+                got = k_dots.dot(a, bb, mask=mask, scale=scale)
+                again = k_dots.dot(a, bb, mask=mask, scale=scale)
+                ref = k_dots.dot_plain(a, bb, mask=mask, scale=scale)
+                check(torch.equal(_bits(got.view(1)), _bits(again.view(1))),
+                      f"K5 level {k} {name}: two launches differ")
+                check(float(got) == float(ref), f"K5 level {k} {name}: {float(got)} vs plain {float(ref)}")
+                ref64 = float(torch.dot((a * (1 if mask is None else mask)).reshape(-1).double(),
+                                        ((1 if scale is None else scale) * bb).reshape(-1).double()))
+                mag = float(torch.dot(a.abs().reshape(-1).double(), bb.abs().reshape(-1).double()))
+                worst = max(worst, abs(float(got) - ref64) / mag)
+            report["masked_dot"].append((name, n, worst))
+            if fin:
+                timing["masked_dot"] = entry(
+                    0.0, cuda_ms(lambda: k_dots.dot(a, bb), 20),
+                    cuda_ms(lambda: k_dots.dot_plain(a, bb), 2),
+                    nbytes=isz * 2 * E * n, flops=2 * E * n,
+                    library_ms=cuda_ms(lambda: torch.dot(a.view(-1), bb.view(-1)), 20),
+                )
+                extra["masked_dot_one_operand_masked"] = entry(
+                    0.0, cuda_ms(lambda: k_dots.dot(a, a, mask=w), 20),
+                    cuda_ms(lambda: k_dots.dot_plain(a, a, mask=w), 2),
+                    nbytes=isz * E * n + E * n, flops=2 * E * n,
+                )
+            del got, again, ref, d
+            # K10: both updates, den != 0 and den == 0
+            num = torch.tensor(0.7, dtype=dtype, device=dev)
+            for den_v in (1.3, 0.0):
+                den = torch.tensor(den_v, dtype=dtype, device=dev)
+                p = torch.randn((E, n), generator=g, device=dev, dtype=dtype)
+                xr, rr, pr = a.clone(), bb.clone(), a.clone()
+                k_cg.cg_step_plain(xr, rr, p, bb, num, den)
+                k_cg.cg_direction_plain(pr, a, p, num, den)
+                xk, rk, pk = a.clone(), bb.clone(), a.clone()
+                k_cg.cg_step(xk, rk, p, bb, num, den)
+                k_cg.cg_direction(pk, pk, p, num, den)
+                for got, ref, what in ((xk, xr, "x"), (rk, rr, "r"), (pk, pr, "p")):
+                    check(torch.equal(got, ref), f"K10 {what} level {k} {name} den={den_v}: differs from plain")
+                if fin and den_v != 0:
+                    timing["cg_update"] = entry(
+                        0.0, cuda_ms(lambda: k_cg.cg_step(xk, rk, p, bb, num, den), 10),
+                        cuda_ms(lambda: k_cg.cg_step_plain(xr, rr, p, bb, num, den), 10),
+                        nbytes=isz * 6 * E * n, flops=4 * E * n,
+                    )
+                    extra["cg_direction"] = entry(
+                        0.0, cuda_ms(lambda: k_cg.cg_direction(pk, pk, p, num, den), 10),
+                        cuda_ms(lambda: k_cg.cg_direction_plain(pr, a, p, num, den), 10),
+                        nbytes=isz * 3 * E * n, flops=2 * E * n,
+                    )
+                del p, xr, rr, pr, xk, rk, pk
+            report["cg_update"].append((name, n, "bitwise"))
+            del a, bb
+            torch.cuda.empty_cache()
+    return timing, dict(per_level=report, f32_other_forms=extra)
 
 
 # --------------------------------------------------------------------- #
 # phase 4: small float64 solve against a sparse direct solve
 # --------------------------------------------------------------------- #
-def small_solve_error(hz, dev, n, coarse, **kw):
+def small_solve_error(hz, dev, n, **kw):
+    """Relative max error of a float64 solve(tol=1e-10) (``kw``: the
+    solver's options; the Chebyshev smoother unless named) against scipy's
+    sparse direct solve, and the solve's iterations."""
     import scipy.sparse.linalg as spl
     import torch
 
@@ -665,7 +815,7 @@ def small_solve_error(hz, dev, n, coarse, **kw):
     nlevels = 3
     base, sigma, plan, b = problem(hz, n, nlevels, seed=1)
     solver = hz.MultigridSolver(plan, dtype=torch.float64, device=dev,
-                                smoother="chebyshev", coarse=coarse, **kw)
+                                **dict(dict(smoother="chebyshev"), **kw))
     x, hist = solver.solve(torch.as_tensor(b, device=dev), sigma, 0.0, tol=1e-10)
     check(hist[-1] <= 1e-10, hist)
 
@@ -799,8 +949,183 @@ def recurrence_2d(kbuild, dev):
                              wall_s=time.perf_counter() - t0, launches=out[geometry])
     diff = abs(sig["ordered"] - sig["lattice"])
     check(diff < 50 * tol, f"2D: ordered {sig['ordered']} vs lattice {sig['lattice']}")
+
+    # the driver's defaults: ordered, smoother="cg", inner="vcycle",
+    # coarse="chol"
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    sigma, trace = checkerboard_homogenization(
+        **RECURRENCE_2D, dtype=torch.float64, tolerance=tol, seed=3, return_trace=True,
+        device=dev,
+    )
+    torch.cuda.synchronize()
+    out["defaults"] = dict(kbuild.LAUNCHES)
+    check(all(out["defaults"][k] > 0 for k in DEFAULTS_2D_PATH),
+          f"2D defaults: a kernel never ran: {out['defaults']}")
+    check(math.isfinite(sigma), f"2D defaults: sigma {sigma}")
+    d_def = abs(sigma - sig["ordered"])
+    check(d_def < 50 * tol, f"2D defaults: sigma {sigma} vs chebyshev {sig['ordered']}")
+    rep["defaults"] = dict(sigma=sigma, sigma_steps=trace.sigma_steps,
+                           cycles_per_step=trace.cycles_per_step, residuals=trace.residuals,
+                           setup_s=trace.setup_seconds, wall_s=time.perf_counter() - t0,
+                           launches=out["defaults"], sigma_minus_chebyshev=sigma - sig["ordered"])
     say(8, ok=True, sigma_diff=diff, **rep)
     return out
+
+
+# --------------------------------------------------------------------- #
+# phases 9 and 10: the CG smoothers' paths at full size
+# --------------------------------------------------------------------- #
+def residual_shift_control(solver, x, b, sigma):
+    """What K1's shifted residual form buys in float32: the error of the
+    fresh residual b - A x on the float32 iterate x, by K1's residual form
+    and by b - (A x) summed unshifted (K1's plain apply), against the same
+    product in float64 arithmetic, relative to |b|; and the solve's history
+    with every residual unshifted."""
+    import torch
+
+    from homogenization_jl_tpu_torch.ops import apply as k_apply
+
+    top = solver.nlevels - 1
+    coeff = solver.coefficients(sigma, 0.0)
+    stack = solver.levels[top].stack
+    w = solver.levels[top].first_copy_mask
+    ref = solver._combine_constrained(k_apply.element_apply_plain(
+        x.double(), coeff.double(), stack.double(), b=b.double()).float(), top)
+    b_norm = float(solver.residual_norm(b))
+
+    def err(r):
+        d = (solver._combine_constrained(r, top).double() - ref.double()) * w
+        return float(torch.linalg.vector_norm(d)) / b_norm
+
+    out = dict(fresh_residual_err_shifted=err(k_apply.element_apply(x, coeff, stack, b=b)),
+               fresh_residual_err_unshifted=err(b - k_apply.element_apply(x, coeff, stack)))
+    del ref
+
+    def unshifted_op(x_, coeff_, k, b=None, out=None):
+        if b is None:
+            return k_apply.element_apply(x_, coeff_, solver.levels[k].stack, out=out)
+        y = b - k_apply.element_apply(x_, coeff_, solver.levels[k].stack)
+        return y if out is None else out.copy_(y)
+
+    solver._apply_op = unshifted_op
+    try:
+        _, hist = solver.solve(b, sigma, 0.0, tol=1e-3, method="vcycle", max_cycles=VCYCLE_MAX)
+    finally:
+        del solver._apply_op
+    out["unshifted_history"] = hist
+    return out
+
+
+def bench_vcycle(hz, kbuild, plan, sigma, b_np, dev, smi, dense):
+    """Phase 9: the JAX bench's vcycle mode (cg_exact, coarse="mg") at full
+    size: in float32 as the bench runs it, solved twice, and once in
+    float64; then the float32 control without K1's residual shift. Returns
+    the launches of the first solve."""
+    import torch
+
+    out, hists = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        solver = hz.MultigridSolver(plan, dtype=dtype, device=dev, smoother="cg_exact",
+                                    coarse="mg", coarse_mg_tol=5e-2, smooth_precision="high",
+                                    **dense)
+        b = torch.as_tensor(b_np, device=dev, dtype=dtype)
+
+        def solve():
+            return solver.solve(b, sigma, 0.0, tol=1e-3, method="vcycle",
+                                max_cycles=VCYCLE_MAX)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        solver.coarse_iterations.clear()
+        kbuild.reset_launches()
+        t0 = time.perf_counter()
+        x, hist = solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kbuild.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        cits = list(solver.coarse_iterations)
+        cycles = len(hist) - 1
+        check(all(launches[k] > 0 for k in VCYCLE_PATH),
+              f"vcycle {name}: a kernel never ran: {launches}")
+        check(x.shape == b.shape and bool(torch.isfinite(x).all()),
+              f"vcycle {name}: non-finite solution")
+        to_1e2 = next((i for i in range(1, len(hist)) if hist[i] < 1e-2), None)
+        check(to_1e2 is not None and to_1e2 <= VCYCLE_TO_1E2,
+              f"vcycle {name}: {to_1e2} cycles to 1e-2 > {VCYCLE_TO_1E2}: {hist}")
+        check(hist[-1] < 1e-3, f"vcycle {name}: relative residual {hist[-1]} >= 1e-3 after "
+              f"{cycles} cycles: {hist}")
+        rep = dict(history=hist, cycles=cycles, cycles_to_1e2=to_1e2, solve_wall_s=wall,
+                   max_memory_allocated=peak, coarse_solves=len(cits),
+                   coarse_pcg_iters=dict(min=min(cits), max=max(cits),
+                                         mean=sum(cits) / len(cits)),
+                   launches=launches)
+        if dtype == torch.float32:
+            first = launches
+            x2, hist2 = solve()
+            check(hist2 == hist, f"vcycle: second solve's history differs: {hist2} vs {hist}")
+            check(torch.equal(_bits(x2), _bits(x)), "vcycle: second solve's solution differs")
+            del x2
+            rep["second_solve_bitwise_equal"] = True
+            rep.update(residual_shift_control(solver, x, b, sigma))
+        # one V-cycle from the solution, CUDA events over 5 cycles
+        coeff = solver.coefficients(sigma, 0.0)
+        setup = solver.coarse_setup(sigma, 0.0)
+        sec = cuda_ms(lambda: solver._vcycle_impl(x, b, coeff, setup, None), 5) / 1e3
+        rep.update(sec_per_vcycle=sec, vcycle_dof_per_s=x.numel() / sec,
+                   wall_s_per_cycle=wall / cycles)
+        out[name], hists[name] = rep, hist
+        del solver, x, b, coeff, setup
+        torch.cuda.empty_cache()
+    # float32 follows float64 until its rounding floor
+    h32, h64 = hists["float32"], hists["float64"]
+    above = [i for i in range(min(len(h32), len(h64))) if h64[i] > 2e-2]
+    dev32 = max(abs(h32[i] / h64[i] - 1) for i in above)
+    check(dev32 < 0.05, f"vcycle: float32 leaves float64 above 2e-2 by {dev32}")
+    say(9, ok=True, smoother="cg_exact", coarse="mg", dofs=int(np.prod(b_np.shape)),
+        f32_vs_f64_above_2e2=dev32, card=smi, **out)
+    return first
+
+
+def flagship_vcycle(kbuild, dev, smi):
+    """Phase 10: scripts/run_flagship.py with FLAGSHIP_INNER=vcycle at full
+    size. Returns the launches of the run."""
+    import torch
+
+    from homogenization_jl_tpu_torch.models.checkerboard import checkerboard_homogenization
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    sigma, trace = checkerboard_homogenization(
+        **FLAGSHIP, geometry="lattice", dtype=torch.float32, tolerance=1e-4,
+        seed=7, coarse="mg", smoother="cg_exact", inner="vcycle",
+        solver_opts=dict(smooth_precision="high", coarse_mg_tol=5e-2),
+        return_trace=True, device=dev,
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kbuild.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(launches[k] > 0 for k in FLAGSHIP_VCYCLE_PATH),
+          f"flagship vcycle: a kernel never ran: {launches}")
+    check(math.isfinite(sigma), f"flagship vcycle: sigma {sigma}")
+    check(abs(sigma - FLAGSHIP_VCYCLE_SIGMA) < 1e-3,
+          f"flagship vcycle: sigma {sigma} vs {FLAGSHIP_VCYCLE_SIGMA}")
+    cycles = sum(trace.cycles_per_step)
+    check(cycles <= 24, f"flagship vcycle: {cycles} cycles > 24")
+    iters = [t for step in trace.iteration_seconds for t in step]
+    say(10, ok=True, sigma=sigma, sigma_steps=trace.sigma_steps,
+        cycles_per_step=trace.cycles_per_step, residuals=trace.residuals, wall_s=wall,
+        host_init_s=trace.init_seconds, step_setup_s=trace.setup_seconds,
+        sec_per_cycle=iters, sec_per_cycle_mean=sum(iters) / len(iters),
+        max_memory_allocated=peak, sigma_minus_tpu_record=sigma - FLAGSHIP_VCYCLE_SIGMA,
+        launches=launches, card=smi)
+    torch.cuda.empty_cache()
+    return launches
 
 
 # --------------------------------------------------------------------- #
@@ -868,14 +1193,22 @@ def main(argv=None):
     timing.update(timing_c)
     del coeff64
     torch.cuda.empty_cache()
+    timing_g, report_g = check_cg_kernels(solver, plan, dev)
+    timing.update(timing_g)
     kbuild.reset_launches()  # comparison launches do not count
-    say(3, ok=True, per_level=report, coarse=report_c, main_f32=timing)
+    say(3, ok=True, per_level=report, coarse=report_c, cg_path=report_g, main_f32=timing)
     timing_d, report_d = check_driver_kernels(hz, solver, plan, dev)
     timing.update(timing_d)
     kbuild.reset_launches()
+    # K11 (the slab combine, not ported yet): K2's bytes at the shard shape
+    # of SLAB_BIG_r05.json (8 slabs of the n = 32 box, W = 4 planes and a
+    # halo plane on each side)
+    top = plan.nlevels - 1
+    slab_E = plan.base.nelements // 8 * (4 + 2) // 4
     say("3b", ok=True, report=report_d,
         f32={k: timing[k] for k in ("integrals", "gather_combine")},
-        to_port=rows_to_port(solver, plan, dev))
+        k11_slab_bound=dict(elements=slab_E, n=plan.n_local(top),
+                            **bound(4 * 2 * slab_E * plan.n_local(top), 0)))
 
     # ---- phase 4: small float64 solves vs scipy -------------------------
     small = {}
@@ -883,16 +1216,18 @@ def main(argv=None):
         ("chol", 4, dict(coarse="chol")),
         # dense limit 30: coarsening depth 1, aux hierarchy on hypercube(3, 4)
         ("mg", 8, dict(coarse="mg", coarse_mg_dense_limit=30)),
+        ("cg", 4, dict(coarse="chol", smoother="cg")),
+        ("cg_exact", 4, dict(coarse="chol", smoother="cg_exact")),
+        ("cg_exact_W", 4, dict(coarse="chol", smoother="cg_exact", cycle="W")),
     ):
         err, its = small_solve_error(hz, dev, n_small, **kw)
         check(err <= 1e-7, f"small f64 solve ({label}): rel err {err} vs spsolve")
-        small[label] = dict(n=n_small, rel_err_vs_spsolve=err, pcg_iters=its)
+        small[label] = dict(n=n_small, rel_err_vs_spsolve=err, iters=its)
     kbuild.reset_launches()
     say(4, ok=True, **small)
 
     # ---- phase 5: the main path (coarse="mg") ------------------------------
     b = torch.as_tensor(b_np, device=dev, dtype=torch.float32)
-    del b_np
 
     def solve_main(s):
         return s.solve(b, sigma, 0.0, tol=1e-4, method="auto", max_cycles=30)
@@ -992,8 +1327,20 @@ def main(argv=None):
     # ---- phase 8: the 2D recurrence with a shrink -------------------------
     launches_2d = recurrence_2d(kbuild, dev)
 
+    # ---- phase 9: the bench's vcycle mode (cg_exact) ----------------------
+    del b
+    torch.cuda.empty_cache()
+    bench_vcycle(hz, kbuild, plan, sigma, b_np, dev, smi, dense)
+    del b_np
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: the flagship driver with inner="vcycle" ----------------
+    launches_v = flagship_vcycle(kbuild, dev, smi)
+
     path_launches = {name: launches_f[name] for name in KERNELS}
     path_launches["gather_combine"] = launches_2d["ordered"]["gather_combine"]
+    for name in ("transfer", "masked_dot", "cg_update"):
+        path_launches[name] = launches_v[name]
     kernels = [
         dict(name=name, **meta, launches=path_launches[name], **timing[name])
         for name, meta in KERNELS.items()

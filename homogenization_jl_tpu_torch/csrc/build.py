@@ -30,6 +30,9 @@ LAUNCHES = {
     "coarse_gather": 0,
     "gather_combine": 0,
     "integrals": 0,
+    "transfer": 0,
+    "masked_dot": 0,
+    "cg_update": 0,
 }
 
 _CSRC = os.path.dirname(os.path.abspath(__file__))
@@ -45,8 +48,9 @@ _L = ctypes.c_longlong
 _D = ctypes.c_double
 # C entry points: name -> argtypes (every entry returns cudaGetLastError())
 _SIGNATURES = {
-    # dtype(0 f32, 1 f64), x, coeff, stack, b (or NULL), out, E, n, P, stream
-    "hz_element_apply": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # dtype(0 f32, 1 f64), x, coeff, stack, b (or NULL), row sums (with b),
+    # out, E, n, P, stream
+    "hz_element_apply": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # dtype, x, out, mask (or NULL), E, n_local, i0, n, d, ept, type_major,
     # mode, tab, stream
     "hz_structured_combine": [_I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P],
@@ -67,6 +71,16 @@ _SIGNATURES = {
     # dtype, mode, x, M, w, detJ, mask, partA, partB, blocksum, out, E, n,
     # ntile, scale, stream
     "hz_integrals": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _P],
+    # dtype, x_fine (or NULL), x_coarse, out, cols, wts, E, n_f, n_c, G, stream
+    "hz_prolong_add": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dtype, r, out, colptr, rows, wts, E, n_f, n_c, G, stream
+    "hz_restrict": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dtype, a, b, mask (or NULL), scale (or NULL), blocksum, out, N, stream
+    "hz_masked_dot": [_I, _P, _P, _P, _P, _P, _P, _L, _P],
+    # dtype, x, r (or NULL), p, Ap, num, den, N, stream
+    "hz_cg_step": [_I, _P, _P, _P, _P, _P, _P, _L, _P],
+    # dtype, out, rc, p, num, den, N, stream
+    "hz_cg_direction": [_I, _P, _P, _P, _P, _P, _L, _P],
 }
 
 

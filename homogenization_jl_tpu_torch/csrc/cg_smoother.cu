@@ -1,0 +1,109 @@
+// K10: the updates of the CG smoothers, with alpha and beta read from the
+// device.
+//
+// Replaces the update expressions of homogenization_jl_tpu/solver/
+// multigrid.py::_smooth_cg (:779-784) and ::_smooth_cg_exact (:833-840),
+// which XLA fuses into elementwise passes on the TPU:
+//
+//   cg_step:       alpha = safe_div(num, den);  x += alpha p;  r -= alpha Ap
+//   cg_direction:  beta = safe_div(num, den);   out = rc + beta p
+//
+// with safe_div(num, den) = den == 0 ? 0 : num / den (the JAX _safe_div:
+// once a smoother has converged exactly, the next step is a no-op). num and
+// den are 0-d device tensors, the outputs of kernel K5: no host read of
+// alpha or beta, so a smoothing step queues without a synchronisation.
+//
+// Bound on the H100: bytes. At the finest level (E * n = 190.5M f32 values)
+// cg_step reads x, r, p, Ap and writes x, r: 6 x 0.76 GB, 1.36 ms at
+// 3.35 TB/s; cg_direction moves 3 x 0.76 GB, 0.68 ms. Design: one thread per
+// entry, in place (out may be rc or p), and every product and sum rounded on
+// its own (the _rn intrinsics: nothing is fused into an FMA), so the kernel
+// gives the bits of the plain form's x + alpha * p.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+
+template <typename T>
+__device__ __forceinline__ T safe_div(const T* num, const T* den) {
+  const T d = *den;
+  return d == T(0) ? T(0) : div_rn(*num, d);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+cg_step_kernel(T* __restrict__ x, T* __restrict__ r, const T* __restrict__ p,
+               const T* __restrict__ Ap, const T* __restrict__ num,
+               const T* __restrict__ den, long long N) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= N) return;
+  const T alpha = safe_div(num, den);
+  x[i] = add_rn(x[i], mul_rn(alpha, p[i]));
+  if (r != nullptr) r[i] = sub_rn(r[i], mul_rn(alpha, Ap[i]));
+}
+
+// out may alias rc or p (each entry is read before it is written)
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+cg_direction_kernel(T* out, const T* rc, const T* p, const T* __restrict__ num,
+                    const T* __restrict__ den, long long N) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= N) return;
+  const T beta = safe_div(num, den);
+  out[i] = add_rn(rc[i], mul_rn(beta, p[i]));
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = float64. x, p, Ap: N values; r: N values or NULL
+// (then only x is updated); num, den: one value each. Returns
+// cudaGetLastError().
+extern "C" int hz_cg_step(int dtype, void* x, void* r, const void* p, const void* Ap,
+                          const void* num, const void* den, long long N, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = static_cast<unsigned>((N + THREADS - 1) / THREADS);
+  if (N > 0) {
+    if (dtype == 0)
+      cg_step_kernel<float><<<blocks, THREADS, 0, st>>>(
+          static_cast<float*>(x), static_cast<float*>(r), static_cast<const float*>(p),
+          static_cast<const float*>(Ap), static_cast<const float*>(num),
+          static_cast<const float*>(den), N);
+    else
+      cg_step_kernel<double><<<blocks, THREADS, 0, st>>>(
+          static_cast<double*>(x), static_cast<double*>(r), static_cast<const double*>(p),
+          static_cast<const double*>(Ap), static_cast<const double*>(num),
+          static_cast<const double*>(den), N);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out, rc, p: N values (out may be rc or p); num, den: one value each.
+extern "C" int hz_cg_direction(int dtype, void* out, const void* rc, const void* p,
+                               const void* num, const void* den, long long N, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = static_cast<unsigned>((N + THREADS - 1) / THREADS);
+  if (N > 0) {
+    if (dtype == 0)
+      cg_direction_kernel<float><<<blocks, THREADS, 0, st>>>(
+          static_cast<float*>(out), static_cast<const float*>(rc),
+          static_cast<const float*>(p), static_cast<const float*>(num),
+          static_cast<const float*>(den), N);
+    else
+      cg_direction_kernel<double><<<blocks, THREADS, 0, st>>>(
+          static_cast<double*>(out), static_cast<const double*>(rc),
+          static_cast<const double*>(p), static_cast<const double*>(num),
+          static_cast<const double*>(den), N);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

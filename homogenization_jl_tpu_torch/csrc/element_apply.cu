@@ -27,6 +27,15 @@
 // (the smoother's entry residual and its in-place r -= A p update) so the
 // residual never takes a second pass. Tensor cores (TF32 / 3xTF32 wgmma)
 // are later work.
+//
+// The residual form is shifted. Near convergence each output of b - A x is
+// a small difference of products of the size of S_p * x, so the rounding
+// of the running float32 sum, not the iterate, sets the floor of the
+// solve's residual. The residual form therefore multiplies x[e] - s_e, with
+// s_e = x[e, 0], and adds s_e * sum_p coeff[e, p] * rs[p, m] back in the
+// epilogue, where rs[p] = S_p 1 are the stack's row sums (zero up to the
+// rounding of S for the stiffness pieces). The algebra is exact; the
+// products shrink to the variation of x inside an element.
 
 #include <cuda_runtime.h>
 
@@ -50,11 +59,15 @@ __device__ __forceinline__ void load4(const double* p, double* o) {
   o[3] = b.y;
 }
 
-template <typename T, int BM, int BN, int BK, int TM, int TN>
+// the residual form's pieces staged per block (3D: 6 conductivity pieces
+// and the mass)
+constexpr int MAXP = 8;
+
+template <typename T, int BM, int BN, int BK, int TM, int TN, bool RES>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 element_apply_kernel(const T* __restrict__ x, const T* __restrict__ coeff,
-                     const T* __restrict__ S, const T* b, T* out, int E,
-                     int n, int P) {
+                     const T* __restrict__ S, const T* b,
+                     const T* __restrict__ rs, T* out, int E, int n, int P) {
   constexpr int NTX = BN / TN;
   constexpr int NTY = BM / TM;
   constexpr int NT = NTX * NTY;
@@ -82,6 +95,25 @@ element_apply_kernel(const T* __restrict__ x, const T* __restrict__ coeff,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
 
+  // RES: the block's shifts x[e, 0], coefficients and row sums, staged in
+  // shared memory (the epilogue reads them for every output)
+  __shared__ T Ss[RES ? BM : 1];
+  __shared__ T Cs[RES ? BM : 1][MAXP];
+  __shared__ T Rs[RES ? MAXP : 1][BN];
+  if constexpr (RES) {
+    for (int i = tid; i < BM; i += NT) Ss[i] = e0 + i < E ? x[(e0 + i) * n] : T(0);
+    // zero-filled to MAXP pieces: the epilogue's piece loop has a fixed
+    // trip count, so it unrolls and the output loads batch around it
+    for (int i = tid; i < BM * MAXP; i += NT) {
+      const int r = i / MAXP, p = i % MAXP;
+      Cs[r][p] = (p < P && e0 + r < E) ? coeff[(e0 + r) * P + p] : T(0);
+    }
+    for (int i = tid; i < MAXP * BN; i += NT) {
+      const int p = i / BN, m = m0 + i % BN;
+      Rs[p][i % BN] = (p < P && m < n) ? rs[(long long)p * n + m] : T(0);
+    }
+    __syncthreads();
+  }
   T xv[A_PER], sv[B_PER];  // the next slice, in flight during the math
   auto load_x = [&](int k0) {
 #pragma unroll
@@ -105,6 +137,15 @@ element_apply_kernel(const T* __restrict__ x, const T* __restrict__ coeff,
   load_x(0);
   load_s(0, 0);
   for (int k0 = 0; k0 < n; k0 += BK) {
+    if constexpr (RES) {
+      // the shift, subtracted once per slice where the slice is first used
+      // (at the load it would stall the prefetch in flight during the math)
+#pragma unroll
+      for (int q = 0; q < A_PER; ++q) {
+        const int i = tid + q * NT;
+        xv[q] = k0 + i % BK < n ? xv[q] - Ss[i / BK] : T(0);
+      }
+    }
     for (int p = 0; p < P; ++p) {
 #pragma unroll
       for (int q = 0; q < A_PER; ++q) {
@@ -142,61 +183,80 @@ element_apply_kernel(const T* __restrict__ x, const T* __restrict__ coeff,
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const long long e = e0 + (i / 4) * SGM + ty * 4 + i % 4;
+    const int r = (i / 4) * SGM + ty * 4 + i % 4;
+    const long long e = e0 + r;
     if (e >= E) continue;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      const int m = m0 + (j / 4) * SGN + tx * 4 + j % 4;
+      const int c = (j / 4) * SGN + tx * 4 + j % 4;
+      const int m = m0 + c;
       if (m >= n) continue;
       const long long o = e * n + m;
-      out[o] = b ? b[o] - acc[i][j] : acc[i][j];
+      if constexpr (RES) {
+        // y = A (x - s) + s * (A 1), the row sums in piece order
+        T t = T(0);
+#pragma unroll
+        for (int p = 0; p < MAXP; ++p) t += Cs[r][p] * Rs[p][c];
+        out[o] = b[o] - (acc[i][j] + Ss[r] * t);
+      } else {
+        out[o] = acc[i][j];
+      }
     }
   }
 }
 
 template <typename T, int BM, int BN, int BK, int TM, int TN>
-void launch_tile(const T* x, const T* coeff, const T* S, const T* b, T* out,
-                 int E, int n, int P, cudaStream_t stream) {
+void launch_tile(const T* x, const T* coeff, const T* S, const T* b,
+                 const T* rs, T* out, int E, int n, int P,
+                 cudaStream_t stream) {
   dim3 grid((n + BN - 1) / BN, (E + BM - 1) / BM);
   dim3 block((BM / TM) * (BN / TN));
-  element_apply_kernel<T, BM, BN, BK, TM, TN>
-      <<<grid, block, 0, stream>>>(x, coeff, S, b, out, E, n, P);
+  if (b)
+    element_apply_kernel<T, BM, BN, BK, TM, TN, true>
+        <<<grid, block, 0, stream>>>(x, coeff, S, b, rs, out, E, n, P);
+  else
+    element_apply_kernel<T, BM, BN, BK, TM, TN, false>
+        <<<grid, block, 0, stream>>>(x, coeff, S, b, rs, out, E, n, P);
 }
 
 template <typename T>
 void launch_apply(const void* x, const void* coeff, const void* S,
-                  const void* b, void* out, int E, int n, int P,
-                  cudaStream_t stream) {
+                  const void* b, const void* rs, void* out, int E, int n,
+                  int P, cudaStream_t stream) {
   const T* xx = static_cast<const T*>(x);
   const T* cc = static_cast<const T*>(coeff);
   const T* ss = static_cast<const T*>(S);
   const T* bb = static_cast<const T*>(b);
+  const T* rr = static_cast<const T*>(rs);
   T* oo = static_cast<T*>(out);
   // the 8x8 register tile is for float only: in double it needs ~2x the
   // registers and would spill
   if constexpr (sizeof(T) == 4) {
     if (n > 64) {
-      launch_tile<T, 128, 128, 8, 8, 8>(xx, cc, ss, bb, oo, E, n, P, stream);
+      launch_tile<T, 128, 128, 8, 8, 8>(xx, cc, ss, bb, rr, oo, E, n, P, stream);
       return;
     }
   }
   if (n > 16)
-    launch_tile<T, 64, 64, 8, 4, 4>(xx, cc, ss, bb, oo, E, n, P, stream);
+    launch_tile<T, 64, 64, 8, 4, 4>(xx, cc, ss, bb, rr, oo, E, n, P, stream);
   else
-    launch_tile<T, 128, 16, 8, 4, 4>(xx, cc, ss, bb, oo, E, n, P, stream);
+    launch_tile<T, 128, 16, 8, 4, 4>(xx, cc, ss, bb, rr, oo, E, n, P, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = float64. b may be NULL (plain apply) and may alias
-// out (in-place r -= A x); x must not alias out. Returns cudaGetLastError().
+// out (in-place r -= A x); with b, rs holds the [P, n] row sums of S and P
+// is at most MAXP; x must not alias out. Returns cudaGetLastError().
 extern "C" int hz_element_apply(int dtype, const void* x, const void* coeff,
-                                const void* S, const void* b, void* out,
-                                int E, int n, int P, void* stream) {
+                                const void* S, const void* b, const void* rs,
+                                void* out, int E, int n, int P,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (b && P > MAXP) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    launch_apply<float>(x, coeff, S, b, out, E, n, P, s);
+    launch_apply<float>(x, coeff, S, b, rs, out, E, n, P, s);
   else
-    launch_apply<double>(x, coeff, S, b, out, E, n, P, s);
+    launch_apply<double>(x, coeff, S, b, rs, out, E, n, P, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,11 +17,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .ops.apply import stack_rowsum
+
 
 class SolverState(NamedTuple):
     coeff: torch.Tensor  # [E, P]
     chol: object  # coarse payload: tensor, None ("cg") or MGCoarseSetup
-    lam_max: float
+    lam_max: float | None  # None for the CG smoothers
     b: torch.Tensor | None  # [E, n_local(finest)] local rhs
 
 
@@ -42,7 +44,9 @@ def _same_shape(name, new, old):
 
 def load_levels(solver, stacks=None, P_up=None) -> None:
     """Overwrite the solver's per-level stacks ([nlevels] of [P, n, n]) and
-    prolongations ([nlevels] of [n_k, n_{k-1}], None at level 0)."""
+    prolongations ([nlevels] of [n_k, n_{k-1}], None at level 0); the
+    solver's caches, and the transfer tables of the new prolongations, are
+    rebuilt (``drop_caches``)."""
     tens = _loader(solver)
     if stacks is not None:
         if len(stacks) != solver.nlevels:
@@ -50,6 +54,7 @@ def load_levels(solver, stacks=None, P_up=None) -> None:
         for k, (L, s) in enumerate(zip(solver.levels, stacks)):
             L.stack = _same_shape(f"stacks[{k}]", tens(s), L.stack)
             L.diag_ref = torch.diagonal(L.stack, dim1=1, dim2=2).contiguous()
+            L.rowsum = stack_rowsum(L.stack)
     if P_up is not None:
         if len(P_up) != solver.nlevels or P_up[0] is not None:
             raise ValueError("P_up: one entry per level, None at level 0")
@@ -85,13 +90,14 @@ def solver_state_from_numpy(
 
     ``stacks`` and ``P_up`` overwrite the solver's level tensors in place of
     its own setup (``load_levels``); ``coeff``, the coarse payload ``chol``
-    (``coarse_setup_from_numpy``), ``lam_max`` and ``b`` come back as a
-    SolverState on the solver's device and dtype."""
+    (``coarse_setup_from_numpy``), ``lam_max`` (None passes through: the CG
+    smoothers take none) and ``b`` come back as a SolverState on the
+    solver's device and dtype."""
     tens = _loader(solver)
     load_levels(solver, stacks, P_up)
     return SolverState(
         coeff=tens(coeff),
         chol=coarse_setup_from_numpy(solver, chol),
-        lam_max=float(np.asarray(lam_max)),
+        lam_max=None if lam_max is None else float(np.asarray(lam_max)),
         b=None if b is None else tens(b),
     )

@@ -24,11 +24,14 @@ Both geometries of the JAX driver:
 The driver looks up ``compute_boundary_layer`` as a module global, so a
 caller can patch the schedule, as the JAX package's tests do.
 
+The driver's defaults are the JAX driver's: ``smoother="cg"`` and
+``inner="vcycle"`` (the reference's plain V-cycles, with the CG smoother's
+updates on kernel K10); only the Chebyshev smoothers get a lambda_max
+estimate per step.
+
 Not ported yet (``NotImplementedError``, ROADMAP.md queue 1):
 ``device_mesh`` (item 10, parallel/), ``solver="multishift"`` (item 9),
-``checkpoint_dir`` / ``resume_from`` and ``save_level`` (item 11, utils/);
-the driver's default ``smoother="cg"`` raises in the solver until kernel
-K10 is ported (item 7).
+``checkpoint_dir`` / ``resume_from`` and ``save_level`` (item 11, utils/).
 """
 
 from __future__ import annotations
@@ -190,6 +193,14 @@ def _make_solver(plan, dtype, device, smoothing_steps, coarse, coarse_dense_limi
     )
 
 
+def _lambda_max(solver, coeff):
+    """The step's lambda_max estimate, for the Chebyshev smoothers only (the
+    JAX driver's gate; the CG smoothers read none)."""
+    if solver.smoother in CHEBYSHEV_SMOOTHERS:
+        return solver.estimate_lambda_max(coeff)
+    return None
+
+
 def _solver_integrals(solver, detJ_np):
     """K9 integrals closed over the solver's finest mass matrix (the last
     slice of the finest operator stack) and |det J| on its device."""
@@ -206,7 +217,8 @@ class HomogenizationTrace:
     """The JAX package's trace, plus host-clock seconds: ``init_seconds``
     from the call to the first outer step (plan, solver, initial state),
     ``setup_seconds`` per step before its inner loop (coefficients, coarse
-    setup, lambda_max; for "ordered", the shrink's rebuild too), and
+    setup, the Chebyshev smoothers' lambda_max; for "ordered", the shrink's
+    rebuild too), and
     ``iteration_seconds`` per step and inner iteration (each ends when the
     host reads the integral, which waits for the device)."""
 
@@ -294,14 +306,15 @@ def checkerboard_homogenization(
 
     ``cond_field``: optional pinned conductivity field of shape [2R]^dim +
     [dim] with R = compute_box_radius(0, n) + compute_boundary_layer(1, n);
-    if None it is sampled with ``seed``. ``smoother``: "chebyshev" (the "cg"
-    default raises until it is ported). ``shrink``: domain shrinking per
+    if None it is sampled with ``seed``. ``smoother``: "cg" (the
+    reference's), "cg_exact", "chebyshev" or "chebyshev4" (lambda_max is
+    estimated per step for the last two only). ``shrink``: domain shrinking per
     outer step (reference behavior); False keeps the k=0 domain.
     ``geometry``: "ordered" (reference element order, prefix-slice shrink,
     a plan and solver per step) or "lattice" (one box, shrink by masks).
     ``inner``: "vcycle" (plain V-cycles until the sigma increment
     stabilizes) or "pcg" (V-cycle-preconditioned CG steps under the same
-    stopping rule; requires smoother="chebyshev"). ``lanczos_iters`` belongs
+    stopping rule; requires a Chebyshev smoother). ``lanczos_iters`` belongs
     to ``solver="multishift"`` and is accepted for signature parity.
     Returns sigma, or (sigma, HomogenizationTrace) with ``return_trace``.
     """
@@ -319,7 +332,7 @@ def checkerboard_homogenization(
         if smoother not in CHEBYSHEV_SMOOTHERS:
             raise ValueError(
                 "inner='pcg' needs a linear SPD preconditioner: pass "
-                "smoother='chebyshev'"
+                "smoother='chebyshev' or 'chebyshev4'"
             )
     elif inner != "vcycle":
         raise ValueError(f"inner={inner!r}")
@@ -413,7 +426,7 @@ def _checkerboard_ordered(
             )
         coeff = sol.coefficients(sigma_el, lam)
         setup = sol.coarse_setup(sigma_el, lam)
-        lam_max = sol.estimate_lambda_max(coeff)
+        lam_max = _lambda_max(sol, coeff)
         n_box = prefix_in_radius(center_norms, box_radius)
         mask = to_dev((np.arange(base.nelements) < n_box).astype(np.float64))
         domain_area = float(area_fn(mask))
@@ -606,7 +619,7 @@ def _checkerboard_lattice(
         )
         coeff = sol.coefficients(sigma_el, lam)
         setup = sol.coarse_setup(sigma_el, lam)
-        lam_max = sol.estimate_lambda_max(coeff)
+        lam_max = _lambda_max(sol, coeff)
         mask = to_dev((cnorm <= box_radius).astype(np.float64))
         domain_area = float(area_fn(mask))
         trace.setup_seconds.append(time.perf_counter() - t_step)

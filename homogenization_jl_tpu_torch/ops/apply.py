@@ -9,6 +9,13 @@ per-element geometry coefficients are precomputed ([E, P]), and
 ``element_apply`` launches the hand-written CUDA kernel K1
 (csrc/element_apply.cu) for CUDA tensors and runs the plain PyTorch version
 for CPU tensors. Both run full FP32 (or FP64) arithmetic.
+
+The residual form b - A x is computed shifted, in both versions: with
+s_e = x[e, 0], A x = A (x - s_e) + s_e * sum_p coeff[e, p] * rowsum_p, where
+rowsum_p = S_p 1 (``stack_rowsum``). The algebra is exact. Near convergence
+b - A x is a small difference of products of the size of S_p x, and the
+rounding of their float32 sum set the floor of the solve's residual; the
+shift shrinks the products to the variation of x inside an element.
 """
 
 from __future__ import annotations
@@ -18,15 +25,35 @@ import torch
 from ..csrc.build import LAUNCHES, launch
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
+# MAXP of csrc/element_apply.cu (3D: six conductivity pieces and the mass)
+_MAX_PIECES = 8
 
 
-def element_apply_plain(x, coeff, stack, b=None):
+def stack_rowsum(stack):
+    """[P, n] row sums S_p 1 of a [P, n, n] stack, summed in float64 and
+    stored at the stack's dtype (the residual form's shift correction)."""
+    return stack.to(torch.float64).sum(dim=2).to(stack.dtype)
+
+
+def element_apply_plain(x, coeff, stack, b=None, rowsum=None):
     """Plain PyTorch form: accumulate the P pieces in order (the JAX
-    package's "unroll" form). With ``b``, returns b - A x."""
+    package's "unroll" form). With ``b``, returns b - A x, shifted as the
+    kernel does (module docstring; ``rowsum`` defaults to
+    ``stack_rowsum(stack)``)."""
+    s = None
+    if b is not None:
+        s = x[:, :1]
+        x = x - s
     y = torch.zeros_like(x)
     for p in range(stack.shape[0]):
         y = y + coeff[:, p : p + 1] * torch.matmul(x, stack[p].T)
-    return y if b is None else b - y
+    if b is None:
+        return y
+    rs = stack_rowsum(stack) if rowsum is None else rowsum
+    t = torch.zeros_like(y[:1])
+    for p in range(stack.shape[0]):
+        t = t + coeff[:, p : p + 1] * rs[p]
+    return b - (y + s * t)
 
 
 def _check(name, t, dtype, device, shape=None):
@@ -42,11 +69,14 @@ def _check(name, t, dtype, device, shape=None):
         raise ValueError(f"{name} must be contiguous")
 
 
-def element_apply(x, coeff, stack, b=None, out=None):
-    """y[e] = sum_p coeff[e, p] * (stack[p] @ x[e]); with ``b``, b - y.
+def element_apply(x, coeff, stack, b=None, out=None, rowsum=None):
+    """y[e] = sum_p coeff[e, p] * (stack[p] @ x[e]); with ``b``, b - y
+    (shifted, module docstring).
 
     x: [E, n], coeff: [E, P], stack: [P, n, n] (symmetric slices), b: [E, n]
     or None; float32 or float64, all on one device and contiguous.
+    ``rowsum`` ([P, n], read with ``b`` only) is ``stack_rowsum(stack)``,
+    which callers that apply one stack often pass precomputed.
     ``out`` receives the result and may be ``b`` itself (the in-place
     residual update r -= A p); it must not be ``x``.
     """
@@ -62,12 +92,17 @@ def element_apply(x, coeff, stack, b=None, out=None):
     _check("stack", stack, x.dtype, dev, (P, n, n))
     if b is not None:
         _check("b", b, x.dtype, dev, (E, n))
+        if P > _MAX_PIECES:
+            raise ValueError(f"element_apply: the residual form takes at most {_MAX_PIECES} pieces")
+        if rowsum is None:
+            rowsum = stack_rowsum(stack)
+        _check("rowsum", rowsum, x.dtype, dev, (P, n))
     if out is not None:
         _check("out", out, x.dtype, dev, (E, n))
         if out.data_ptr() == x.data_ptr():
             raise ValueError("element_apply: out must not alias x")
     if dev.type == "cpu":
-        y = element_apply_plain(x, coeff, stack, b)
+        y = element_apply_plain(x, coeff, stack, b, rowsum)
         return y if out is None else out.copy_(y)
     if dev.type != "cuda":
         raise ValueError(f"element_apply: unsupported device {dev}")
@@ -76,8 +111,8 @@ def element_apply(x, coeff, stack, b=None, out=None):
     LAUNCHES["element_apply"] += 1
     launch(
         "hz_element_apply", _DTYPES[x.dtype], x.data_ptr(), coeff.data_ptr(),
-        stack.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(),
-        E, n, P,
+        stack.data_ptr(), None if b is None else b.data_ptr(),
+        None if b is None else rowsum.data_ptr(), out.data_ptr(), E, n, P,
     )
     return out
 

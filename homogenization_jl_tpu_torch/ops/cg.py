@@ -1,0 +1,96 @@
+"""The CG smoothers' updates (device, PyTorch + CUDA kernel K10).
+
+Replaces the update expressions of the JAX package's CG smoothers
+(homogenization_jl_tpu/solver/multigrid.py::_smooth_cg, :779-784, and
+::_smooth_cg_exact, :833-840):
+
+    cg_step:       alpha = safe_div(num, den);  x += alpha p;  r -= alpha Ap
+    cg_direction:  beta  = safe_div(num, den);  out = rc + beta p
+
+with safe_div(num, den) = 0 where den == 0, else num / den (the JAX
+``_safe_div``). ``num`` and ``den`` are 0-d tensors on the state's device,
+the outputs of ``ops/dots.py::dot`` (kernel K5): alpha and beta never reach
+the host.
+
+Kernel K10 (csrc/cg_smoother.cu, CUDA C++) runs for CUDA tensors: one pass
+per update, in place, each product and sum rounded on its own, so it gives
+the plain form's bits. The plain form (CPU tensors) is the JAX expression.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..csrc.build import LAUNCHES, launch
+
+_DTYPES = {torch.float32: 0, torch.float64: 1}
+
+
+def safe_div(num, den):
+    """num / den, but 0 where den == 0 (the converged-exactly guard)."""
+    zero = den == 0
+    return torch.where(zero, torch.zeros_like(num), num / torch.where(zero, torch.ones_like(den), den))
+
+
+def cg_step_plain(x, r, p, Ap, num, den):
+    """Plain form of ``cg_step``: x and r updated in place."""
+    alpha = safe_div(num, den)
+    x.copy_(x + alpha * p)
+    if r is not None:
+        r.copy_(r - alpha * Ap)
+
+
+def cg_direction_plain(out, rc, p, num, den):
+    """Plain form of ``cg_direction``: ``out`` written in place."""
+    out.copy_(rc + safe_div(num, den) * p)
+
+
+def _check(fn, tensors, scalars):
+    ref = tensors[0][1]
+    if ref.dtype not in _DTYPES:
+        raise TypeError(f"{fn}: unsupported dtype {ref.dtype}")
+    for name, t in tensors:
+        if t.dtype != ref.dtype or t.shape != ref.shape or t.device != ref.device:
+            raise ValueError(f"{fn}: {name} does not match {tensors[0][0]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous")
+    for name, t in scalars:
+        if t.dtype != ref.dtype or t.dim() != 0 or t.device != ref.device:
+            raise ValueError(f"{fn}: {name} must be a 0-d tensor like {tensors[0][0]}")
+    return ref.device
+
+
+def cg_step(x, r, p, Ap, num, den):
+    """In place: alpha = safe_div(num, den); x += alpha * p; r -= alpha * Ap
+    (r=None: x only). x, r, p, Ap: one shape, float32 or float64, one
+    device, contiguous; num, den: 0-d tensors of that dtype and device.
+    Kernel K10 for CUDA tensors, the plain form for CPU tensors."""
+    tensors = [("x", x), ("p", p)] + ([("r", r), ("Ap", Ap)] if r is not None else [])
+    dev = _check("cg_step", tensors, [("num", num), ("den", den)])
+    if dev.type == "cpu":
+        cg_step_plain(x, r, p, Ap, num, den)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"cg_step: unsupported device {dev}")
+    LAUNCHES["cg_update"] += 1
+    launch(
+        "hz_cg_step", _DTYPES[x.dtype], x.data_ptr(), None if r is None else r.data_ptr(),
+        p.data_ptr(), None if r is None else Ap.data_ptr(), num.data_ptr(),
+        den.data_ptr(), x.numel(),
+    )
+
+
+def cg_direction(out, rc, p, num, den):
+    """In place: out = rc + safe_div(num, den) * p; ``out`` may be ``rc`` or
+    ``p``. Same contract as ``cg_step``."""
+    dev = _check("cg_direction", [("out", out), ("rc", rc), ("p", p)], [("num", num), ("den", den)])
+    if dev.type == "cpu":
+        cg_direction_plain(out, rc, p, num, den)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"cg_direction: unsupported device {dev}")
+    LAUNCHES["cg_update"] += 1
+    launch(
+        "hz_cg_direction", _DTYPES[out.dtype], out.data_ptr(), rc.data_ptr(), p.data_ptr(),
+        num.data_ptr(), den.data_ptr(), out.numel(),
+    )

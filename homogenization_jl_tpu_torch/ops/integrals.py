@@ -35,47 +35,17 @@ import torch
 
 from ..csrc.build import LAUNCHES, launch
 from .apply import element_apply
+from .dots import RED_BLOCKS, fixed_order_sum
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 
 TERMS, FIRST_QUIRK, FIRST, AREA = 0, 1, 2, 3
-# the kernel's fixed reduction grid (csrc/integrals.cu)
-RED_BLOCKS, RED_THREADS = 264, 256
 
 
 def _tile_count(dtype, n: int) -> int:
     """Column tiles of K9's GEMM pass: K1's tile width for (dtype, n)."""
     bn = 128 if (dtype == torch.float32 and n > 64) else (64 if n > 16 else 16)
     return -(-n // bn)
-
-
-def _fixed_order_sum(v):
-    """sum(v) in the kernel's order: RED_BLOCKS contiguous chunks; within a
-    chunk, RED_THREADS strided running sums, then a pairwise tree; the block
-    sums the same way in one block."""
-
-    def block(parts):  # [B, k * RED_THREADS] -> [B]
-        acc = parts[:, :RED_THREADS].clone()
-        for s in range(RED_THREADS, parts.shape[1], RED_THREADS):
-            acc = acc + parts[:, s : s + RED_THREADS]
-        s = RED_THREADS // 2
-        while s > 0:
-            acc = torch.cat((acc[:, :s] + acc[:, s : 2 * s], acc[:, 2 * s :]), dim=1)
-            s //= 2
-        return acc[:, 0]
-
-    def padded(a, rows, cols):
-        out = a.new_zeros(rows * cols)
-        out[: a.numel()] = a
-        return out.reshape(rows, cols)
-
-    E = v.numel()
-    chunk = -(-E // RED_BLOCKS)
-    per = -(-chunk // RED_THREADS) * RED_THREADS
-    chunks = padded(v, RED_BLOCKS, chunk)
-    sums = block(torch.cat((chunks, chunks.new_zeros(RED_BLOCKS, per - chunk)), dim=1))
-    per_f = -(-RED_BLOCKS // RED_THREADS) * RED_THREADS
-    return block(padded(sums, 1, per_f))[0]
 
 
 def sigma_integral_plain(mode, x, mass, w, detJ, mask, scale=1.0):
@@ -90,7 +60,7 @@ def sigma_integral_plain(mode, x, mass, w, detJ, mask, scale=1.0):
         else:
             b = (x * w).sum(dim=1)
             s = detJ * (a + b) if mode == FIRST_QUIRK else b + detJ * a
-    return scale * _fixed_order_sum(s * mask)
+    return scale * fixed_order_sum(s * mask)
 
 
 def _check(name, t, dtype, device, shape):

@@ -1,12 +1,22 @@
 """Matrix-free geometric multigrid on the implicit fine grid (device, PyTorch).
 
-Port of the Chebyshev subset of homogenization_jl_tpu/solver/multigrid.py:
-the interface combines (``combine=``: the structured slice-add form on
-lexicographic full-box hypercube bases, the gather form on any other base
-with the contiguous layout), the Dirichlet constraints (``constraint=``: the
-structured mask-free form, or a resident bool mask; the gather combine
-always takes the mask), the Jacobi-preconditioned first-kind Chebyshev
-smoother, the coarse solves (``coarse=``):
+Port of homogenization_jl_tpu/solver/multigrid.py: the interface combines
+(``combine=``: the structured slice-add form on lexicographic full-box
+hypercube bases, the gather form on any other base with the contiguous
+layout), the Dirichlet constraints (``constraint=``: the structured
+mask-free form, or a resident bool mask; the gather combine always takes
+the mask), the smoothers (``smoother=``):
+
+  * ``"cg"`` (the default, as in the JAX package and the reference):
+    ``steps`` CG iterations with the reference's duplicated-DOF dots, wrong
+    on purpose (src/multigrid.jl:46-71);
+  * ``"cg_exact"``: CG with first-copy (exact) dots, one combine per step
+    and the local residual maintained incrementally;
+  * ``"chebyshev"`` / ``"chebyshev4"``: Jacobi-preconditioned first- /
+    fourth-kind Chebyshev (need ``lam_max``; the only smoothers that keep
+    the V-cycle a linear SPD preconditioner for PCG);
+
+V-cycles and W-cycles (``cycle=``), the coarse solves (``coarse=``):
 
   * ``"chol"``: dense Cholesky of the interior base operator;
   * ``"inv"``:  dense interior inverse, applied as one GEMV;
@@ -17,9 +27,10 @@ smoother, the coarse solves (``coarse=``):
     (solver/coarse.py; the aux solver is a ``coarse="inv"`` instance of
     this class);
 
-V-cycles, the FMG initializer, V-cycle-preconditioned CG (flexible beta for
-the tolerance-stopped coarse solves), its stepwise form ``pcg_stepper`` and
-the one-call ``solve`` driver (``method="auto"`` = FMG start + PCG).
+the FMG initializer, V-cycle-preconditioned CG (flexible beta for the
+tolerance-stopped coarse solves), its stepwise form ``pcg_stepper`` and the
+one-call ``solve`` driver (``method="auto"`` = FMG start + PCG for the
+Chebyshev smoothers, FMG start + V-cycles for the CG ones).
 
 Per-call Dirichlet masks, as the JAX package's ``Ls=``/``interior=``
 arguments: ``Ls`` is a list of per-level bool boundary masks ([E, n_k],
@@ -38,25 +49,28 @@ Every device kernel on this path is a hand kernel on CUDA tensors:
     combine, with the mask constraint folded into its store;
   * K3 ``chebyshev_update`` (ops/chebyshev.py, Triton), also the level-0
     junction smoother of ``coarse="mg"``;
+  * K4 ``prolong_add`` / ``restrict`` (ops/transfer.py, CUDA C++);
+  * K5 ``dot`` (ops/dots.py, CUDA C++): every dot and norm, with the
+    first-copy mask and the Lanczos scale fused, in a fixed order;
+  * K10 ``cg_step`` / ``cg_direction`` (ops/cg.py, CUDA C++): the CG
+    smoothers' updates, alpha and beta read from K5's device scalars;
   * K6 ``lattice_*`` (ops/stencil.py, CUDA C++): the level-0 operator of the
     global-space coarse solves;
   * K7 ``segment_sum`` / ``gather_scale`` (ops/interfaces.py, CUDA C++): the
     local/global transfers of every coarse solve.
-Restriction/prolongation are ``torch.matmul`` (ops/transfer.py), dots are
-``torch.dot``, the direct coarse solves ``torch.cholesky_solve`` and a
-``torch.mv`` with the inverse — the JAX package leaves the same to XLA and
-``cho_solve``.
+The direct coarse solves are ``torch.cholesky_solve`` and a ``torch.mv``
+with the inverse — the JAX package leaves the same to ``cho_solve`` and XLA.
 
 PyTorch runs eagerly: where the JAX package relies on dead-code elimination
 inside one jitted program (the post-smooth residual that no caller reads),
 this port skips the computation explicitly (``need_r``). State updates of
-the smoother and of PCG run in place. The tolerance-stopped coarse loops
+the smoothers and of PCG run in place. The tolerance-stopped coarse loops
 (``lax.while_loop`` in JAX) are Python loops that read one device scalar
 per iteration (``host_syncs`` counts the reads).
 
-Not ported yet (raise on construction): the cg / cg_exact / chebyshev4
-smoothers, W-cycles, the flat combine of meshes without the contiguous
-layout, direction_dtype and mixed precision.
+Not ported yet (raise on construction): the flat combine of meshes without
+the contiguous layout; ``direction_dtype`` and mixed precision are not
+taken.
 
 The solver's tensors live on ``device``: the card (``"cuda"``) unless the
 caller asks for the CPU; without a CUDA device the default raises.
@@ -72,8 +86,10 @@ import torch
 from ..fem.assembly import assemble_operator
 from ..fem.local_operators import build_level_operators, element_coefficients
 from ..mesh.reference import prolongation_dense
-from ..ops.apply import element_apply
+from ..ops.apply import element_apply, stack_rowsum
+from ..ops.cg import cg_direction, cg_step, safe_div
 from ..ops.chebyshev import chebyshev_update
+from ..ops.dots import dot
 from ..ops.interfaces import (
     apply_mask,
     build_gather_tables,
@@ -99,10 +115,13 @@ from ..ops.stencil import (
     lattice_distribute,
     lattice_weights,
 )
-from ..ops.transfer import prolong_add, restrict
+from ..ops.transfer import build_transfer_tables, prolong_add, restrict
 from .coarse import build_coarse_geometry
 
-CHEBYSHEV_SMOOTHERS = ("chebyshev",)
+# the polynomial (dot-free, linear) smoothers: valid SPD V-cycle
+# preconditioners for PCG, and the ones that need lam_max
+CHEBYSHEV_SMOOTHERS = ("chebyshev", "chebyshev4")
+SMOOTHERS = ("cg", "cg_exact") + CHEBYSHEV_SMOOTHERS
 COARSE_SOLVES = ("chol", "inv", "cg", "mg")
 _PRECISIONS = (None, "default", "high", "highest")
 # safety margin on the Lanczos lambda_max estimate: underestimating lets
@@ -134,9 +153,11 @@ class LevelDevice:
     """Per-level device tensors."""
 
     stack: torch.Tensor  # [P, n, n]
+    rowsum: torch.Tensor  # [P, n] row sums of the stack slices (K1's shift)
     diag_ref: torch.Tensor  # [P, n] diagonals of the stack slices
     first_copy_mask: torch.Tensor  # [E, n] bool
     P_up: torch.Tensor | None  # prolongation to this level from below [n_k, n_{k-1}]
+    transfer: object  # ops/transfer.py::TransferTables of P_up (K4), or None
     structured: object  # ops/structured.py::StructuredTables, or None
     gather: object  # ops/interfaces.py::GatherTables, or None
     boundary_mask: torch.Tensor | None  # [E, n] bool (mask constraint), or None
@@ -155,6 +176,21 @@ class MGCoarseSetup:
     dinv: torch.Tensor  # [N] dinv_g * the solver's interior mask
 
 
+@dataclasses.dataclass
+class _Cycle:
+    """The state of one cycle: per-level iterates and right-hand sides
+    (None outside the levels in use) and the cycle's arguments."""
+
+    xs: list
+    bs: list
+    coeff: torch.Tensor
+    chol: object
+    lam_max: float | None
+    top: int
+    Ls: list | None
+    interior: torch.Tensor | None
+
+
 class MultigridSolver:
     """Owns the device tensors of one (base mesh, nlevels) hierarchy.
 
@@ -163,7 +199,8 @@ class MultigridSolver:
     Coefficients (sigma, lambda) are arguments of the cycle methods, as in
     the JAX class.
 
-    Precision knobs (``apply/smooth/restrict/krylov_precision``) are
+    ``smoother`` defaults to "cg" and ``cycle`` to "V", as in the JAX
+    class. Precision knobs (``apply/smooth/restrict/krylov_precision``) are
     accepted for signature parity: "high" and "highest" (and None) all run
     full FP32 on the CUDA cores in this port; TF32 / 3xTF32 tensor-core
     choices are later work.
@@ -181,7 +218,7 @@ class MultigridSolver:
         coarse_cg_maxiter: int = 500,
         combine: str = "auto",
         apply_precision=None,
-        smoother: str = "chebyshev",
+        smoother: str = "cg",
         cheb_ratio: float = 30.0,
         coarse_mg_tol: float = 1e-8,
         coarse_mg_maxiter: int = 40,
@@ -194,12 +231,12 @@ class MultigridSolver:
         restrict_precision=None,
         krylov_precision=None,
     ):
-        if smoother not in CHEBYSHEV_SMOOTHERS:
-            raise NotImplementedError(f"smoother={smoother!r} is not ported yet")
+        if smoother not in SMOOTHERS:
+            raise ValueError(f"smoother={smoother!r} not in {SMOOTHERS}")
         if coarse not in COARSE_SOLVES:
             raise ValueError(f"coarse={coarse!r} not in {COARSE_SOLVES}")
-        if cycle != "V":
-            raise NotImplementedError("cycle='W' is not ported yet")
+        if cycle not in ("V", "W"):
+            raise ValueError(f"cycle={cycle!r} not in ('V', 'W')")
         if constraint not in ("auto", "mask"):
             raise ValueError(f"constraint={constraint!r} not in ('auto', 'mask')")
         if combine not in ("auto", "structured", "gather"):
@@ -213,6 +250,11 @@ class MultigridSolver:
         self.dtype = dtype
         self.device = resolve_device(device)
         self.nlevels = plan.nlevels
+        self.smoother = smoother
+        # cycle="W": two sub-cycles below every level under the top (gamma =
+        # 2), a stronger coarse correction per cycle (the reference has
+        # V-cycles only, src/multigrid.jl:73-119)
+        self.cycle = cycle
         self.smoothing_steps = smoothing_steps
         self.coarse_smoothing_steps = coarse_smoothing_steps
         self.cheb_ratio = cheb_ratio
@@ -270,12 +312,15 @@ class MultigridSolver:
             if self.constraint_kind == "mask":
                 bmask = tens(plan.levels[k].boundary_mask != 0, torch.bool)
             stack = ref_ops[k].stack
+            P_up = tens(prolongation_dense(plan.reference, k - 1)) if k > 0 else None
             self.levels.append(
                 LevelDevice(
                     stack=tens(stack),
+                    rowsum=stack_rowsum(tens(stack)),
                     diag_ref=tens(np.diagonal(stack, axis1=1, axis2=2)),
                     first_copy_mask=tens(plan.levels[k].first_copy_mask, torch.bool),
-                    P_up=tens(prolongation_dense(plan.reference, k - 1)) if k > 0 else None,
+                    P_up=P_up,
+                    transfer=None if P_up is None else build_transfer_tables(P_up),
                     structured=structured,
                     gather=gather,
                     boundary_mask=bmask,
@@ -401,9 +446,13 @@ class MultigridSolver:
 
     def drop_caches(self) -> None:
         """Forget the per-coefficient device caches (inverse diagonals,
-        lattice weights): needed after the level tensors are replaced."""
+        lattice weights) and rebuild the transfer tables from the levels'
+        ``P_up``: needed after the level tensors are replaced."""
         self._dinv_key = self._dinv = None
         self._lat_key = self._lat_W = None
+        for L in self.levels:
+            if L.P_up is not None:
+                L.transfer = build_transfer_tables(L.P_up)
 
     # ------------------------------------------------------------------ #
     # building blocks
@@ -472,16 +521,15 @@ class MultigridSolver:
 
     @staticmethod
     def _vdot(a, b):
-        return torch.dot(a.reshape(-1), b.reshape(-1))
+        """Dot over the duplicated layout (kernel K5)."""
+        return dot(a, b)
 
-    @staticmethod
-    def _safe_div(num, den):
-        """num / den, but 0 when den == 0 (converged-exactly guard)."""
-        zero = den == 0
-        return torch.where(zero, torch.zeros_like(num), num / torch.where(zero, torch.ones_like(den), den))
+    # num / den, but 0 when den == 0 (converged-exactly guard)
+    _safe_div = staticmethod(safe_div)
 
     def _apply_op(self, x, coeff, k, b=None, out=None):
-        return element_apply(x, coeff, self.levels[k].stack, b=b, out=out)
+        L = self.levels[k]
+        return element_apply(x, coeff, L.stack, b=b, out=out, rowsum=L.rowsum)
 
     def _local_residual(self, x, b, coeff, k, Ls=None):
         """r = constrain(b - A x)."""
@@ -502,27 +550,36 @@ class MultigridSolver:
             self._dinv_key = coeff
         return self._dinv
 
-    def _cheb_coeffs(self, lam_max: float, steps: int | None = None):
+    def _cheb_coeffs(self, lam_max: float, steps: int | None = None, fourth: bool = False):
         """[steps, 2] device table of the Chebyshev (a, b) per step: row 0 is
         the first step (p = b z), row j-1 step j (p = a p + b z). Scalars
-        follow the JAX recurrence operation for operation. Cached by
-        (lam_max, steps): the V-cycle's smoother and the level-0 junction
-        smoother of coarse="mg" alternate between two keys."""
+        follow the JAX recurrences operation for operation: the first kind
+        on [lam_max/cheb_ratio, lam_max], or with ``fourth`` the fourth kind
+        on [0, lam_max] (Lottes 2022: row 0 (0, (4/3)/lam_max), row j-1
+        ((2j-3)/(2j+1), (8j-4)/(2j+1)/lam_max)). Cached by (lam_max, steps,
+        kind): the V-cycle's smoother and the level-0 junction smoother of
+        coarse="mg" (always the first kind) alternate between two keys."""
         if steps is None:
             steps = max(self.smoothing_steps, self.coarse_smoothing_steps)
-        key = (float(lam_max), int(steps))
+        key = (float(lam_max), int(steps), bool(fourth))
         if key not in self._cheb_ab:
             lam_max = float(lam_max)
-            lam_min = lam_max / self.cheb_ratio
-            theta = 0.5 * (lam_max + lam_min)
-            delta = 0.5 * (lam_max - lam_min)
-            rows = [(0.0, 1.0 / theta)]
-            sigma = theta / delta
-            rho = 1.0 / sigma
-            for _ in range(2, steps + 1):
-                rho_new = 1.0 / (2.0 * sigma - rho)
-                rows.append((rho_new * rho, 2.0 * rho_new / delta))
-                rho = rho_new
+            if fourth:
+                rows = [(0.0, (4.0 / 3.0) / lam_max)]
+                for j in range(2, steps + 1):
+                    rows.append(((2.0 * j - 3.0) / (2.0 * j + 1.0),
+                                 (8.0 * j - 4.0) / (2.0 * j + 1.0) / lam_max))
+            else:
+                lam_min = lam_max / self.cheb_ratio
+                theta = 0.5 * (lam_max + lam_min)
+                delta = 0.5 * (lam_max - lam_min)
+                rows = [(0.0, 1.0 / theta)]
+                sigma = theta / delta
+                rho = 1.0 / sigma
+                for _ in range(2, steps + 1):
+                    rho_new = 1.0 / (2.0 * sigma - rho)
+                    rows.append((rho_new * rho, 2.0 * rho_new / delta))
+                    rho = rho_new
             if len(self._cheb_ab) >= 8:  # a new field per solve: stay bounded
                 self._cheb_ab.clear()
             self._cheb_ab[key] = torch.tensor(rows, dtype=self.dtype, device=self.device)
@@ -613,7 +670,8 @@ class MultigridSolver:
             return dinv * self._combine(self._constrain(self._apply_op(u, coeff, k), k), k)
 
         def ddot(a, b_):
-            return self._vdot(a * w, d * b_)
+            # vdot(a * w, d * b) with the mask and the scale fused (K5)
+            return dot(a, b_, mask=w, scale=d)
 
         def nz(s):
             return torch.where(s == 0, torch.ones_like(s), s)
@@ -637,14 +695,87 @@ class MultigridSolver:
         return lam * _LAM_SAFETY
 
     # ------------------------------------------------------------------ #
-    # smoother, coarse solve, cycles
+    # smoothers, coarse solve, cycles
     # ------------------------------------------------------------------ #
+    def _smooth(self, x, b, coeff, lam_max, *, k, steps, need_r=True, x_zero=False, Ls=None):
+        """The solver's smoother at level k: updates x in place and returns
+        (x, r) — for "cg" the combined residual, for the others the LOCAL
+        residual (None when ``need_r`` is False)."""
+        kw = dict(k=k, steps=steps, need_r=need_r, x_zero=x_zero, Ls=Ls)
+        if self.smoother == "cg":
+            return self._smooth_cg(x, b, coeff, **kw)
+        if self.smoother == "cg_exact":
+            return self._smooth_cg_exact(x, b, coeff, **kw)
+        return self._smooth_chebyshev(x, b, coeff, lam_max, **kw)
+
+    def _smooth_cg(self, x, b, coeff, *, k, steps, need_r=True, x_zero=False, Ls=None):
+        """``steps`` CG iterations (reference: smoothing_steps!,
+        src/multigrid.jl:46-71; JAX ``_smooth_cg``): the COMBINED residual
+        and A p, and the reference's dots over the duplicated layout, which
+        count shared DOFs once per copy — an approximate CG, kept for
+        iteration-count parity (homogenized_coefficients.jl:136-139).
+        Updates x in place and returns (x, r), r combined and constrained
+        (None when ``need_r`` is False: the last step skips its r update).
+        The last step's direction and dot, which no caller reads, are
+        skipped. ``x_zero``: x == 0, so the entry residual is b."""
+        r = self._combine_constrained(b if x_zero else self._apply_op(x, coeff, k, b=b), k, Ls)
+        p = r.clone()
+        rs = self._vdot(r, r)
+        for i in range(steps):
+            last = i + 1 == steps
+            Ap = self._combine_constrained(self._apply_op(p, coeff, k), k, Ls)
+            cg_step(x, None if (last and not need_r) else r, p, Ap, rs, self._vdot(p, Ap))
+            del Ap
+            if not last:
+                rs_new = self._vdot(r, r)
+                cg_direction(p, r, p, rs_new, rs)
+                rs = rs_new
+        return x, (r if need_r else None)
+
+    def _smooth_cg_exact(self, x, b, coeff, *, k, steps, need_r=True, x_zero=False, Ls=None):
+        """CG smoothing with exact dots and one combine per step (JAX
+        ``_smooth_cg_exact``): the energy p'Ap of an interface-consistent p
+        sums over every slot of p * (A_local p), so Ap is never combined;
+        the LOCAL residual updates incrementally (r_loc -= alpha A_local p),
+        one combine per step, and the final r_loc is what the V-cycle
+        restricts. Dots are first-copy weighted (exact; the mask fused into
+        K5). Under the structured constraint the separate constrain passes
+        are skipped (see the JAX ``_combine_constrained``). Updates x in
+        place; returns (x, r_loc), r_loc None when ``need_r`` is False (the
+        last step then skips its r update). ``x_zero``: x == 0, so the entry
+        residual is b."""
+        w = self.levels[k].first_copy_mask
+        bm = self._bmask(k, Ls)
+        if bm is None:
+            r_loc = b.clone() if x_zero else self._apply_op(x, coeff, k, b=b)
+        else:
+            r_loc = b * bm if x_zero else self._apply_op(x, coeff, k, b=b).mul_(bm)
+        p = self._combine_constrained(r_loc, k, Ls)
+        rs = dot(p, p, mask=w)
+        for i in range(steps):
+            last = i + 1 == steps
+            Ap = self._apply_op(p, coeff, k)
+            if bm is not None:
+                Ap.mul_(bm)
+            cg_step(x, None if (last and not need_r) else r_loc, p, Ap, rs, self._vdot(p, Ap))
+            del Ap
+            if not last:
+                rc = self._combine_constrained(r_loc, k, Ls)
+                rs_new = dot(rc, rc, mask=w)
+                # p = rc + beta p, written over rc
+                cg_direction(rc, rc, p, rs_new, rs)
+                p, rs = rc, rs_new
+                del rc
+        return x, (r_loc if need_r else None)
+
     def _smooth_chebyshev(
         self, x, b, coeff, lam_max, *, k, steps, need_r=True, x_zero=False,
         Ls=None,
     ):
-        """Jacobi-preconditioned first-kind Chebyshev smoother on D^{-1}A over
-        [lam_max/cheb_ratio, lam_max]. Updates x in place; returns
+        """Jacobi-preconditioned Chebyshev smoother on D^{-1}A: the first kind
+        over [lam_max/cheb_ratio, lam_max], or for "chebyshev4" the fourth
+        kind over [0, lam_max] (the same p = a p + b z update, K3, with the
+        rows of ``_cheb_coeffs``). Updates x in place; returns
         (x, r_loc) with the LOCAL residual maintained incrementally (None
         when ``need_r`` is False: the final r -= A p is skipped).
         ``x_zero``: the caller guarantees x == 0, so the entry residual
@@ -655,7 +786,7 @@ class MultigridSolver:
         constraint skips both (dead boundary rows, see the JAX
         ``_combine_constrained``)."""
         dinv = self._dinv_all(coeff)[k]
-        ab = self._cheb_coeffs(lam_max)
+        ab = self._cheb_coeffs(lam_max, fourth=self.smoother == "chebyshev4")
         bm = self._bmask(k, Ls)
         # entry residual, then incremental r_loc -= A p (fused epilogue)
         if bm is None:
@@ -810,50 +941,66 @@ class MultigridSolver:
         self, x_top, b_top, coeff, chol, lam_max, top=None, need_r=True,
         x_zero=False, Ls=None, interior=None,
     ):
-        """One V-cycle from level ``top``. The pre-smooth updates x_top in
-        place; the result is a new tensor (prolongation adds out of place):
-        returns (x, r_finest) with r_finest the combined, constrained
-        residual after the post-smooth (None when ``need_r`` is False).
-        ``x_zero``: x_top is known to be zero (the preconditioner cycles of
-        PCG); every sub-top pre-smooth starts from zero anyway. ``Ls`` /
-        ``interior``: the call's level masks and coarse interior mask."""
+        """One cycle (V, or W with ``cycle="W"``) from level ``top``; x_top
+        is updated in place and returned: (x_top, r_finest) with r_finest
+        the combined, constrained residual after the post-smooth (None when
+        ``need_r`` is False). ``x_zero``: x_top is known to be zero (the
+        preconditioner cycles of PCG); every sub-top level's first
+        pre-smooth starts from zero anyway. ``Ls`` / ``interior``: the
+        call's level masks and coarse interior mask."""
         top = self.nlevels - 1 if top is None else top
-        E = x_top.shape[0]
-        xs = [None] * self.nlevels
-        bs = [None] * self.nlevels
-        xs[top], bs[top] = x_top, b_top
+        c = _Cycle(
+            xs=[None] * self.nlevels, bs=[None] * self.nlevels, coeff=coeff,
+            chol=chol, lam_max=lam_max, top=top, Ls=Ls, interior=interior,
+        )
+        c.xs[top], c.bs[top] = x_top, b_top
+        del x_top, b_top
+        r_fine = self._cycle_level(c, top, need_r=need_r, x_zero=x_zero)
+        return c.xs[top], r_fine
 
-        def steps(k):
-            return self.smoothing_steps if k == top else self.coarse_smoothing_steps
-
-        # the recursion of the JAX form as two loops: a self-referencing
-        # closure would be a reference cycle that keeps every level's
-        # buffers alive until Python's cycle collector runs (measured: the
-        # peak device memory grew by ~1 GB per PCG iteration at 190M DOFs)
-        for k in range(top, 0, -1):
-            xs[k], r_local = self._smooth_chebyshev(
-                xs[k], bs[k], coeff, lam_max, k=k, steps=steps(k),
-                x_zero=x_zero or k != top, Ls=Ls,
+    def _cycle_level(self, c, k, need_r=False, x_zero=True):
+        """Level k of the cycle ``c`` (JAX ``_vcycle_impl``'s ``descend``):
+        pre-smooth, restrict, the level below (twice for a W-cycle, the
+        second from the first's iterate), prolongate, post-smooth. The
+        recursion runs through this bound method and keeps the levels'
+        buffers in ``c`` only: a self-referencing closure would be a
+        reference cycle that holds every level's buffers until Python's
+        cycle collector runs (measured: the peak device memory grew by
+        ~1 GB per PCG iteration at 190M DOFs). Returns the post-smooth's
+        combined residual when ``need_r``, else None."""
+        if k == 0:
+            c.xs[0] = self._coarse_solve(c.bs[0], c.coeff, c.chol, c.interior)
+            return None
+        steps = self.smoothing_steps if k == c.top else self.coarse_smoothing_steps
+        L = self.levels[k]
+        kw = dict(k=k, steps=steps, Ls=c.Ls)
+        if self.smoother == "cg":
+            # the parity smoother's residual is combined: restriction takes
+            # a fresh local residual (the reference structure,
+            # src/multigrid.jl:97-105)
+            x, _ = self._smooth(c.xs[k], c.bs[k], c.coeff, c.lam_max, need_r=False,
+                                x_zero=x_zero, **kw)
+            r_local = self._local_residual(x, c.bs[k], c.coeff, k, c.Ls)
+        else:
+            # cg_exact and the Chebyshev smoothers maintain the local
+            # residual: restriction reads it directly
+            x, r_local = self._smooth(c.xs[k], c.bs[k], c.coeff, c.lam_max,
+                                      x_zero=x_zero, **kw)
+        c.bs[k - 1] = restrict(r_local, L.transfer)
+        del r_local
+        if k - 1 > 0:
+            c.xs[k - 1] = torch.zeros(
+                (x.shape[0], self.plan.n_local(k - 1)), dtype=x.dtype, device=x.device
             )
-            bs[k - 1] = restrict(r_local, self.levels[k].P_up)
-            del r_local
-            if k - 1 > 0:
-                xs[k - 1] = torch.zeros(
-                    (E, self.plan.n_local(k - 1)), dtype=x_top.dtype, device=x_top.device
-                )
-        xs[0] = self._coarse_solve(bs[0], coeff, chol, interior)
-        r_fine = None
-        for k in range(1, top + 1):
-            x = prolong_add(xs[k], xs[k - 1], self.levels[k].P_up)
-            xs[k - 1] = bs[k - 1] = None
-            want = need_r and k == top
-            x, r_local = self._smooth_chebyshev(
-                x, bs[k], coeff, lam_max, k=k, steps=steps(k), need_r=want, Ls=Ls
-            )
-            xs[k] = x
-            if want:
-                r_fine = self._combine_constrained(r_local, k, Ls)
-        return xs[top], r_fine
+        self._cycle_level(c, k - 1)
+        if self.cycle == "W" and k - 1 > 0:
+            self._cycle_level(c, k - 1, x_zero=False)
+        prolong_add(x, c.xs[k - 1], L.transfer, out=x)
+        c.xs[k - 1] = c.bs[k - 1] = None
+        x, r = self._smooth(x, c.bs[k], c.coeff, c.lam_max, need_r=need_r, **kw)
+        if r is None or self.smoother == "cg":
+            return r
+        return self._combine_constrained(r, k, c.Ls)
 
     # ------------------------------------------------------------------ #
     # public API
@@ -868,28 +1015,35 @@ class MultigridSolver:
         )
 
     def vcycle(self, x, b, coeff, chol=None, lam_max=None, Ls=None, interior=None):
-        """One V-cycle: (x, b) -> (x, r_finest), both [E, n_local(finest)].
-        ``chol`` is ``coarse_setup(sigma, lam)`` (None for coarse="cg").
-        ``Ls`` / ``interior`` replace the level boundary masks and the
-        coarse interior-node mask for this call (see the module docstring).
-        ``x`` is not modified (the cycle runs on a copy)."""
-        self._check_setup(chol, lam_max)
+        """One cycle (V or W, the solver's ``cycle``): (x, b) -> (x,
+        r_finest), both [E, n_local(finest)]. ``chol`` is ``coarse_setup(
+        sigma, lam)`` (None for coarse="cg"); ``lam_max`` is needed by the
+        Chebyshev smoothers only. ``Ls`` / ``interior`` replace the level
+        boundary masks and the coarse interior-node mask for this call (see
+        the module docstring). ``x`` is not modified (the cycle runs on a
+        copy)."""
+        lam_max = self._check_setup(chol, lam_max)
         return self._vcycle_impl(
-            x.clone(), b, coeff, chol, float(lam_max), Ls=self._check_Ls(Ls),
+            x.clone(), b, coeff, chol, lam_max, Ls=self._check_Ls(Ls),
             interior=self._check_interior(interior),
         )
 
     def _check_setup(self, chol, lam_max):
+        """Validate the coarse payload and lam_max; returns lam_max as a
+        float (None for the CG smoothers, which do not read it)."""
         if chol is None and self.coarse_kind != "cg":
             raise ValueError("pass coarse_setup(sigma, lam) as chol")
+        if self.smoother not in CHEBYSHEV_SMOOTHERS:
+            return None
         if lam_max is None:
             raise ValueError("pass lam_max=estimate_lambda_max(coeff)")
+        return float(lam_max)
 
     def _pcg_rnorm(self, r):
         """Exact first-copy residual norm from a local-form residual."""
         top = self.nlevels - 1
-        rr = apply_mask(self._combine(r, top), self.levels[top].first_copy_mask)
-        return torch.sqrt(self._vdot(rr, rr))
+        rr = self._combine(r, top)
+        return torch.sqrt(dot(rr, rr, mask=self.levels[top].first_copy_mask))
 
     def _pcg_init_impl(self, x, b, coeff, chol, lam_max, Ls=None, interior=None):
         top = self.nlevels - 1
@@ -965,10 +1119,15 @@ class MultigridSolver:
         copies a given start ``x`` (a non-zero start is allowed); ``step``
         updates the state's tensors in place where it can, so a state must
         not be stepped twice."""
-        self._check_setup(chol, lam_max)
+        if self.smoother not in CHEBYSHEV_SMOOTHERS:
+            raise ValueError(
+                "pcg needs a linear SPD preconditioner: construct the solver "
+                "with smoother='chebyshev'/'chebyshev4' (the cg smoothers make "
+                "the V-cycle nonlinear)"
+            )
+        lam_max = self._check_setup(chol, lam_max)
         if flexible is None:
             flexible = self.coarse_kind not in ("chol", "inv")
-        lam_max = float(lam_max)
         Ls = self._check_Ls(Ls)
         interior = self._check_interior(interior)
 
@@ -990,11 +1149,11 @@ class MultigridSolver:
         bs = [None] * self.nlevels
         bs[top] = b_top
         for k in range(top, 0, -1):
-            bs[k - 1] = restrict(self._constrain(bs[k], k, Ls), self.levels[k].P_up)
+            bs[k - 1] = restrict(self._constrain(bs[k], k, Ls), self.levels[k].transfer)
         x = self._coarse_solve(bs[0], coeff, chol, interior)
         r = None
         for k in range(1, top + 1):
-            x = torch.matmul(x, self.levels[k].P_up.T)
+            x = prolong_add(None, x, self.levels[k].transfer)
             for i in range(nu):
                 x, r = self._vcycle_impl(
                     x, bs[k], coeff, chol, lam_max, top=k,
@@ -1009,9 +1168,9 @@ class MultigridSolver:
         V-cycles per level. Returns (x, r_finest) like ``vcycle``."""
         assert nu >= 1, "fmg needs at least one V-cycle per ascent level"
         assert self.nlevels >= 2, "fmg needs a hierarchy"
-        self._check_setup(chol, lam_max)
+        lam_max = self._check_setup(chol, lam_max)
         return self._fmg_impl(
-            b, coeff, chol, float(lam_max), int(nu), Ls=self._check_Ls(Ls),
+            b, coeff, chol, lam_max, int(nu), Ls=self._check_Ls(Ls),
             interior=self._check_interior(interior),
         )
 
@@ -1041,8 +1200,7 @@ class MultigridSolver:
         """Norm with each fine DOF counted once (reference:
         zero_out_all_but_one! + norm, src/implicit_fine_grid.jl:334-386)."""
         k = self.nlevels - 1 if k is None else k
-        rr = apply_mask(r, self.levels[k].first_copy_mask)
-        return torch.sqrt(self._vdot(rr, rr))
+        return torch.sqrt(dot(r, r, mask=self.levels[k].first_copy_mask))
 
 
 def solve_driver(
@@ -1052,13 +1210,21 @@ def solve_driver(
     """The one-call tolerance-driven solve (same stopping logic and
     normalization as the JAX package's ``solve_driver``).
 
-    ``method``: "vcycle", "fmg", "pcg", "fmg+pcg", or "auto" = "fmg+pcg"
-    from a zero start and "pcg" from a caller's ``x``."""
+    ``method``: "vcycle", "fmg" (FMG start, then cycles), "pcg" (Chebyshev
+    smoothers only), "fmg+pcg", or "auto": for the Chebyshev smoothers
+    "fmg+pcg" from a zero start and "pcg" from a caller's ``x``, for the CG
+    smoothers "fmg" and "vcycle". Only the Chebyshev smoothers get a
+    lambda_max estimate."""
+    cheb = solver.smoother in CHEBYSHEV_SMOOTHERS
     if method == "auto":
-        method = "pcg" if x is not None else "fmg+pcg"
+        if x is not None:
+            # fmg is a from-scratch initializer: a warm start skips it
+            method = "pcg" if cheb else "vcycle"
+        else:
+            method = "fmg+pcg" if cheb else "fmg"
     coeff = solver.coefficients(sigma_el, lam)
     setup = solver.coarse_setup(sigma_el, lam)
-    lam_max = solver.estimate_lambda_max(coeff)
+    lam_max = solver.estimate_lambda_max(coeff) if cheb else None
     b_norm = float(solver.residual_norm(b))
     if b_norm == 0.0:
         return (solver.zero_states()[0] if x is None else x), [0.0]

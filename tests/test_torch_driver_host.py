@@ -7,6 +7,7 @@ The schedule, the ordered mesh and its radius queries, the initial
 right-hand side, the lattice DOF norms and the consistent random start are
 NumPy in both packages and must be equal, not close."""
 
+import math
 import os
 import subprocess
 import sys
@@ -122,9 +123,16 @@ def test_unported_arguments_raise(kw):
         tcb.checkerboard_homogenization(1, dim=2, refinements=1, device="cpu", **kw)
 
 
-def test_cg_smoother_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="smoother"):
-        tcb.checkerboard_homogenization(1, dim=2, refinements=1, device="cpu")
+def test_cg_smoother_is_the_default():
+    """The driver's defaults run: smoother="cg" with inner="vcycle", the
+    same sigma as when they are named."""
+    sigma = tcb.checkerboard_homogenization(1, dim=2, refinements=1, seed=4, device="cpu")
+    named = tcb.checkerboard_homogenization(
+        1, dim=2, refinements=1, seed=4, device="cpu", smoother="cg", inner="vcycle"
+    )
+    assert math.isfinite(sigma) and sigma == named
+    with pytest.raises(ValueError, match="linear SPD"):
+        tcb.checkerboard_homogenization(1, dim=2, refinements=1, device="cpu", inner="pcg")
 
 
 def test_driver_modules_load_with_jax_blocked():
@@ -138,6 +146,9 @@ def test_driver_modules_load_with_jax_blocked():
         "import homogenization_jl_tpu_torch.ops.integrals\n"
         "import homogenization_jl_tpu_torch.ops.interfaces\n"
         "import homogenization_jl_tpu_torch.solver.multigrid\n"
+        "import homogenization_jl_tpu_torch.ops.cg\n"
+        "import homogenization_jl_tpu_torch.ops.dots\n"
+        "import homogenization_jl_tpu_torch.ops.transfer\n"
         "from homogenization_jl_tpu_torch.models.checkerboard import checkerboard_homogenization\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -13,7 +13,11 @@ the mask epilogue bitwise equal to the plain combine times the mask; K8
 (gather combine) bitwise equal to its plain form, with and without the
 mask; K9 (sigma integrals) within 1e-5 (float32) / 1e-12 (float64) of its
 plain form, relative to the sum of the absolute terms, and bitwise equal on
-two launches.
+two launches; K4 (transfers) prolong_add bitwise equal to the dense product
+(P's weights make every product exact) and restrict within 1e-6 (float32)
+/ 1e-14 (float64) of it; K5 (dots) bitwise equal on two launches and equal
+to its plain form, which sums in the kernel's order; K10 (CG updates)
+bitwise equal to its plain form, den == 0 included.
 
 The CPU tests check the wrappers' contract: CPU tensors take the plain path
 and count no launch; malformed inputs raise."""
@@ -25,13 +29,17 @@ import torch
 from homogenization_jl_tpu_torch.csrc.build import LAUNCHES
 from homogenization_jl_tpu_torch.fem.local_operators import build_level_operators
 from homogenization_jl_tpu_torch.mesh.grid import hypercube
+from homogenization_jl_tpu_torch.mesh.reference import prolongation_dense
 from homogenization_jl_tpu_torch.ops import apply as t_apply
 from homogenization_jl_tpu_torch.models.checkerboard import ordered_hypercube
+from homogenization_jl_tpu_torch.ops import cg as t_cg
 from homogenization_jl_tpu_torch.ops import chebyshev as t_cheb
+from homogenization_jl_tpu_torch.ops import dots as t_dots
 from homogenization_jl_tpu_torch.ops import integrals as t_int
 from homogenization_jl_tpu_torch.ops import interfaces as t_if
 from homogenization_jl_tpu_torch.ops import stencil as t_stencil
 from homogenization_jl_tpu_torch.ops import structured as t_st
+from homogenization_jl_tpu_torch.ops import transfer as t_transfer
 from homogenization_jl_tpu_torch.ops.plan import build_grid_plan
 
 
@@ -113,6 +121,9 @@ def test_wrappers_reject_malformed_inputs(plan):
         t_apply.element_apply(x.t().contiguous().t(), coeff, stack)
     with pytest.raises(ValueError):
         t_apply.element_apply(x, coeff, stack, out=x)
+    with pytest.raises(ValueError):  # the residual form takes at most 8 pieces
+        s9 = stack[:1].expand(9, -1, -1).contiguous()
+        t_apply.element_apply(x, coeff[:, :1].expand(-1, 9).contiguous(), s9, b=x.clone())
     st = _tables(plan, 1, "cpu")
     with pytest.raises(ValueError):
         t_st.combine_structured(x[:, :-1], st)
@@ -176,6 +187,9 @@ def test_element_apply_kernel_matches_plain(plan, cuda, dtype):
         assert torch.linalg.norm(got - ref) <= tol * torch.linalg.norm(ref), op.n_local
         ref_res = b_old - ref
         assert torch.linalg.norm(res - ref_res) <= tol * torch.linalg.norm(ref_res)
+        # the shifted residual form of the plain version (ops/apply.py)
+        ref_shift = t_apply.element_apply_plain(x, coeff, stack, b=b_old)
+        assert torch.linalg.norm(res - ref_shift) <= tol * torch.linalg.norm(ref_shift)
         assert torch.equal(res, b)
 
 
@@ -390,3 +404,79 @@ def test_integrals_kernel_matches_plain(cuda, dtype, n_local):
         assert torch.equal(got, again), mode  # fixed order: the same bits
         assert abs(float(got) - float(ref)) <= tol * float(scale), mode
     assert LAUNCHES["integrals"] == n0 + 8
+
+
+# --------------------------------------------------------------------- #
+# K4, K5, K10 (the CG smoothers' path)
+# --------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_transfer_kernel_matches_plain(plan, cuda, dtype):
+    rng = np.random.default_rng(11)
+    E = plan.base.nelements
+    tol = 1e-6 if dtype == torch.float32 else 1e-14
+    for k in range(1, plan.nlevels):
+        P = torch.as_tensor(prolongation_dense(plan.reference, k - 1), device=cuda).to(dtype)
+        T = t_transfer.build_transfer_tables(P)
+        n_f, n_c = P.shape
+        xf = torch.as_tensor(rng.standard_normal((E, n_f)), device=cuda).to(dtype)
+        xc = torch.as_tensor(rng.standard_normal((E, n_c)), device=cuda).to(dtype)
+        n0 = LAUNCHES["transfer"]
+        got = t_transfer.prolong_add(xf, xc, T)
+        alone = t_transfer.prolong_add(None, xc, T)
+        r = t_transfer.restrict(xf, T)
+        inplace = xf.clone()
+        t_transfer.prolong_add(inplace, xc, T, out=inplace)
+        torch.cuda.synchronize()
+        assert LAUNCHES["transfer"] == n0 + 4
+        assert torch.equal(got, t_transfer.prolong_add_plain(xf, xc, P)), k
+        assert torch.equal(alone, t_transfer.prolong_add_plain(None, xc, P)), k
+        assert torch.equal(inplace, got), k
+        ref = t_transfer.restrict_plain(xf, P)
+        assert (r - ref).abs().max() <= tol * ref.abs().max(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("N", [1, 1000, 300_001])
+def test_masked_dot_kernel_matches_plain(cuda, dtype, N):
+    rng = np.random.default_rng(N)
+
+    def t(a):
+        return torch.as_tensor(a, device=cuda).to(dtype)
+
+    a, b, d = t(rng.standard_normal(N)), t(rng.standard_normal(N)), t(rng.uniform(0.5, 2, N))
+    w = torch.as_tensor(rng.random(N) < 0.6, device=cuda)
+    n0 = LAUNCHES["masked_dot"]
+    for mask, scale in ((None, None), (w, None), (None, d), (w, d)):
+        got = t_dots.dot(a, b, mask=mask, scale=scale)
+        again = t_dots.dot(a, b, mask=mask, scale=scale)
+        ref = t_dots.dot_plain(a, b, mask=mask, scale=scale)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(-1), again.view(-1))  # fixed order: the same bits
+        assert float(got) == float(ref)  # the plain form sums in that order
+    assert LAUNCHES["masked_dot"] == n0 + 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("den_zero", [False, True])
+def test_cg_update_kernel_matches_plain(cuda, dtype, den_zero):
+    g = torch.Generator(device="cpu").manual_seed(13)
+    shape = (3001, 35)
+    x, r, p, Ap, rc = (torch.randn(shape, generator=g, dtype=dtype).to(cuda) for _ in range(5))
+    num = torch.tensor(0.7, dtype=dtype, device=cuda)
+    den = torch.tensor(0.0 if den_zero else 1.3, dtype=dtype, device=cuda)
+    xr, rr, pr = x.clone(), r.clone(), rc.clone()
+    t_cg.cg_step_plain(xr, rr, p, Ap, num, den)
+    t_cg.cg_direction_plain(pr, rc, p, num, den)
+    n0 = LAUNCHES["cg_update"]
+    xk, rk, pk = x.clone(), r.clone(), rc.clone()
+    t_cg.cg_step(xk, rk, p, Ap, num, den)
+    t_cg.cg_direction(pk, pk, p, num, den)
+    x2 = x.clone()
+    t_cg.cg_step(x2, None, p, None, num, den)
+    torch.cuda.synchronize()
+    assert LAUNCHES["cg_update"] == n0 + 3
+    for got, ref in ((xk, xr), (rk, rr), (pk, pr), (x2, xr)):
+        assert torch.equal(got, ref)
