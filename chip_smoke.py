@@ -6,7 +6,7 @@ on it. Phases (each prints one line; any failure raises, and the script
 then exits non-zero without the final line):
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
-  2. build the CUDA kernels (K1, K2, K4-K10 but K3; one nvcc per source,
+  2. build the CUDA kernels (K1, K2, K4-K11 but K3; one nvcc per source,
      started together) from csrc/ into build/kernels/, warm up K3 (Triton);
   3. every kernel against its plain PyTorch version on the card, at the
      main path's shapes, float32 and float64: K1-K5 and K10 at every level
@@ -68,9 +68,31 @@ then exits non-zero without the final line):
      scripts/run_flagship.py calls it: phase 7's call with
      smoother="cg_exact", inner="vcycle"; sigma within 1e-3 of the TPU
      record 1.2947099209 (12 cycles; ACCURACY.md) in at most 24 cycles;
+ 11. K11, the slab combine, at full size: the main-path problem in cube
+     order (hypercube(3, 32, order="cube"), 5 levels, 190,513,152 DOFs)
+     cut into S = 1, 4 and 8 slabs (W = 32, 8 and 4 planes; S = 1 is the
+     shape phases 12 and 13 launch); on every slab, at every level in
+     float32 and at the finest in float64, K11 with halos cut from the full
+     state equals K2 on the full state's rows bit for bit in every mode
+     (combine, Dirichlet fold, constraint, mask store); at the finest level
+     K11 on the S = 1 slab and on the timed S = 8 shard equals its plain
+     form in every mode (max abs error 0); the finest K11 timed at the
+     S = 8 shard shape against its plain form;
+ 12. parallel/run_slab.py through an NCCL group of one rank (a FileStore in
+     a temporary directory), at scripts/run_slab_big.py's configuration on
+     phase 11's plan: float32, Chebyshev, coarse="chol", 3 V-cycles and
+     the integral, and the single-device leg on the same plan: with one
+     rank both legs do the same arithmetic, so the residual histories and
+     the integral must be equal (with more ranks: integral within 5e-4 and
+     each cycle's contraction rate within 2%); the residual histories'
+     largest relative difference and both legs' peak memory;
+ 13. the flagship through the slab: phase 7's call with device_mesh= the
+     group of phase 12 (cube order); sigma within 1e-3 of 1.2947696447 in
+     at most 14 PCG iterations, its seconds per iteration beside phase
+     7's; then the group is destroyed;
 then one JSON line with the kernels (each kernel's launches on its path:
-K4, K5 and K10 on phase 10, K8 on phase 8's ordered run, the others on
-phase 7), and last the device JSON line.
+K4, K5 and K10 on phase 10, K8 on phase 8's ordered run, K11 on phase 13,
+the others on phase 7), and last the device JSON line.
 
 Usage: python3 chip_smoke.py            (one card, full size)
        python3 chip_smoke.py --n 16     (a smaller base, for rehearsals)
@@ -86,8 +108,10 @@ import argparse
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -146,6 +170,11 @@ KERNELS = {
         source="homogenization_jl_tpu_torch/csrc/cg_smoother.cu",
         replaces="homogenization_jl_tpu/solver/multigrid.py:765",
     ),
+    "slab_combine": dict(
+        route="cuda",
+        source="homogenization_jl_tpu_torch/csrc/structured_combine.cu",
+        replaces="homogenization_jl_tpu/ops/structured.py:902",
+    ),
 }
 # NVIDIA's data sheet for the H100 SXM:
 # float32 outside the tensor cores, and HBM bandwidth
@@ -167,6 +196,15 @@ FLAGSHIP = dict(n=2, dim=3, refinements=4)
 RECURRENCE_2D = dict(n=5, dim=2, refinements=4)
 # K8's 3D check: the ordered base with the flagship's element count
 ORDERED_3D_RADIUS = 16
+# phase 11's slab counts (W = 32, 8 and 4 planes of the n = 32 box: S = 1
+# is the shape phases 12 and 13 launch, and 8 slabs of 190M DOFs each make
+# BASELINE config 5) and the shard it times
+SLAB_COUNTS = (1, 4, 8)
+SLAB_TIMED = (8, 3)
+# phase 12's gates against the single-device leg (ROADMAP.md queue 1 item
+# 10: measured-plus-margin, not run_slab_big.py's 1e-3 / 5%)
+SLAB_INTEGRAL_TOL = 5e-4
+SLAB_RATE_TOL = 0.02
 
 
 def bound(nbytes, flops):
@@ -185,9 +223,9 @@ def entry(max_abs_err, ms, plain_ms, nbytes, flops, library_ms=None):
                 **bound(nbytes, flops), library_ms=library_ms)
 
 
-def combine_adds(plan, k, E):
-    """Owner values a combine adds at level k: each output entry of a class
-    adds its group's valid owners."""
+def combine_adds(plan, k, E, rows=slice(None)):
+    """Owner values a combine adds at level k (on the element ``rows``):
+    each output entry of a class adds its group's valid owners."""
     lay = plan.reference.layout[k]
     lp = plan.levels[k]
     total = 0
@@ -196,7 +234,7 @@ def combine_adds(plan, k, E):
         if tabs is None or width == 0:
             continue
         _, _, om, gmap = (np.asarray(a) for a in tabs)
-        total += int((om != 0).sum(axis=1)[gmap].sum()) * width
+        total += int((om != 0).sum(axis=1)[gmap[rows]].sum()) * width
     return total
 
 
@@ -213,6 +251,11 @@ VCYCLE_PATH = MAIN_PATH + ("cg_update",)
 FLAGSHIP_VCYCLE_PATH = FLAGSHIP_PATH + ("cg_update",)
 DEFAULTS_2D_PATH = ("element_apply", "coarse_gather", "gather_combine", "integrals",
                     "transfer", "masked_dot", "cg_update")
+# the slab paths: run_slab (Chebyshev, coarse="chol") and the flagship
+# through the slab (its aux hierarchy of coarse="mg" runs K2)
+SLAB_RUN_PATH = ("element_apply", "slab_combine", "chebyshev_update", "coarse_gather",
+                 "transfer", "masked_dot", "integrals")
+FLAGSHIP_SLAB_PATH = FLAGSHIP_PATH + ("slab_combine",)
 
 
 def check(cond, msg):
@@ -917,7 +960,7 @@ def flagship_driver(hz, kbuild, dev, timing, smi):
         k9_ms_per_launch=timing["integrals"]["ms"], max_memory_allocated=peak,
         sigma_minus_tpu_record=sigma - FLAGSHIP_SIGMA, launches=launches, card=smi)
     torch.cuda.empty_cache()
-    return launches
+    return launches, sum(iters) / len(iters)
 
 
 def recurrence_2d(kbuild, dev):
@@ -1129,6 +1172,170 @@ def flagship_vcycle(kbuild, dev, smi):
 
 
 # --------------------------------------------------------------------- #
+# phases 11-13: the slab-sharded path
+# --------------------------------------------------------------------- #
+def slab_cuts(x, st, S):
+    """(r, rows, x0, W, slab, halo_lo, halo_hi) of every slab of the
+    cube-major state x cut into S slabs; the halos are the neighbours' edge
+    planes' tail columns, None beyond the domain ends (as the exchange
+    delivers them)."""
+    from homogenization_jl_tpu_torch.ops.structured import slab_halo_rows
+
+    h = slab_halo_rows(st.sc)
+    W = st.sc.n // S
+    B = x.shape[0] // S
+    for r in range(S):
+        lo = x[r * B - h : r * B, st.i0:].contiguous() if r > 0 else None
+        hi = x[(r + 1) * B : (r + 1) * B + h, st.i0:].contiguous() if r < S - 1 else None
+        yield r, slice(r * B, (r + 1) * B), r * W, W, x[r * B : (r + 1) * B], lo, hi
+
+
+def check_slab_kernel(plan, dev, smi, t_plan):
+    """Phase 11: K11 on every slab of S = 1, 4 and 8 equals K2 on the full
+    state's rows bit for bit, every level (float32) and the finest
+    (float64), every mode; at the finest level K11 on the S = 1 slab and
+    the timed S = 8 shard equals its plain form in every mode (max abs
+    error 0); the finest float32 K11 timed at the S = 8 shard shape.
+    Returns K11's kernel entry."""
+    import torch
+
+    from homogenization_jl_tpu_torch.ops import structured as k_st
+
+    g = torch.Generator(device=dev).manual_seed(1111)
+    top = plan.nlevels - 1
+    E = plan.base.nelements
+    det = k_st.detect_structured(plan.base)
+    checked, timing, plain_err = [], None, {}
+    for k in range(plan.nlevels):
+        lay = plan.reference.layout[k]
+        i0 = int(min(list(lay.face_offsets) + list(lay.edge_offsets) + list(lay.corner_cols)))
+        st = k_st.flatten_structured(k_st.build_structured_combine_auto(plan, k, det=det), i0,
+                                     device=dev)
+        n = plan.n_local(k)
+        for dtype in (torch.float32, torch.float64) if k == top else (torch.float32,):
+            x = torch.randn((E, n), generator=g, device=dev, dtype=dtype)
+            m = torch.rand((E, n), generator=g, device=dev) < 0.8
+            refs = dict(combine=k_st.combine_structured(x, st),
+                        fold=k_st.combine_structured(x, st, constrain=True),
+                        mask=k_st.combine_structured(x, st, mask=m),
+                        constrain=k_st.constrain_structured(x, st))
+            slabs = 0
+            for S in SLAB_COUNTS:
+                for r, rows, x0, W, xr, lo, hi in slab_cuts(x, st, S):
+                    got = dict(
+                        combine=k_st.combine_structured_slab(xr, lo, hi, st, x0, W),
+                        fold=k_st.combine_structured_slab(xr, lo, hi, st, x0, W, constrain=True),
+                        mask=k_st.combine_structured_slab(xr, lo, hi, st, x0, W,
+                                                          mask=m[rows]),
+                        constrain=k_st.constrain_structured_slab(xr, st, x0, W))
+                    for mode, ref in refs.items():
+                        check(torch.equal(_bits(got[mode]), _bits(ref[rows])),
+                              f"K11 {mode} level {k} {dtype} S={S} slab {r}: differs from K2")
+                    slabs += 1
+                    if k == top and (S == 1 or (S, r) == SLAB_TIMED):
+                        plain = dict(
+                            combine=k_st.combine_structured_slab_plain(xr, lo, hi, st, x0, W),
+                            fold=k_st.combine_structured_slab_plain(xr, lo, hi, st, x0, W, True),
+                            constrain=k_st.constrain_structured_slab_plain(xr, st, x0, W))
+                        plain["mask"] = plain["combine"] * m[rows]
+                        for mode, ref in plain.items():
+                            err = float((got[mode] - ref).abs().max())
+                            check(err == 0, f"K11 {mode} {dtype} S={S} slab {r}: max abs err "
+                                            f"{err} against its plain form")
+                            plain_err[f"{str(dtype)[6:]} S={S} slab {r} {mode}"] = err
+                        del plain
+                    if (S, r) == SLAB_TIMED and k == top and dtype == torch.float32:
+                        plain = k_st.combine_structured_slab_plain(xr, lo, hi, st, x0, W, True)
+                        tw = n - i0
+                        timing = entry(
+                            (got["fold"] - plain).abs().max(),
+                            cuda_ms(lambda: k_st.combine_structured_slab(
+                                xr, lo, hi, st, x0, W, constrain=True), 20),
+                            cuda_ms(lambda: k_st.combine_structured_slab_plain(
+                                xr, lo, hi, st, x0, W, True), 3),
+                            nbytes=4 * (2 * xr.numel() + lo.numel() + hi.numel()),
+                            flops=combine_adds(plan, k, E, rows),
+                        )
+                        shard = dict(rows=xr.shape[0], n=n, halo_rows=lo.shape[0], tail=tw)
+                        del plain
+                    del got
+            checked.append((str(dtype)[6:], k, n, slabs))
+            del x, m, refs
+            torch.cuda.empty_cache()
+    check(timing is not None, "K11 was not timed")
+    say(11, ok=True, bitwise_vs_k2=checked, max_abs_err_vs_plain=plain_err,
+        host_plan_cube_s=t_plan, timed_shard=shard, f32=timing, card=smi)
+    return timing
+
+
+def slab_run(run_slab, group, prob, n, smi):
+    """Phase 12: run_slab.run through the NCCL group of one rank, with the
+    single-device leg."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_slab.run(group, n, 5, 3, smoother="chebyshev", coarse="chol",
+                       dtype=torch.float32, compare=True, prob=prob)
+    wall = time.perf_counter() - t0
+    check(all(out["launches"][k] > 0 for k in SLAB_RUN_PATH),
+          f"slab run: a kernel never ran: {out['launches']}")
+    check(all(math.isfinite(v) for v in out["residuals"] + [out["integral"]]),
+          f"slab run: non-finite results {out['residuals']} {out['integral']}")
+    if group.size == 1:
+        # one rank does the single-device leg's arithmetic: equal bits
+        check(out["residuals"] == out["residuals_single"]
+              and out["integral"] == out["integral_single"],
+              f"slab run of one rank differs from the single-device leg: "
+              f"{out['residuals']} {out['integral']} vs {out['residuals_single']} "
+              f"{out['integral_single']}")
+    check(out["integral_rel_err"] <= SLAB_INTEGRAL_TOL,
+          f"slab run: integral rel err {out['integral_rel_err']} > {SLAB_INTEGRAL_TOL}")
+    check(max(out["rate_rel_err"]) <= SLAB_RATE_TOL,
+          f"slab run: contraction rates differ by {out['rate_rel_err']}")
+    out["residual_rel_err_max"] = max(out["residual_rel_err"])
+    say(12, ok=True, wall_s=wall, card=smi, **out)
+
+
+def flagship_slab(kbuild, group, smi, sec_iter_phase7):
+    """Phase 13: phase 7's flagship call through the slab solver
+    (device_mesh= the group of one rank). Returns its launches."""
+    import torch
+
+    from homogenization_jl_tpu_torch.models.checkerboard import checkerboard_homogenization
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    sigma, trace = checkerboard_homogenization(
+        **FLAGSHIP, geometry="lattice", dtype=torch.float32, tolerance=1e-4,
+        seed=7, coarse="mg", smoother="chebyshev", inner="pcg",
+        solver_opts=dict(smooth_precision="high", coarse_mg_tol=5e-2),
+        return_trace=True, device_mesh=group,
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kbuild.LAUNCHES)
+    check(all(launches[k] > 0 for k in FLAGSHIP_SLAB_PATH),
+          f"flagship slab: a kernel never ran: {launches}")
+    check(math.isfinite(sigma), f"flagship slab: sigma {sigma}")
+    check(abs(sigma - FLAGSHIP_SIGMA) < 1e-3, f"flagship slab: sigma {sigma} vs {FLAGSHIP_SIGMA}")
+    its = sum(trace.cycles_per_step)
+    check(its <= 14, f"flagship slab: {its} PCG iterations > 14")
+    iters = [t for step in trace.iteration_seconds for t in step]
+    say(13, ok=True, sigma=sigma, sigma_steps=trace.sigma_steps,
+        cycles_per_step=trace.cycles_per_step, residuals=trace.residuals, wall_s=wall,
+        host_init_s=trace.init_seconds, step_setup_s=trace.setup_seconds,
+        sec_per_iteration=iters, sec_per_iteration_mean=sum(iters) / len(iters),
+        phase7_sec_per_iteration_mean=sec_iter_phase7,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        sigma_minus_tpu_record=sigma - FLAGSHIP_SIGMA, launches=launches, card=smi)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------------- #
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=32, help="cubes per axis of the base")
@@ -1200,15 +1407,8 @@ def main(argv=None):
     timing_d, report_d = check_driver_kernels(hz, solver, plan, dev)
     timing.update(timing_d)
     kbuild.reset_launches()
-    # K11 (the slab combine, not ported yet): K2's bytes at the shard shape
-    # of SLAB_BIG_r05.json (8 slabs of the n = 32 box, W = 4 planes and a
-    # halo plane on each side)
-    top = plan.nlevels - 1
-    slab_E = plan.base.nelements // 8 * (4 + 2) // 4
     say("3b", ok=True, report=report_d,
-        f32={k: timing[k] for k in ("integrals", "gather_combine")},
-        k11_slab_bound=dict(elements=slab_E, n=plan.n_local(top),
-                            **bound(4 * 2 * slab_E * plan.n_local(top), 0)))
+        f32={k: timing[k] for k in ("integrals", "gather_combine")})
 
     # ---- phase 4: small float64 solves vs scipy -------------------------
     small = {}
@@ -1322,7 +1522,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     # ---- phase 7: the flagship driver at full size ------------------------
-    launches_f = flagship_driver(hz, kbuild, dev, timing, smi)
+    launches_f, flagship_sec_iter = flagship_driver(hz, kbuild, dev, timing, smi)
 
     # ---- phase 8: the 2D recurrence with a shrink -------------------------
     launches_2d = recurrence_2d(kbuild, dev)
@@ -1337,10 +1537,33 @@ def main(argv=None):
     # ---- phase 10: the flagship driver with inner="vcycle" ----------------
     launches_v = flagship_vcycle(kbuild, dev, smi)
 
+    # ---- phases 11-13: the slab-sharded path ------------------------------
+    from homogenization_jl_tpu_torch.parallel import run_slab
+    from homogenization_jl_tpu_torch.parallel.group import SlabGroup
+
+    t_slab = time.perf_counter()
+    t0 = time.perf_counter()
+    prob_c = run_slab.problem(3, args.n, 5)
+    t_plan_c = time.perf_counter() - t0
+    timing["slab_combine"] = check_slab_kernel(prob_c[0], dev, smi, t_plan_c)
+    kbuild.reset_launches()
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    group = SlabGroup.from_file(os.path.join(store, "store"), 0, 1, device=dev)
+    try:
+        slab_run(run_slab, group, prob_c, args.n, smi)
+        del prob_c
+        torch.cuda.empty_cache()
+        launches_s = flagship_slab(kbuild, group, smi, flagship_sec_iter)
+    finally:
+        SlabGroup.destroy()
+        shutil.rmtree(store, ignore_errors=True)
+    say("11-13", ok=True, wall_s=time.perf_counter() - t_slab)
+
     path_launches = {name: launches_f[name] for name in KERNELS}
     path_launches["gather_combine"] = launches_2d["ordered"]["gather_combine"]
     for name in ("transfer", "masked_dot", "cg_update"):
         path_launches[name] = launches_v[name]
+    path_launches["slab_combine"] = launches_s["slab_combine"]
     kernels = [
         dict(name=name, **meta, launches=path_launches[name], **timing[name])
         for name, meta in KERNELS.items()

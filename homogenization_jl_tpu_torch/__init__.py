@@ -18,12 +18,16 @@ Layer map (host precompute in NumPy, device compute in PyTorch):
   solver/  — multigrid (structured, chebyshev; coarse chol / inv / cg / mg
              with the aux hierarchy of coarse.py; FMG + PCG)
   models/  — checkerboard conductivity fields
+  parallel/ — the slab-sharded solver over torch.distributed (SlabGroup,
+             SlabShardedMultigridSolver; slab combine K11, CUDA)
 """
 
 from .mesh.grid import Mesh, hypercube, interior_nodes
 from .mesh.refine import refine_uniformly
 from .mesh.reference import refined_reference
 from .ops.plan import build_grid_plan
+from .parallel.group import SlabGroup
+from .parallel.slab import SlabShardedMultigridSolver
 from .solver.multigrid import MultigridSolver
 
 __all__ = [
@@ -34,6 +38,8 @@ __all__ = [
     "refined_reference",
     "build_grid_plan",
     "MultigridSolver",
+    "SlabGroup",
+    "SlabShardedMultigridSolver",
 ]
 
 __version__ = "0.1.0"

@@ -33,6 +33,7 @@ LAUNCHES = {
     "transfer": 0,
     "masked_dot": 0,
     "cg_update": 0,
+    "slab_combine": 0,
 }
 
 _CSRC = os.path.dirname(os.path.abspath(__file__))
@@ -54,14 +55,18 @@ _SIGNATURES = {
     # dtype, x, out, mask (or NULL), E, n_local, i0, n, d, ept, type_major,
     # mode, tab, stream
     "hz_structured_combine": [_I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-    # dtype, coeff, stack0, W, P, tab (host), stream
-    "hz_lattice_weights": [_I, _P, _P, _P, _I, _P, _P],
+    # dtype, x, halo_lo, halo_hi, out, mask (or NULL), B, n_local, i0, n, d,
+    # ept, x0, W, pad, mode, tab, stream
+    "hz_structured_combine_slab": [_I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _P, _P],
+    # dtype, coeff, stack0, W, P, x0, planes, tab (host), stream
+    "hz_lattice_weights": [_I, _P, _P, _P, _I, _I, _I, _P, _P],
     # dtype, u, W, m (or NULL), b (or NULL), out, tab, stream
     "hz_lattice_apply": [_I, _P, _P, _P, _P, _P, _P, _P],
-    # dtype, y, out, tab, stream
-    "hz_lattice_assemble": [_I, _P, _P, _P, _P],
-    # dtype, u, out, tab, stream
-    "hz_lattice_distribute": [_I, _P, _P, _P, _P],
+    # dtype, y, out, x0, planes, tab, stream
+    "hz_lattice_assemble": [_I, _P, _P, _I, _I, _P, _P],
+    # dtype, u, out, x0, planes, tab, stream
+    "hz_lattice_distribute": [_I, _P, _P, _I, _I, _P, _P],
     # dtype, itype (0 int32, 1 int64), vals, perm, start, out, n_seg, stream
     "hz_segment_sum": [_I, _I, _P, _P, _P, _P, _L, _P],
     # dtype, itype, src, idx, mask (or NULL), out, total, stream

@@ -26,6 +26,14 @@
 //
 // Element order: type-major (e = t * n^d + q) or cube-major (e = q * ept +
 // t); q is the lattice-lexicographic cube index (x slowest).
+//
+// Plane window (the slab form of homogenization_jl_tpu/parallel/slab.py:
+// 149-229): weights, assemble and distribute take the element rows of the
+// planes of cubes [x0, x0 + planes) only (q and n^d above then count the
+// window's cubes). Weights and assemble write the whole lattice: the
+// window's partial, zero where no window cube lands, which the ranks'
+// partials then sum to the whole (parallel/group.py); distribute reads the
+// window's nodes. x0 = 0, planes = n is the whole box.
 
 #include <cuda_runtime.h>
 
@@ -52,19 +60,34 @@ __device__ __forceinline__ void node_coords(long long a, int dim, int n1,
   }
 }
 
-__device__ __forceinline__ long long cubes(const LatticeTab& tb) {
-  long long nd = 1;
-  for (int k = 0; k < tb.dim; ++k) nd *= tb.n;
+// cubes of the window's planes
+__device__ __forceinline__ long long cubes(const LatticeTab& tb, int planes) {
+  long long nd = planes;
+  for (int k = 1; k < tb.dim; ++k) nd *= tb.n;
   return nd;
 }
 
-// element index of simplex type t in cube q (q inside the box)
+// element row of simplex type t in cube q, q[0] counted from the window's
+// first plane (q inside the window)
 __device__ __forceinline__ long long elem_of(const LatticeTab& tb, int t,
-                                             const int q[3]) {
+                                             const int q[3], int planes) {
   long long cube = 0;
   for (int k = 0; k < tb.dim; ++k) cube = cube * tb.n + q[k];
-  return tb.type_major ? (long long)t * cubes(tb) + cube
+  return tb.type_major ? (long long)t * cubes(tb, planes) + cube
                        : cube * tb.ept + t;
+}
+
+// cube q[] of the window (q[0] local) whose corner offset from lattice node
+// c is corner[t][i]; false when it lies outside the window
+__device__ __forceinline__ bool window_cube(const LatticeTab& tb, const int c[3],
+                                            int t, int i, int x0, int planes,
+                                            int q[3]) {
+  bool ok = true;
+  for (int ax = 0; ax < tb.dim; ++ax) {
+    q[ax] = c[ax] - tb.corner[t][i][ax] - (ax == 0 ? x0 : 0);
+    ok = ok && q[ax] >= 0 && q[ax] < (ax == 0 ? planes : tb.n);
+  }
+  return ok;
 }
 
 // W[k, a]: thread per (k, a)
@@ -72,6 +95,7 @@ template <typename T>
 __global__ void weights_kernel(const T* __restrict__ coeff,
                                const T* __restrict__ stack0,
                                T* __restrict__ W, int P, long long N,
+                               int x0, int planes,
                                const __grid_constant__ LatticeTab tb) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)tb.K * N) return;
@@ -85,13 +109,8 @@ __global__ void weights_kernel(const T* __restrict__ coeff,
     if (tb.ent[e][3] != k) continue;
     const int t = tb.ent[e][0], i = tb.ent[e][1], j = tb.ent[e][2];
     int q[3] = {0, 0, 0};
-    bool ok = true;
-    for (int ax = 0; ax < tb.dim; ++ax) {
-      q[ax] = c[ax] - tb.corner[t][i][ax];
-      ok = ok && q[ax] >= 0 && q[ax] < tb.n;
-    }
-    if (!ok) continue;
-    const T* ce = coeff + elem_of(tb, t, q) * P;
+    if (!window_cube(tb, c, t, i, x0, planes, q)) continue;
+    const T* ce = coeff + elem_of(tb, t, q, planes) * P;
     T s = T(0);
     for (int p = 0; p < P; ++p) s += ce[p] * stack0[(p * d1 + i) * d1 + j];
     acc += s;
@@ -135,7 +154,7 @@ __global__ void apply_kernel(const T* __restrict__ u, const T* __restrict__ W,
 // out[a] = sum over (t, i), in that order, of y[e(t, a - corner[t][i]), i]
 template <typename T>
 __global__ void assemble_kernel(const T* __restrict__ y, T* __restrict__ out,
-                                long long N,
+                                long long N, int x0, int planes,
                                 const __grid_constant__ LatticeTab tb) {
   const long long a = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (a >= N) return;
@@ -146,12 +165,8 @@ __global__ void assemble_kernel(const T* __restrict__ y, T* __restrict__ out,
   for (int t = 0; t < tb.ept; ++t) {
     for (int i = 0; i < d1; ++i) {
       int q[3] = {0, 0, 0};
-      bool ok = true;
-      for (int ax = 0; ax < tb.dim; ++ax) {
-        q[ax] = c[ax] - tb.corner[t][i][ax];
-        ok = ok && q[ax] >= 0 && q[ax] < tb.n;
-      }
-      if (ok) acc += y[elem_of(tb, t, q) * d1 + i];
+      if (window_cube(tb, c, t, i, x0, planes, q))
+        acc += y[elem_of(tb, t, q, planes) * d1 + i];
     }
   }
   out[a] = acc;
@@ -160,14 +175,14 @@ __global__ void assemble_kernel(const T* __restrict__ y, T* __restrict__ out,
 // out[e, i] = u[q(e) + corner[t(e)][i]]: thread per (e, i)
 template <typename T>
 __global__ void distribute_kernel(const T* __restrict__ u, T* __restrict__ out,
-                                  long long total,
+                                  long long total, int x0, int planes,
                                   const __grid_constant__ LatticeTab tb) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   const int d1 = tb.dim + 1;
   const long long e = idx / d1;
   const int i = (int)(idx - e * d1);
-  const long long nd = cubes(tb);
+  const long long nd = cubes(tb, planes);
   int t;
   long long cube;
   if (tb.type_major) {
@@ -182,6 +197,7 @@ __global__ void distribute_kernel(const T* __restrict__ u, T* __restrict__ out,
     q[k] = (int)(cube % tb.n);
     cube /= tb.n;
   }
+  q[0] += x0;
   long long node = 0;
   for (int ax = 0; ax < tb.dim; ++ax)
     node = node * (tb.n + 1) + q[ax] + tb.corner[t][i][ax];
@@ -200,9 +216,9 @@ long long lattice_nodes(const LatticeTab& tb) {
   return N;
 }
 
-long long elements(const LatticeTab& tb) {
-  long long E = tb.ept;
-  for (int k = 0; k < tb.dim; ++k) E *= tb.n;
+long long elements(const LatticeTab& tb, int planes) {
+  long long E = (long long)tb.ept * planes;
+  for (int k = 1; k < tb.dim; ++k) E *= tb.n;
   return E;
 }
 
@@ -213,10 +229,11 @@ unsigned blocks(long long total) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = float64. tab: the host int32 table built by
-// ops/stencil.py::kernel_table. Each returns cudaGetLastError().
+// ops/stencil.py::kernel_table. x0, planes: the plane window (0 and n for
+// the whole box). Each returns cudaGetLastError().
 extern "C" int hz_lattice_weights(int dtype, const void* coeff,
-                                  const void* stack0, void* W, int P,
-                                  const int* tab, void* stream) {
+                                  const void* stack0, void* W, int P, int x0,
+                                  int planes, const int* tab, void* stream) {
   const LatticeTab tb = unpack(tab);
   const long long N = lattice_nodes(tb);
   const long long total = (long long)tb.K * N;
@@ -225,12 +242,12 @@ extern "C" int hz_lattice_weights(int dtype, const void* coeff,
     if (dtype == 0)
       weights_kernel<float><<<blocks(total), kThreads, 0, s>>>(
           static_cast<const float*>(coeff), static_cast<const float*>(stack0),
-          static_cast<float*>(W), P, N, tb);
+          static_cast<float*>(W), P, N, x0, planes, tb);
     else
       weights_kernel<double><<<blocks(total), kThreads, 0, s>>>(
           static_cast<const double*>(coeff),
           static_cast<const double*>(stack0), static_cast<double*>(W), P, N,
-          tb);
+          x0, planes, tb);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -256,34 +273,39 @@ extern "C" int hz_lattice_apply(int dtype, const void* u, const void* W,
 }
 
 extern "C" int hz_lattice_assemble(int dtype, const void* y, void* out,
-                                   const int* tab, void* stream) {
+                                   int x0, int planes, const int* tab,
+                                   void* stream) {
   const LatticeTab tb = unpack(tab);
   const long long N = lattice_nodes(tb);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N > 0) {
     if (dtype == 0)
       assemble_kernel<float><<<blocks(N), kThreads, 0, s>>>(
-          static_cast<const float*>(y), static_cast<float*>(out), N, tb);
+          static_cast<const float*>(y), static_cast<float*>(out), N, x0,
+          planes, tb);
     else
       assemble_kernel<double><<<blocks(N), kThreads, 0, s>>>(
-          static_cast<const double*>(y), static_cast<double*>(out), N, tb);
+          static_cast<const double*>(y), static_cast<double*>(out), N, x0,
+          planes, tb);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int hz_lattice_distribute(int dtype, const void* u, void* out,
-                                     const int* tab, void* stream) {
+                                     int x0, int planes, const int* tab,
+                                     void* stream) {
   const LatticeTab tb = unpack(tab);
-  const long long total = elements(tb) * (tb.dim + 1);
+  const long long total = elements(tb, planes) * (tb.dim + 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (total > 0) {
     if (dtype == 0)
       distribute_kernel<float><<<blocks(total), kThreads, 0, s>>>(
-          static_cast<const float*>(u), static_cast<float*>(out), total, tb);
+          static_cast<const float*>(u), static_cast<float*>(out), total, x0,
+          planes, tb);
     else
       distribute_kernel<double><<<blocks(total), kThreads, 0, s>>>(
           static_cast<const double*>(u), static_cast<double*>(out), total,
-          tb);
+          x0, planes, tb);
   }
   return static_cast<int>(cudaGetLastError());
 }

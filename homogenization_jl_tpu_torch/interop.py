@@ -7,7 +7,10 @@ are loaded into the port's solver here. The coarse payload follows the JAX
 ``coarse_setup``: the Cholesky factor ("chol"), the interior inverse
 ("inv"), nothing ("cg"), or for "mg" a mapping with the JAX dict's ``coeff``,
 ``chol`` (the aux inverse), ``lam_max``, ``lam_max0`` and ``dinv_g`` plus the
-aux solver's ``stacks`` and ``P_up``. This module imports no JAX.
+aux solver's ``stacks`` and ``P_up``. ``slab_rows`` and ``join_slabs``
+cut a global element-leading array of a cube-major base into one rank's
+slab of the slab-sharded solver (parallel/slab.py) and join the slabs back.
+This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -101,3 +104,20 @@ def solver_state_from_numpy(
         lam_max=None if lam_max is None else float(np.asarray(lam_max)),
         b=None if b is None else tens(b),
     )
+
+
+def slab_rows(a, rank: int, size: int) -> np.ndarray:
+    """Rank ``rank``'s rows of a global element-leading array (as numpy) of
+    a cube-major base split into ``size`` slabs: the contiguous E / size
+    rows that SlabShardedMultigridSolver holds there."""
+    a = np.asarray(a)
+    E = a.shape[0]
+    if E % size:
+        raise ValueError(f"{E} rows do not split into {size} slabs")
+    rows = E // size
+    return a[rank * rows : (rank + 1) * rows]
+
+
+def join_slabs(parts) -> np.ndarray:
+    """The global array from the ranks' slabs, in rank order."""
+    return np.concatenate([np.asarray(p) for p in parts], axis=0)

@@ -29,9 +29,17 @@ The driver's defaults are the JAX driver's: ``smoother="cg"`` and
 updates on kernel K10); only the Chebyshev smoothers get a lambda_max
 estimate per step.
 
+``device_mesh`` (a ``parallel.group.SlabGroup``) runs the lattice geometry
+on the slab-sharded solver (parallel/slab.py), SPMD on every rank: the base
+in cube order, the random start and the rhs drawn on the whole base and cut
+to the rank's rows (the single-device run with ``lattice_order="cube"``
+sees the same numbers), the per-step masks ``Ls`` cut too, ``interior``
+replicated, and each integral summed over the ranks.
+
 Not ported yet (``NotImplementedError``, ROADMAP.md queue 1):
-``device_mesh`` (item 10, parallel/), ``solver="multishift"`` (item 9),
-``checkpoint_dir`` / ``resume_from`` and ``save_level`` (item 11, utils/).
+``device_mesh`` with the ordered geometry (parallel/sharding.py),
+``solver="multishift"`` (item 9), ``checkpoint_dir`` / ``resume_from`` and
+``save_level`` (item 11, utils/).
 """
 
 from __future__ import annotations
@@ -201,12 +209,14 @@ def _lambda_max(solver, coeff):
     return None
 
 
-def _solver_integrals(solver, detJ_np):
+def _solver_integrals(solver, detJ_np, group=None):
     """K9 integrals closed over the solver's finest mass matrix (the last
-    slice of the finest operator stack) and |det J| on its device."""
+    slice of the finest operator stack) and |det J| of the solver's rows on
+    its device; with a slab ``group``, summed over the ranks."""
     mass = solver.levels[solver.nlevels - 1].stack[-1]
-    detJ = torch.as_tensor(detJ_np, device=solver.device).to(solver.dtype)
-    return integrals_fns(mass, detJ)
+    detJ = torch.as_tensor(solver.rows_of(detJ_np), device=solver.device).to(solver.dtype)
+    quirk = bool(np.allclose(detJ_np, 1.0))  # decided on the whole base
+    return integrals_fns(mass, detJ, reference_quirk=quirk, group=group)
 
 
 # ---------------------------------------------------------------------------
@@ -232,7 +242,8 @@ class HomogenizationTrace:
 
 
 _NOT_PORTED = {
-    "device_mesh": "element-axis sharding (ROADMAP.md queue 1 item 10, parallel/)",
+    "device_mesh": "the ordered geometry's gather-sharded solver (ROADMAP.md, "
+                   "parallel/sharding.py); geometry='lattice' takes a SlabGroup",
     "checkpoint_dir": "checkpoints (ROADMAP.md queue 1 item 11, utils/checkpoint.py)",
     "resume_from": "checkpoints (ROADMAP.md queue 1 item 11, utils/checkpoint.py)",
     "save_level": "VTK export (ROADMAP.md queue 1 item 11, utils/vtk.py)",
@@ -316,12 +327,27 @@ def checkerboard_homogenization(
     stabilizes) or "pcg" (V-cycle-preconditioned CG steps under the same
     stopping rule; requires a Chebyshev smoother). ``lanczos_iters`` belongs
     to ``solver="multishift"`` and is accepted for signature parity.
+    ``device_mesh``: a ``SlabGroup`` (lattice geometry only): every rank
+    calls the driver, and the tensors live on the group's device.
     Returns sigma, or (sigma, HomogenizationTrace) with ``return_trace``.
     """
-    for name, value in (("device_mesh", device_mesh), ("checkpoint_dir", checkpoint_dir),
-                        ("resume_from", resume_from), ("save_level", save_level)):
+    unported = [("checkpoint_dir", checkpoint_dir), ("resume_from", resume_from),
+                ("save_level", save_level)]
+    if geometry != "lattice":
+        unported.insert(0, ("device_mesh", device_mesh))
+    for name, value in unported:
         if value is not None:
             raise NotImplementedError(f"{name}= is not ported yet: {_NOT_PORTED[name]}")
+    if device_mesh is not None:
+        from ..parallel.group import SlabGroup
+
+        if not isinstance(device_mesh, SlabGroup):
+            raise TypeError(
+                f"device_mesh must be a SlabGroup, got {type(device_mesh).__name__}"
+            )
+        if device is not None and torch.device(device) != device_mesh.device:
+            raise ValueError("device= must be the device_mesh's device")
+        device = device_mesh.device
     if solver == "multishift":
         raise NotImplementedError(
             "solver='multishift' is not ported yet (ROADMAP.md queue 1 item 9)"
@@ -345,7 +371,8 @@ def checkerboard_homogenization(
         inner=inner, device=device,
     )
     if geometry == "lattice":
-        sigma, trace = _checkerboard_lattice(lattice_order=lattice_order, **kw)
+        sigma, trace = _checkerboard_lattice(lattice_order=lattice_order,
+                                             device_mesh=device_mesh, **kw)
     elif geometry == "ordered":
         sigma, trace = _checkerboard_ordered(**kw)
     else:
@@ -516,12 +543,14 @@ def _solve_step(sol, k, x, b, v_prev, coeff, setup, lam_max, mask, inner, first_
 def _checkerboard_lattice(
     n, dim, refinements, smoothing_steps, tolerance, xi, cond_field, seed, dtype,
     coarse, coarse_dense_limit, max_cycles, verbose, smoother, shrink, solver_opts,
-    inner, device, lattice_order=None,
+    inner, device, lattice_order=None, device_mesh=None,
 ):
     """Lattice-geometry recurrence (JAX checkerboard.py:576-855): one
     full-box plan and ONE solver for the whole run; a shrink swaps the
     per-step Dirichlet masks (``Ls``), the coarse interior-node mask
-    (``interior``), lambda and the integration-box mask."""
+    (``interior``), lambda and the integration-box mask. With a
+    ``device_mesh`` (SlabGroup) the solver is the slab-sharded one and every
+    element-leading array is cut to the rank's rows."""
     t_start = time.perf_counter()
     lam = 1.0
     sigma = 0.0
@@ -531,9 +560,12 @@ def _checkerboard_lattice(
     R0 = total_radius
     xi, cond_field, rng = _field_and_xi(dim, R0, xi, cond_field, seed)
 
-    # type-major order single-device (the slab-sharded order "cube" is
-    # reachable through lattice_order)
-    base = hypercube(dim, 2 * R0, origin=-np.full(dim, float(R0)), order=lattice_order or "type")
+    # type-major order single-device, cube-major for the slabs;
+    # lattice_order overrides (the tests pin "cube" on one device so both
+    # runs see the same element order, the same random start and the same
+    # sigma to 1e-9)
+    order = lattice_order or ("cube" if device_mesh is not None else "type")
+    base = hypercube(dim, 2 * R0, origin=-np.full(dim, float(R0)), order=order)
     offset = np.full(dim, float(R0))
     sigma_el = conductivity_per_element(base, cond_field, offset)
 
@@ -566,19 +598,26 @@ def _checkerboard_lattice(
         # sub-box operator, which only the global-space cg/mg forms mask
         kind = "mg" if can_mg else "cg"
 
-    sol = MultigridSolver(
-        plan, dtype=dtype, device=device, smoothing_steps=smoothing_steps, coarse=kind,
-        smoother=smoother, **(solver_opts or {}),
-    )
+    opts = dict(dtype=dtype, smoothing_steps=smoothing_steps, coarse=kind,
+                smoother=smoother, **(solver_opts or {}))
+    if device_mesh is None:
+        sol = MultigridSolver(plan, device=device, **opts)
+    else:
+        from ..parallel.slab import SlabShardedMultigridSolver
+
+        sol = SlabShardedMultigridSolver(plan, device_mesh, **opts)
     if sol.combine_kind != "structured":
         raise AssertionError("the lattice geometry needs the structured combine")
     _, _, detJ_np, _ = affine_maps(base)
-    area_fn, first_fn, terms_fn, next_rhs_fn = _solver_integrals(sol, detJ_np)
+    area_fn, first_fn, terms_fn, next_rhs_fn = _solver_integrals(sol, detJ_np, device_mesh)
 
-    to_dev = _to_device(dtype, device)
+    to_dev_all = _to_device(dtype, device)
+
+    def to_dev(a):  # the solver's rows of a global element-leading array
+        return to_dev_all(sol.rows_of(a))
 
     def put_bool(a):
-        return torch.as_tensor(a, device=device)
+        return torch.as_tensor(sol.rows_of(a), device=device)
 
     cnorm = np.abs(base.nodes[base.elements].mean(axis=1)).max(axis=1)
     node_norm = np.abs(base.nodes).max(axis=1)
@@ -613,7 +652,7 @@ def _checkerboard_lattice(
         shrunk = total_radius < R0
         Ls_k = level_Ls(total_radius) if shrunk else None
         int_k = (
-            put_bool(node_norm < (total_radius - 1e-9))
+            torch.as_tensor(node_norm < (total_radius - 1e-9), device=device)
             if (shrunk and kind in ("cg", "mg"))
             else None
         )

@@ -26,6 +26,9 @@ b0 part, which already carries detJ, by detJ again. On unit cells (every
 detJ == 1) both forms agree and the quirk form is the reference's bit for
 bit; otherwise the quirk is wrong. None picks the quirk form exactly when
 every detJ == 1, as the JAX package does (ROADMAP.md, section 3).
+
+On a slab of the slab-sharded solver (``group``, parallel/group.py) each
+integral is the rank's K9 partial over its rows, then ``SlabGroup.sum``.
 """
 
 from __future__ import annotations
@@ -118,10 +121,13 @@ def sigma_integral(mode, x, mass, w, detJ, mask, scale=1.0):
     return out
 
 
-def integrals_fns(mass, detJ, reference_quirk: bool | None = None):
+def integrals_fns(mass, detJ, reference_quirk: bool | None = None, group=None):
     """(area, first_term, terms, next_rhs), closed over the finest reference
     mass matrix ``mass`` [n, n] and the per-element |det J| ``detJ`` [E]
-    (tensors of one dtype and device); see the module docstring."""
+    (tensors of one dtype and device); see the module docstring. With a
+    ``group`` (a SlabGroup), ``detJ`` and the states are the rank's rows and
+    the three integrals are summed over the ranks; pass ``reference_quirk``
+    then, decided on the whole base."""
     mass = mass.contiguous()
     detJ = detJ.contiguous()
     # the JAX form sums the mass matrix in the state dtype
@@ -130,15 +136,16 @@ def integrals_fns(mass, detJ, reference_quirk: bool | None = None):
         reference_quirk = bool(np.allclose(detJ.cpu().numpy(), 1.0))
     first_mode = FIRST_QUIRK if reference_quirk else FIRST
     stack = mass[None]
+    total = (lambda t: t) if group is None else group.sum
 
     def area(mask):
-        return sigma_integral(AREA, None, None, None, detJ, mask, scale=mass_total)
+        return total(sigma_integral(AREA, None, None, None, detJ, mask, scale=mass_total))
 
     def first_term(x, b0, mask):
-        return sigma_integral(first_mode, x, mass, b0, detJ, mask)
+        return total(sigma_integral(first_mode, x, mass, b0, detJ, mask))
 
     def terms(x, v_prev, mask):
-        return sigma_integral(TERMS, x, mass, v_prev, detJ, mask)
+        return total(sigma_integral(TERMS, x, mass, v_prev, detJ, mask))
 
     def next_rhs(x, lam):
         return element_apply(x, (lam * detJ)[:, None].contiguous(), stack)

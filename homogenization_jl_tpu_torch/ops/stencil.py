@@ -24,6 +24,13 @@ module's slice-adds, in the same order) and kernel K6
   * ``lattice_distribute`` [(n+1)^d] -> [E, d+1].
 
 W is kept flat, [K, (n+1)^d] (the JAX form shapes it [K, n+1, ..., n+1]).
+
+Plane window (``x0``, ``planes``; the slab form of JAX
+parallel/slab.py:149-229): ``lattice_weights`` and ``lattice_assemble``
+take the element rows of the planes of cubes [x0, x0 + planes) only and
+return their partial over the whole lattice (zero where none of them
+lands), which the ranks of a slab group sum; ``lattice_distribute`` returns
+those rows. The defaults (0, n) are the whole box.
 """
 
 from __future__ import annotations
@@ -109,26 +116,34 @@ def build_lattice_stencil(base) -> LatticeStencil | None:
 # --------------------------------------------------------------------- #
 # plain PyTorch forms (the JAX module's slice-adds, same order)
 # --------------------------------------------------------------------- #
-def _coeff_lattice(coeff, st: LatticeStencil):
-    """[E, P] -> [ept, n^d, P] with the cube axis in lattice-lex order."""
+def _window(st: LatticeStencil, planes) -> tuple:
+    """Cube grid of a window: [planes] + [n]*(d-1) (planes None: n)."""
+    return (st.n if planes is None else int(planes),) + (st.n,) * (st.dim - 1)
+
+
+def _coeff_lattice(coeff, st: LatticeStencil, planes=None):
+    """[E, P] -> [ept, cubes, P] with the cube axis in lattice-lex order."""
     P = coeff.shape[1]
-    nd = st.n**st.dim
+    nd = int(np.prod(_window(st, planes)))
     if st.order == "type":
         return coeff.reshape(st.ept, nd, P)
     return coeff.reshape(nd, st.ept, P).transpose(0, 1)
 
 
-def _box(lo, n):
-    return tuple(slice(a, a + n) for a in lo)
+def _box(lo, sizes, x0=0):
+    """Lattice slice of the window's cubes shifted by corner ``lo``."""
+    return tuple(slice(a + (x0 if ax == 0 else 0), a + (x0 if ax == 0 else 0) + m)
+                 for ax, (a, m) in enumerate(zip(lo, sizes)))
 
 
-def lattice_weights_plain(coeff, stack0, st: LatticeStencil):
+def lattice_weights_plain(coeff, stack0, st: LatticeStencil, x0=0, planes=None):
     n, d = st.n, st.dim
-    c3 = _coeff_lattice(coeff, st).reshape((st.ept,) + (n,) * d + (-1,))
+    win = _window(st, planes)
+    c3 = _coeff_lattice(coeff, st, planes).reshape((st.ept,) + win + (-1,))
     W = torch.zeros((len(st.deltas),) + (n + 1,) * d, dtype=coeff.dtype, device=coeff.device)
     for t, i, j, k in st.entries:
-        s = torch.matmul(c3[t], stack0[:, i, j])  # [n]^d
-        W[(k,) + _box(st.corner[t][i], n)] += s
+        s = torch.matmul(c3[t], stack0[:, i, j])  # the window's cubes
+        W[(k,) + _box(st.corner[t][i], win, x0)] += s
     return W.reshape(len(st.deltas), -1)
 
 
@@ -147,40 +162,43 @@ def lattice_apply_plain(u, W, st: LatticeStencil, m=None, b=None):
     return y if b is None else b - y
 
 
-def _local_lattice(y_local, st: LatticeStencil):
-    """[E, d+1] -> [ept, n, ..., n, d+1] with cubes in lattice-lex order."""
-    n, d = st.n, st.dim
+def _local_lattice(y_local, st: LatticeStencil, planes=None):
+    """[E, d+1] -> [ept] + window + [d+1] with cubes in lattice-lex order."""
+    d = st.dim
+    win = _window(st, planes)
     if st.order == "type":
-        return y_local.reshape((st.ept,) + (n,) * d + (d + 1,))
+        return y_local.reshape((st.ept,) + win + (d + 1,))
     return (
-        y_local.reshape(n**d, st.ept, d + 1)
+        y_local.reshape(-1, st.ept, d + 1)
         .transpose(0, 1)
-        .reshape((st.ept,) + (n,) * d + (d + 1,))
+        .reshape((st.ept,) + win + (d + 1,))
     )
 
 
-def lattice_assemble_plain(y_local, st: LatticeStencil):
+def lattice_assemble_plain(y_local, st: LatticeStencil, x0=0, planes=None):
     n, d = st.n, st.dim
-    y3 = _local_lattice(y_local, st)
+    win = _window(st, planes)
+    y3 = _local_lattice(y_local, st, planes)
     B = torch.zeros((n + 1,) * d, dtype=y_local.dtype, device=y_local.device)
     for t in range(st.ept):
         for i in range(d + 1):
-            B[_box(st.corner[t][i], n)] += y3[t][..., i]
+            B[_box(st.corner[t][i], win, x0)] += y3[t][..., i]
     return B.reshape(-1)
 
 
-def lattice_distribute_plain(u, st: LatticeStencil):
+def lattice_distribute_plain(u, st: LatticeStencil, x0=0, planes=None):
     n, d = st.n, st.dim
+    win = _window(st, planes)
     U = u.reshape((n + 1,) * d)
     out = torch.stack(
         [
             torch.stack(
-                [U[_box(st.corner[t][i], n)].reshape(-1) for i in range(d + 1)], dim=1
+                [U[_box(st.corner[t][i], win, x0)].reshape(-1) for i in range(d + 1)], dim=1
             )
             for t in range(st.ept)
         ],
         dim=0,
-    )  # [ept, n^d, d+1]
+    )  # [ept, cubes, d+1]
     if st.order == "type":
         return out.reshape(-1, d + 1)
     return out.transpose(0, 1).reshape(-1, d + 1)
@@ -251,11 +269,21 @@ def _check_stencil(st: LatticeStencil):
         raise ValueError("lattice stencil exceeds the kernel table's capacity")
 
 
-def lattice_weights(coeff, stack0, st: LatticeStencil):
+def _check_window(st: LatticeStencil, x0, planes):
+    """(plane count, element rows) of a valid window; raises otherwise."""
+    win = _window(st, planes)
+    p = win[0]
+    if not (0 <= x0 and p >= 1 and x0 + p <= st.n):
+        raise ValueError(f"lattice window: planes [{x0}, {x0 + p}) of {st.n}")
+    return p, st.ept * int(np.prod(win))
+
+
+def lattice_weights(coeff, stack0, st: LatticeStencil, x0: int = 0, planes=None):
     """[K, (n+1)^dim] stencil weight fields from the apply coefficients
     [E, P] and the level-0 stack [P, d+1, d+1]: exactly the assembled base
-    matrix, W_k[a] = A[a, a + delta_k]."""
-    E = st.ept * st.n**st.dim
+    matrix, W_k[a] = A[a, a + delta_k]. With a plane window, ``coeff``
+    holds the window's rows and the result is their partial."""
+    p, E = _check_window(st, x0, planes)
     d1 = st.dim + 1
     kern = _route("lattice_weights: coeff", coeff)
     if coeff.dim() != 2 or coeff.shape[0] != E:
@@ -264,11 +292,11 @@ def lattice_weights(coeff, stack0, st: LatticeStencil):
     _check("lattice_weights: coeff", coeff, coeff.dtype, coeff.device, (E, P))
     _check("lattice_weights: stack0", stack0, coeff.dtype, coeff.device, (P, d1, d1))
     if not kern:
-        return lattice_weights_plain(coeff, stack0, st)
+        return lattice_weights_plain(coeff, stack0, st, x0, p)
     _check_stencil(st)
     W = torch.empty((len(st.deltas), _nodes(st)), dtype=coeff.dtype, device=coeff.device)
     _launch("hz_lattice_weights", st, _DTYPES[coeff.dtype], coeff.data_ptr(),
-            stack0.data_ptr(), W.data_ptr(), P)
+            stack0.data_ptr(), W.data_ptr(), P, int(x0), p)
     return W
 
 
@@ -294,30 +322,34 @@ def lattice_apply(u, W, st: LatticeStencil, m=None, b=None):
     return out
 
 
-def lattice_assemble(y_local, st: LatticeStencil):
+def lattice_assemble(y_local, st: LatticeStencil, x0: int = 0, planes=None):
     """Sum duplicated-layout local contributions to global nodes:
-    [E, d+1] -> [N]. Equals MultigridSolver._to_global on box bases."""
-    E = st.ept * st.n**st.dim
+    [E, d+1] -> [N]. Equals MultigridSolver._to_global on box bases. With a
+    plane window, ``y_local`` holds the window's rows and the result is
+    their partial."""
+    p, E = _check_window(st, x0, planes)
     kern = _route("lattice_assemble: y", y_local)
     _check("lattice_assemble: y", y_local, y_local.dtype, y_local.device, (E, st.dim + 1))
     if not kern:
-        return lattice_assemble_plain(y_local, st)
+        return lattice_assemble_plain(y_local, st, x0, p)
     _check_stencil(st)
     out = torch.empty(_nodes(st), dtype=y_local.dtype, device=y_local.device)
     _launch("hz_lattice_assemble", st, _DTYPES[y_local.dtype], y_local.data_ptr(),
-            out.data_ptr())
+            out.data_ptr(), int(x0), p)
     return out
 
 
-def lattice_distribute(u, st: LatticeStencil):
+def lattice_distribute(u, st: LatticeStencil, x0: int = 0, planes=None):
     """Global node vector -> duplicated [E, d+1] layout (every copy gets
-    the nodal value). Equals ops.interfaces.distribute on box bases."""
-    E = st.ept * st.n**st.dim
+    the nodal value), for the rows of the plane window (the whole box by
+    default). Equals ops.interfaces.distribute on box bases."""
+    p, E = _check_window(st, x0, planes)
     kern = _route("lattice_distribute: u", u)
     _check("lattice_distribute: u", u, u.dtype, u.device, (_nodes(st),))
     if not kern:
-        return lattice_distribute_plain(u, st)
+        return lattice_distribute_plain(u, st, x0, p)
     _check_stencil(st)
     out = torch.empty((E, st.dim + 1), dtype=u.dtype, device=u.device)
-    _launch("hz_lattice_distribute", st, _DTYPES[u.dtype], u.data_ptr(), out.data_ptr())
+    _launch("hz_lattice_distribute", st, _DTYPES[u.dtype], u.data_ptr(), out.data_ptr(),
+            int(x0), p)
     return out

@@ -17,7 +17,12 @@ The device half:
   * ``combine_structured`` / ``constrain_structured`` run kernel K2
     (csrc/structured_combine.cu) on CUDA tensors and the plain PyTorch
     shifted-slice form (``*_plain``, the JAX package's algorithm) on CPU
-    tensors.
+    tensors;
+  * ``combine_structured_slab`` / ``constrain_structured_slab``, the same
+    on one rank's x-plane slab of a cube-major state with its halo planes
+    (parallel/slab.py), run kernel K11 (the second entry of
+    csrc/structured_combine.cu) on CUDA tensors and their plain forms on
+    CPU tensors.
 (Reference baseline for the operation: broadcast_interfaces!,
 src/implicit_fine_grid.jl:209-328.)
 """
@@ -692,12 +697,14 @@ def _type_block(x, sc: StructuredCombine, t, col, width):
     return blk.reshape((n,) * d + (width,))
 
 
-def _shifted(blk, n, lo, hi):
-    """blk[lo:hi per grid axis], out-of-range positions read zero."""
+def _shifted(blk, lo, hi):
+    """blk[lo:hi per grid axis], out-of-range positions read zero (each grid
+    axis ranges over blk's own extent)."""
     lo = np.asarray(lo)
     hi = np.asarray(hi)
-    lo_c = np.clip(lo, 0, n)
-    hi_c = np.clip(hi, 0, n)
+    ext = np.asarray(blk.shape[:-1])
+    lo_c = np.clip(lo, 0, ext)
+    hi_c = np.clip(hi, 0, ext)
     src = tuple(slice(int(a), int(b)) for a, b in zip(lo_c, hi_c))
     if (lo_c == lo).all() and (hi_c == hi).all():
         return blk[src]
@@ -732,11 +739,11 @@ def _zero_shell(acc, p_lo, ob: Orbit):
 
 
 def _assemble_tail(x, sc: StructuredCombine, i0, cell_block):
-    """Write cell_block(t, name, l, offset, width) -> [n]*d + [width] into
-    the tail columns, in layout order, for every simplex type."""
-    n, d, ept = sc.n, sc.d, sc.ept
+    """Write cell_block(t, name, l, offset, width) -> [planes] + [n]*(d-1) +
+    [width] into the tail columns, in layout order, for every simplex type
+    (planes = n, or a slab's plane count)."""
     tails = []
-    for t in range(ept):
+    for t in range(sc.ept):
         cols = []
         for name in _CLASS_ORDER:
             if name not in sc.classes:
@@ -744,7 +751,8 @@ def _assemble_tail(x, sc: StructuredCombine, i0, cell_block):
             _, _, offsets, width = sc.classes[name]
             for l in range(len(offsets)):
                 cols.append(cell_block(t, name, l, offsets[l], width))
-        tails.append(torch.cat(cols, dim=-1).reshape(n**d, -1))
+        tail_t = torch.cat(cols, dim=-1)
+        tails.append(tail_t.reshape(-1, tail_t.shape[-1]))
     if sc.order == "type":
         tail = torch.cat(tails, dim=0)
     else:
@@ -769,7 +777,7 @@ def combine_structured_plain(x, st: StructuredTables, constrain: bool = False):
             acc = None
             for dlt, t, l in ob.pattern:
                 piece = _shifted(
-                    _type_block(x, sc, t, offsets[l], width), n,
+                    _type_block(x, sc, t, offsets[l], width),
                     p_lo + np.array(dlt), p_hi + np.array(dlt),
                 )
                 acc = piece if acc is None else acc + piece
@@ -805,6 +813,117 @@ def constrain_structured_plain(x, st: StructuredTables):
         lo = np.maximum(np.array(ob.int_lo) + np.array(dlt), 0)
         hi = np.minimum(np.array(ob.int_hi) + 1 + np.array(dlt), n)
         return _keep_box(blk, lo, hi)
+
+    return _assemble_tail(x, sc, st.i0, cell_block)
+
+
+# --------------------------------------------------------------------- #
+# slab forms (one rank's x-plane slab of a cube-major state)
+# --------------------------------------------------------------------- #
+def slab_halo_rows(sc: StructuredCombine) -> int:
+    """Rows of one halo: ``pad`` planes of cubes, ``ept`` rows per cube."""
+    return sc.pad * sc.n ** (sc.d - 1) * sc.ept
+
+
+def _axis0_keep(acc, g, lo, hi):
+    """acc times the 0/1 test lo <= g <= hi on its first axis (the JAX
+    form's dynamic iota mask, a multiply as there)."""
+    m = ((g >= lo) & (g <= hi)).to(acc.dtype)
+    return acc * m.reshape((-1,) + (1,) * (acc.dim() - 1))
+
+
+def combine_structured_slab_plain(x, halo_lo, halo_hi, st: StructuredTables, x0: int,
+                                  W: int, constrain: bool = False):
+    """Plain PyTorch form of the slab combine (the JAX package's
+    ``combine_structured_slab``, ops/structured.py:902): the single-device
+    shifted slice-adds on the halo-extended slab.
+
+    ``x``: the rank's rows [W * n^(d-1) * ept, n_local] of a cube-major
+    state, its W planes of cubes starting at global plane ``x0``;
+    ``halo_lo`` / ``halo_hi``: the tail columns [i0, n_local) of the pad
+    planes below x0 and from x0 + W up ([slab_halo_rows, n_local - i0]),
+    zero or None beyond the domain ends (None reads as zero, JAX's
+    ppermute fill). Orbit sums are taken for the anchors of
+    ext planes [0, W + pad) (global x0 - pad + ext) in pattern order, axes
+    1+ zero-padded; ``constrain`` zeroes the boundary anchors (static shells
+    on axes 1+, the global anchor test on axis 0). Every owner is read from
+    the same values as on one device, so the sums equal the single-device
+    combine's rows."""
+    sc = st.sc
+    n, d, ept, pad = sc.n, sc.d, sc.ept, sc.pad
+    n2 = n ** (d - 1)
+    i0 = st.i0
+    tw = x.shape[1] - i0
+    A = W + 2 * pad
+    zero = x.new_zeros((slab_halo_rows(sc), tw))
+    halos = [zero if h is None else h for h in (halo_lo, halo_hi)]
+    Tv = torch.cat([halos[0], x[:, i0:], halos[1]], dim=0).reshape(A * n2, ept, tw)
+
+    def type_block(t, col, width):
+        return Tv[:, t, col - i0 : col - i0 + width].reshape((A,) + (n,) * (d - 1) + (width,))
+
+    Wp = W + pad  # anchors computed: ext planes [0, W + pad)
+    g = torch.arange(Wp, device=x.device) + (x0 - pad)  # their global planes
+    class_sums = {}
+    for name, (orbits, _, offsets, width) in sc.classes.items():
+        sums = []
+        for ob in orbits:
+            p_lo = np.array((0,) + ob.p_min[1:])
+            p_hi = np.array((Wp,) + tuple(v + 1 for v in ob.p_max[1:]))
+            acc = None
+            for dlt, t, l in ob.pattern:
+                piece = _shifted(type_block(t, offsets[l], width),
+                                 p_lo + np.array(dlt), p_hi + np.array(dlt))
+                acc = piece if acc is None else acc + piece
+            if constrain:
+                if ob.int_lo is None:
+                    acc = torch.zeros_like(acc)
+                else:
+                    acc = _keep_box(
+                        acc, np.r_[0, np.array(ob.int_lo[1:]) - p_lo[1:]],
+                        np.r_[Wp, np.array(ob.int_hi[1:]) + 1 - p_lo[1:]])
+                    acc = _axis0_keep(acc, g, ob.int_lo[0], ob.int_hi[0])
+            sums.append((p_lo, acc))
+        class_sums[name] = sums
+
+    def cell_block(t, name, l, off, width):
+        _, rebuild, _, _ = sc.classes[name]
+        oi, dlt = rebuild[(t, l)]
+        p_lo, acc = class_sums[name][oi]
+        # own planes sit at ext [pad, W + pad); anchor = plane - D
+        lo0 = pad - dlt[0]
+        idx = (slice(lo0, lo0 + W),) + tuple(
+            slice(int(-dlt[ax] - p_lo[ax]), int(-dlt[ax] - p_lo[ax]) + n) for ax in range(1, d)
+        )
+        return acc[idx]
+
+    return _assemble_tail(x, sc, i0, cell_block)
+
+
+def constrain_structured_slab_plain(x, st: StructuredTables, x0: int, W: int):
+    """Plain PyTorch form of the slab constraint (the JAX package's
+    ``constrain_structured_slab``, ops/structured.py:1091): per cell block,
+    the static keep-box on axes 1+ and the global anchor test on axis 0. No
+    halo: a pure mask."""
+    sc = st.sc
+    n, d, ept = sc.n, sc.d, sc.ept
+    n2 = n ** (d - 1)
+    xv = x.reshape(W * n2, ept, x.shape[1])
+    xg = torch.arange(W, device=x.device) + x0  # global planes of the rows
+
+    def cell_block(t, name, l, off, width):
+        orbits, rebuild, _, _ = sc.classes[name]
+        oi, dlt = rebuild[(t, l)]
+        ob = orbits[oi]
+        blk = xv[:, t, off : off + width].reshape((W,) + (n,) * (d - 1) + (width,))
+        if ob.int_lo is None:
+            return torch.zeros_like(blk)
+        lo = np.maximum(np.array(ob.int_lo[1:]) + np.array(dlt[1:]), 0)
+        hi = np.minimum(np.array(ob.int_hi[1:]) + 1 + np.array(dlt[1:]), n)
+        if (lo >= hi).any():
+            return torch.zeros_like(blk)
+        blk = _keep_box(blk, np.r_[0, lo], np.r_[W, hi])
+        return _axis0_keep(blk, xg - int(dlt[0]), ob.int_lo[0], ob.int_hi[0])
 
     return _assemble_tail(x, sc, st.i0, cell_block)
 
@@ -874,4 +993,81 @@ def constrain_structured(x, st: StructuredTables):
     out = _structured_kernel(x, st, 2)
     if out is None:
         return constrain_structured_plain(x, st)
+    return out
+
+
+def _slab_kernel(x, halo_lo, halo_hi, st: StructuredTables, x0, W, mode: int, mask=None):
+    """Checks of the slab wrappers; launches kernel K11 on CUDA tensors and
+    returns its output, or None for CPU tensors (the plain form's turn)."""
+    sc = st.sc
+    if sc.order != "cube":
+        raise ValueError("slab combine: needs a cube-major base")
+    if not (0 <= x0 and W >= sc.pad and x0 + W <= sc.n):
+        raise ValueError(f"slab combine: planes [{x0}, {x0 + W}) of {sc.n}, pad {sc.pad}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"slab combine: unsupported dtype {x.dtype}")
+    B = W * sc.n ** (sc.d - 1) * sc.ept
+    if x.dim() != 2 or tuple(x.shape) != (B, sc.n_local):
+        raise ValueError(f"slab combine: x shape {tuple(x.shape)}, expected {(B, sc.n_local)}")
+    dev = x.device
+    shape = (slab_halo_rows(sc), sc.n_local - st.i0)
+    # a halo may be missing only at a domain end, where no owner is read
+    optional = dict(mask=True, halo_lo=mode == 2 or x0 == 0, halo_hi=mode == 2 or x0 + W == sc.n)
+    for name, t in (("x", x), ("halo_lo", halo_lo), ("halo_hi", halo_hi), ("mask", mask)):
+        if t is None:
+            if not optional.get(name, False):
+                raise ValueError(f"slab combine: {name} is required")
+            continue
+        if name.startswith("halo") and (t.dtype != x.dtype or tuple(t.shape) != shape):
+            raise ValueError(f"slab combine: {name} must be {x.dtype} {shape}")
+        if name == "mask" and (t.dtype != torch.bool or t.shape != x.shape):
+            raise ValueError("slab combine: mask must be a bool tensor shaped like x")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"slab combine: {name} must be contiguous on {dev}")
+    if dev.type == "cpu":
+        return None
+    if dev.type != "cuda":
+        raise ValueError(f"slab combine: unsupported device {dev}")
+    if st.tab.device != dev:
+        raise ValueError(f"slab combine: tables on {st.tab.device}, x on {dev}")
+    out = torch.empty_like(x)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    LAUNCHES["slab_combine"] += 1
+    launch(
+        "hz_structured_combine_slab", _DTYPES[x.dtype], x.data_ptr(), ptr(halo_lo),
+        ptr(halo_hi), out.data_ptr(), ptr(mask), B, sc.n_local, st.i0, sc.n, sc.d,
+        sc.ept, int(x0), int(W), sc.pad, mode, st.tab.data_ptr(),
+    )
+    return out
+
+
+def combine_structured_slab(x, halo_lo, halo_hi, st: StructuredTables, x0: int, W: int,
+                            constrain: bool = False, mask=None):
+    """Interface combine of one rank's slab (see
+    ``combine_structured_slab_plain`` for the arguments): every copy of a
+    shared DOF in the slab gets the sum of all copies, the halos supplying
+    the owners on the neighbours' planes. ``constrain=True`` folds in the
+    zero-Dirichlet constraint; ``mask`` (bool, x's shape) multiplies the
+    result instead, in the same pass. Kernel K11 for CUDA tensors (equal bit
+    for bit to K2 on the full state's rows), the plain form for CPU
+    tensors."""
+    if constrain and mask is not None:
+        raise ValueError("combine_structured_slab: pass constrain=True or a mask, not both")
+    out = _slab_kernel(x, halo_lo, halo_hi, st, x0, W, 1 if constrain else 0, mask)
+    if out is None:
+        out = combine_structured_slab_plain(x, halo_lo, halo_hi, st, x0, W, constrain)
+        return out if mask is None else out * mask
+    return out
+
+
+def constrain_structured_slab(x, st: StructuredTables, x0: int, W: int):
+    """Zero-Dirichlet constraint of one rank's slab (rows of planes [x0,
+    x0 + W)); needs no halo. Kernel K11 (constraint mode) for CUDA tensors,
+    the plain form for CPU tensors."""
+    out = _slab_kernel(x, None, None, st, x0, W, 2)
+    if out is None:
+        return constrain_structured_slab_plain(x, st, x0, W)
     return out

@@ -1,0 +1,239 @@
+"""The slab-sharded solver's large run (port of scripts/run_slab_big.py:
+88-209), its ``torchrun`` entry point, and the spawned ranks of the CPU
+tests.
+
+``run(group, ...)`` runs on every rank of a ``SlabGroup``: the problem of
+run_slab_big.py (``hypercube(dim, n, order="cube")``, a checkerboard
+conductivity from ``default_rng(0)``, the ``load_vector`` rhs), a few
+V-cycles from zero with the first-copy residual norm after each, and the
+sigma integral sum_e detJ_e x_e' M x_e of the result (kernel K9, summed over
+the ranks). ``compare=True`` (rank 0 only) runs the same V-cycles on the
+single-device solver on the same cube-order plan, with the same lambda_max,
+and reports the integral's and the residuals' relative differences.
+Every rank returns a dict of numbers (and, with ``keep_states``, its rows of
+x and r as numpy).
+
+On cards, one process per card:
+
+    torchrun --nproc-per-node=S -m homogenization_jl_tpu_torch.parallel.run_slab \\
+        [--n 32] [--levels 5] [--cycles 3] [--smoother chebyshev] [--compare]
+
+prints rank 0's result as one JSON line (``--device cpu`` runs gloo ranks
+on the CPU instead). In-process with a world of one
+(``SlabGroup.from_file``), as chip_smoke.py drives it, ``run`` is called
+directly. ``spawn_ranks(size, job)`` starts ``size`` CPU processes with a
+gloo group over a FileStore, runs ``job`` on each (``worker``) and returns
+their outputs in rank order; the spawned ranks import no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import json
+import os
+import pickle
+import shutil
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from ..csrc.build import LAUNCHES
+from ..fem.local_operators import load_vector, mass_matrix
+from ..mesh.grid import affine_maps, hypercube
+from ..models.checkerboard import conductivity_per_element, generate_conductivity
+from ..ops.integrals import integrals_fns
+from ..ops.plan import build_grid_plan
+from ..solver.multigrid import CHEBYSHEV_SMOOTHERS, MultigridSolver
+from .group import SlabGroup
+from .slab import SlabShardedMultigridSolver
+
+
+def problem(dim: int, n: int, nlevels: int):
+    """(plan, sigma_el, b [E, n_local], detJ [E], mass [n_local, n_local])
+    of run_slab_big.py on a cube-major base (host arrays, float64)."""
+    base = hypercube(dim, n, order="cube")
+    sigma = conductivity_per_element(
+        base, generate_conductivity(dim, n, np.random.default_rng(0)), np.zeros(dim)
+    )
+    plan = build_grid_plan(base, nlevels, slot_tables=False)
+    fine = plan.reference.levels[nlevels - 1]
+    _, _, detJ, _ = affine_maps(base)
+    return plan, sigma, detJ[:, None] * load_vector(fine)[None, :], detJ, mass_matrix(fine)
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _cycles(solver, sigma, b_np, detJ, mass_np, lam, cycles, lam_max, group=None):
+    """V-cycles from zero on ``solver``: (residual norms, seconds per cycle,
+    integral, x, r). The residual norm is read after each cycle."""
+    dev, dt = solver.device, solver.dtype
+    coeff = solver.coefficients(sigma, lam)
+    setup = solver.coarse_setup(sigma, lam)
+    x, _ = solver.zero_states()
+    b = torch.as_tensor(np.ascontiguousarray(solver.rows_of(b_np), dtype=solver._np_dtype),
+                        device=dev)
+    hist, secs, r = [], [], None
+    for _ in range(cycles):
+        _sync(dev)
+        t0 = time.perf_counter()
+        x, r = solver.vcycle(x, b, coeff, setup, lam_max=lam_max)
+        hist.append(float(solver.residual_norm(r)))
+        secs.append(time.perf_counter() - t0)
+    rows = torch.as_tensor(solver.rows_of(detJ), device=dev).to(dt)
+    _, _, terms, _ = integrals_fns(torch.as_tensor(mass_np, device=dev).to(dt), rows,
+                                   reference_quirk=False, group=group)
+    integral = float(terms(x, torch.zeros_like(x), torch.ones_like(rows)))
+    return hist, secs, integral, x, r
+
+
+def run(group: SlabGroup, n: int = 32, nlevels: int = 5, cycles: int = 3, *, dim: int = 3,
+        smoother: str = "cg", coarse: str = "chol", dtype=torch.float32, lam: float = 0.0,
+        compare: bool = False, pcg_iters: int = 0, keep_states: bool = False,
+        solver_opts: dict | None = None, prob=None) -> dict:
+    """One rank's part of the slab run (see the module docstring).
+    ``pcg_iters`` > 0 adds a V-cycle-preconditioned CG solve from zero
+    (Chebyshev smoothers), its history and, with ``keep_states``, its x.
+    ``prob``: ``problem(dim, n, nlevels)`` when the caller has it
+    already. ``launches`` counts the hand kernels of the slab leg."""
+    dev = group.device
+    t0 = time.perf_counter()
+    plan, sigma, b_np, detJ, mass_np = problem(dim, n, nlevels) if prob is None else prob
+    opts = dict(smoother=smoother, coarse=coarse, **(solver_opts or {}))
+    solver = SlabShardedMultigridSolver(plan, group, dtype=dtype, **opts)
+    out = dict(n=n, dim=dim, levels=nlevels, dofs=plan.base.nelements * plan.n_local(nlevels - 1),
+               slabs=group.size, rank=group.rank, dtype=str(dtype)[6:], smoother=smoother,
+               coarse=coarse, host_setup_s=time.perf_counter() - t0)
+    lam_max = None
+    if smoother in CHEBYSHEV_SMOOTHERS:
+        lam_max = solver.estimate_lambda_max(solver.coefficients(sigma, lam))
+        out["lam_max"] = lam_max
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = dict(LAUNCHES)
+    hist, secs, integral, x, r = _cycles(solver, sigma, b_np, detJ, mass_np, lam, cycles,
+                                          lam_max, group)
+    out.update(residuals=hist, sec_per_cycle=secs, integral=integral,
+               launches={k: v - before[k] for k, v in LAUNCHES.items()})
+    if dev.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    if keep_states:
+        out.update(x=x.cpu().numpy(), r=None if r is None else r.cpu().numpy())
+    del x, r
+    if pcg_iters:
+        coeff = solver.coefficients(sigma, lam)
+        setup = solver.coarse_setup(sigma, lam)
+        b = solver.put(b_np)
+        xp, hp = solver.pcg(b, coeff, setup, lam_max=lam_max, iters=pcg_iters)
+        out["pcg_history"] = hp
+        if keep_states:
+            out["pcg_x"] = xp.cpu().numpy()
+    del solver
+    if compare and group.rank == 0:
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        single = MultigridSolver(plan, dtype=dtype, device=dev, **opts)
+        h1, s1, i1, _, _ = _cycles(single, sigma, b_np, detJ, mass_np, lam, cycles, lam_max)
+        rate_s = [a / c for a, c in zip(hist[1:], hist[:-1])]
+        rate_1 = [a / c for a, c in zip(h1[1:], h1[:-1])]
+        out.update(
+            residuals_single=h1, sec_per_cycle_single=s1, integral_single=i1,
+            integral_rel_err=abs(integral - i1) / max(abs(i1), 1e-300),
+            residual_rel_err=[abs(a - c) / c for a, c in zip(hist, h1)],
+            rate_rel_err=[abs(a - c) / c for a, c in zip(rate_s, rate_1)],
+        )
+        if dev.type == "cuda":
+            out["max_memory_allocated_single"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def run_driver(group: SlabGroup, **kwargs) -> dict:
+    """The lattice driver with ``device_mesh=group`` on one rank: sigma and
+    the trace's per-step numbers."""
+    from ..models.checkerboard import checkerboard_homogenization
+
+    sigma, trace = checkerboard_homogenization(
+        geometry="lattice", device_mesh=group, return_trace=True, **kwargs
+    )
+    return dict(sigma=sigma, sigma_steps=trace.sigma_steps,
+                cycles_per_step=trace.cycles_per_step, residuals=trace.residuals)
+
+
+JOBS = {"run": run, "driver": run_driver}
+
+
+def worker(rank: int, size: int, init_file: str, out_dir: str, job: dict) -> None:
+    """One spawned CPU rank: join the gloo group over ``init_file``, run
+    ``JOBS[job["kind"]](group, **job["kwargs"])`` and pickle its result to
+    ``out_dir/rank{rank}.pkl``."""
+    torch.set_num_threads(1)
+    group = SlabGroup.from_file(init_file, rank, size, device="cpu",
+                                timeout=datetime.timedelta(seconds=job.get("timeout", 120)))
+    try:
+        res = JOBS[job["kind"]](group, **job["kwargs"])
+    finally:
+        SlabGroup.destroy()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def spawn_ranks(size: int, job: dict, timeout: float = 300.0) -> list:
+    """Run ``job`` ({"kind": a key of JOBS, "kwargs": ...}) on ``size``
+    spawned CPU ranks with a gloo group; return their results in rank order.
+    Raises if a rank fails or the ranks outlive ``timeout`` seconds (they
+    are killed then)."""
+    tmp = tempfile.mkdtemp(prefix="slab_ranks_")
+    try:
+        ctx = torch.multiprocessing.start_processes(
+            worker, args=(size, os.path.join(tmp, "store"), tmp, dict(job, timeout=timeout)),
+            nprocs=size, join=False, start_method="spawn",
+        )
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+                if time.monotonic() >= deadline:
+                    raise TimeoutError(f"slab ranks still running after {timeout} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        out = []
+        for r in range(size):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="slab-sharded V-cycles (one process per card)")
+    ap.add_argument("--n", type=int, default=32, help="cubes per axis")
+    ap.add_argument("--levels", type=int, default=5)
+    ap.add_argument("--cycles", type=int, default=3)
+    ap.add_argument("--smoother", default="cg")
+    ap.add_argument("--compare", action="store_true",
+                    help="also run the single-device solver on rank 0")
+    ap.add_argument("--device", default=None,
+                    help="cpu for gloo ranks on the CPU (default: the card of LOCAL_RANK)")
+    args = ap.parse_args(argv)
+    group = SlabGroup.from_env(device=args.device)
+    try:
+        out = run(group, args.n, args.levels, args.cycles, smoother=args.smoother,
+                  compare=args.compare)
+    finally:
+        SlabGroup.destroy()
+    if out["rank"] == 0:
+        dev = group.device
+        out["device"] = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

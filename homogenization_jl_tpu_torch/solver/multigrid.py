@@ -74,6 +74,15 @@ taken.
 
 The solver's tensors live on ``device``: the card (``"cuda"``) unless the
 caller asks for the CPU; without a CUDA device the default raises.
+
+Hooks of the slab-sharded subclass (parallel/slab.py), which holds a block
+of element rows per rank: ``_rows`` (the rows this solver holds; None = all,
+cut on the host by ``rows_of`` before any element-leading array reaches the
+device), ``_lattice_window`` (the level-0 lattice planes of those rows) and
+``_sum_partial`` (the sum over the ranks of a partial from the rows: every
+dot of element-leading states in ``_vdot``, the segment sum of
+``_to_global``, the lattice weights and assembly). The dots of the
+replicated global-space coarse loops call K5 directly.
 """
 
 from __future__ import annotations
@@ -206,6 +215,12 @@ class MultigridSolver:
     choices are later work.
     """
 
+    # the element rows this solver holds, None for all of them, and the
+    # level-0 lattice planes they cover (first plane, count; None = all);
+    # the slab subclass sets its rank's before this class's constructor runs
+    _rows: slice | None = None
+    _lattice_window: tuple[int, int | None] = (0, None)
+
     def __init__(
         self,
         plan: GridPlan,
@@ -310,7 +325,7 @@ class MultigridSolver:
             else:
                 gather = build_gather_tables(plan, k, device=dev)
             if self.constraint_kind == "mask":
-                bmask = tens(plan.levels[k].boundary_mask != 0, torch.bool)
+                bmask = tens(self.rows_of(plan.levels[k].boundary_mask) != 0, torch.bool)
             stack = ref_ops[k].stack
             P_up = tens(prolongation_dense(plan.reference, k - 1)) if k > 0 else None
             self.levels.append(
@@ -318,7 +333,7 @@ class MultigridSolver:
                     stack=tens(stack),
                     rowsum=stack_rowsum(tens(stack)),
                     diag_ref=tens(np.diagonal(stack, axis1=1, axis2=2)),
-                    first_copy_mask=tens(plan.levels[k].first_copy_mask, torch.bool),
+                    first_copy_mask=tens(self.rows_of(plan.levels[k].first_copy_mask), torch.bool),
                     P_up=P_up,
                     transfer=None if P_up is None else build_transfer_tables(P_up),
                     structured=structured,
@@ -337,15 +352,16 @@ class MultigridSolver:
         # for the direct coarse solves the interior gather plus the interior
         # solution's way back to the duplicated layout in one gather
         # (boundary nodes read an appended zero)
-        self._base_idx = index_tensor(base.elements, dev)
-        self._asm = build_segment_tables(base.elements, N, dev)
+        elements = self.rows_of(base.elements)
+        self._base_idx = index_tensor(elements, dev)
+        self._asm = build_segment_tables(elements, N, dev)
         im = np.zeros(N, dtype=bool)
         im[ii] = True
         self._interior_mask_N = torch.as_tensor(im, device=dev)
         pos = np.full(N, len(ii), dtype=np.int64)
         pos[ii] = np.arange(len(ii))
         self._int_idx = index_tensor(ii, dev)
-        self._int_dist = index_tensor(pos[base.elements], dev)
+        self._int_dist = index_tensor(pos[elements], dev)
         # on box bases the global-space coarse solves apply the level-0
         # operator as a lattice stencil (kernel K6, ops/stencil.py)
         self.lattice_stencil = build_lattice_stencil(base)
@@ -383,10 +399,21 @@ class MultigridSolver:
     # ------------------------------------------------------------------ #
     # coefficient / coarse-operator setup (host precompute per field)
     # ------------------------------------------------------------------ #
+    @property
+    def n_rows(self) -> int:
+        """Element rows this solver holds (all of the base's by default)."""
+        E = self.plan.base.nelements
+        return E if self._rows is None else len(range(E)[self._rows])
+
+    def rows_of(self, a):
+        """The rows of a global element-leading host array that this solver
+        holds (all of them by default)."""
+        return a if self._rows is None else a[self._rows]
+
     def coefficients(self, sigma_el, lam: float):
         """[E, P] apply coefficients, shared by all levels."""
         c = element_coefficients(self.plan.base, sigma_el, lam, dtype=self._np_dtype)
-        return torch.as_tensor(c, device=self.device)
+        return torch.as_tensor(self.rows_of(c), device=self.device)
 
     def _interior_operator(self, sigma_el, lam: float):
         """The dense f64 interior base operator, on the solver's device
@@ -496,7 +523,7 @@ class MultigridSolver:
         Ls = list(Ls)
         if len(Ls) != self.nlevels:
             raise ValueError(f"Ls: {len(Ls)} masks, expected {self.nlevels}")
-        E = self.plan.base.nelements
+        E = self.n_rows
         for k, m in enumerate(Ls):
             shape = (E, self.plan.n_local(k))
             if (not isinstance(m, torch.Tensor) or m.dtype != torch.bool
@@ -519,10 +546,15 @@ class MultigridSolver:
             )
         return interior
 
-    @staticmethod
-    def _vdot(a, b):
-        """Dot over the duplicated layout (kernel K5)."""
-        return dot(a, b)
+    def _sum_partial(self, t):
+        """The sum over the ranks of a partial computed from this solver's
+        rows; on one device, the partial itself."""
+        return t
+
+    def _vdot(self, a, b, mask=None, scale=None):
+        """Dot of two element-leading states over the duplicated layout,
+        the mask and scale fused (kernel K5)."""
+        return self._sum_partial(dot(a, b, mask=mask, scale=scale))
 
     # num / den, but 0 when den == 0 (converged-exactly guard)
     _safe_div = staticmethod(safe_div)
@@ -591,29 +623,33 @@ class MultigridSolver:
     def _to_global(self, y):
         """Sum duplicated-layout local contributions onto global base nodes:
         [E, d+1] -> [N], the presorted segment sum (kernel K7)."""
-        return copy_to_base(y, self._asm)
+        return self._sum_partial(copy_to_base(y, self._asm))
 
     def _lattice_weights(self, coeff):
         """Stencil weights of the level-0 operator (kernel K6), computed
         once per coefficient tensor (the JAX package rebuilds them in every
         coarse solve, outside its while_loop)."""
         if self._lat_key is not coeff:
-            self._lat_W = lattice_weights(coeff, self.levels[0].stack, self.lattice_stencil)
+            x0, planes = self._lattice_window
+            self._lat_W = self._sum_partial(lattice_weights(
+                coeff, self.levels[0].stack, self.lattice_stencil, x0=x0, planes=planes))
             self._lat_key = coeff
         return self._lat_W
 
     def _level0_ops(self, coeff, m):
         """(apply, to_global, distribute) for the global-space level-0
         solves; ``apply(u, b=None)`` is m * (A u), or b - m * (A u). On box
-        bases: the lattice-stencil forms (K6); otherwise distribute + element
-        apply + segment sum (K7, K1)."""
+        bases: the lattice-stencil forms (K6) over this solver's window of
+        planes, the operator application replicated; otherwise distribute +
+        element apply + segment sum (K7, K1)."""
         st = self.lattice_stencil
         if st is not None:
             W = self._lattice_weights(coeff)
+            x0, planes = self._lattice_window
             return (
                 lambda u, b=None: lattice_apply(u, W, st, m=m, b=b),
-                lambda y0: lattice_assemble(y0, st),
-                lambda u: lattice_distribute(u, st),
+                lambda y0: self._sum_partial(lattice_assemble(y0, st, x0=x0, planes=planes)),
+                lambda u: lattice_distribute(u, st, x0=x0, planes=planes),
             )
         stack0 = self.levels[0].stack
 
@@ -658,7 +694,7 @@ class MultigridSolver:
         k = self.nlevels - 1 if k is None else k
         rng = np.random.default_rng(seed)
         v = torch.as_tensor(
-            rng.standard_normal((self.plan.base.nelements, self.plan.n_local(k))),
+            self.rows_of(rng.standard_normal((self.plan.base.nelements, self.plan.n_local(k)))),
             device=self.device,
         ).to(self.dtype)
         d = self.diagonal(coeff, k)
@@ -671,7 +707,7 @@ class MultigridSolver:
 
         def ddot(a, b_):
             # vdot(a * w, d * b) with the mask and the scale fused (K5)
-            return dot(a, b_, mask=w, scale=d)
+            return self._vdot(a, b_, mask=w, scale=d)
 
         def nz(s):
             return torch.where(s == 0, torch.ones_like(s), s)
@@ -751,7 +787,7 @@ class MultigridSolver:
         else:
             r_loc = b * bm if x_zero else self._apply_op(x, coeff, k, b=b).mul_(bm)
         p = self._combine_constrained(r_loc, k, Ls)
-        rs = dot(p, p, mask=w)
+        rs = self._vdot(p, p, mask=w)
         for i in range(steps):
             last = i + 1 == steps
             Ap = self._apply_op(p, coeff, k)
@@ -761,7 +797,7 @@ class MultigridSolver:
             del Ap
             if not last:
                 rc = self._combine_constrained(r_loc, k, Ls)
-                rs_new = dot(rc, rc, mask=w)
+                rs_new = self._vdot(rc, rc, mask=w)
                 # p = rc + beta p, written over rc
                 cg_direction(rc, rc, p, rs_new, rs)
                 p, rs = rc, rs_new
@@ -831,7 +867,7 @@ class MultigridSolver:
         gather the interior (K7), solve, and gather the solution straight
         back to the duplicated layout (K7; boundary nodes read the appended
         zero)."""
-        u = copy_to_base(b0, self._asm)
+        u = self._to_global(b0)
         sol = solve(gather_scale(u, self._int_idx))
         return gather_scale(torch.cat((sol, sol.new_zeros(1))), self._int_dist)
 
@@ -845,15 +881,15 @@ class MultigridSolver:
         x = torch.zeros_like(b)
         r = b
         p = r
-        rs = self._vdot(r, r)
+        rs = dot(r, r)
         eps2 = self._eps2(self.coarse_cg_tol, rs)
         it = 0
         while self._continue(rs, eps2, it, self.coarse_cg_maxiter):
             Ap = Aop(p)
-            alpha = self._safe_div(rs, self._vdot(p, Ap))
+            alpha = self._safe_div(rs, dot(p, Ap))
             x = x + alpha * p
             r = r - alpha * Ap
-            rs_new = self._vdot(r, r)
+            rs_new = dot(r, r)
             p = r + self._safe_div(rs_new, rs) * p
             rs = rs_new
             it += 1
@@ -919,20 +955,20 @@ class MultigridSolver:
         r = b
         z = prec(r)
         p = z
-        rz = self._vdot(r, z)
-        rs = self._vdot(r, r)
+        rz = dot(r, z)
+        rs = dot(r, r)
         eps2 = self._eps2(self.coarse_mg_tol, rs)
         it = 0
         while self._continue(rs, eps2, it, self.coarse_mg_maxiter):
             Ap = Aop(p)
-            alpha = self._safe_div(rz, self._vdot(p, Ap))
+            alpha = self._safe_div(rz, dot(p, Ap))
             x = x + alpha * p
             r = r - alpha * Ap
             z = prec(r)
-            rz_new = self._vdot(r, z)
+            rz_new = dot(r, z)
             p = z + self._safe_div(rz_new, rz) * p
             rz = rz_new
-            rs = self._vdot(r, r)
+            rs = dot(r, r)
             it += 1
         self.coarse_iterations.append(it)
         return dist(x)
@@ -1007,8 +1043,7 @@ class MultigridSolver:
     # ------------------------------------------------------------------ #
     def zero_states(self):
         """(x, b) zeros at the finest level."""
-        E = self.plan.base.nelements
-        shape = (E, self.plan.n_local(self.nlevels - 1))
+        shape = (self.n_rows, self.plan.n_local(self.nlevels - 1))
         return (
             torch.zeros(shape, dtype=self.dtype, device=self.device),
             torch.zeros(shape, dtype=self.dtype, device=self.device),
@@ -1043,7 +1078,7 @@ class MultigridSolver:
         """Exact first-copy residual norm from a local-form residual."""
         top = self.nlevels - 1
         rr = self._combine(r, top)
-        return torch.sqrt(dot(rr, rr, mask=self.levels[top].first_copy_mask))
+        return torch.sqrt(self._vdot(rr, rr, mask=self.levels[top].first_copy_mask))
 
     def _pcg_init_impl(self, x, b, coeff, chol, lam_max, Ls=None, interior=None):
         top = self.nlevels - 1
@@ -1200,7 +1235,7 @@ class MultigridSolver:
         """Norm with each fine DOF counted once (reference:
         zero_out_all_but_one! + norm, src/implicit_fine_grid.jl:334-386)."""
         k = self.nlevels - 1 if k is None else k
-        return torch.sqrt(dot(r, r, mask=self.levels[k].first_copy_mask))
+        return torch.sqrt(self._vdot(r, r, mask=self.levels[k].first_copy_mask))
 
 
 def solve_driver(

@@ -136,8 +136,9 @@ def test_cg_smoother_is_the_default():
 
 
 def test_driver_modules_load_with_jax_blocked():
-    """The driver, the integrals and the gather combine import neither jax
-    nor the JAX package, even where jax is installed."""
+    """The driver, the integrals, the gather combine and the slab-sharded
+    solver (parallel/) import neither jax nor the JAX package, even where
+    jax is installed."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -149,8 +150,20 @@ def test_driver_modules_load_with_jax_blocked():
         "import homogenization_jl_tpu_torch.ops.cg\n"
         "import homogenization_jl_tpu_torch.ops.dots\n"
         "import homogenization_jl_tpu_torch.ops.transfer\n"
+        "import homogenization_jl_tpu_torch.parallel.group\n"
+        "import homogenization_jl_tpu_torch.parallel.slab\n"
+        "import homogenization_jl_tpu_torch.parallel.run_slab\n"
+        "from homogenization_jl_tpu_torch import SlabGroup, SlabShardedMultigridSolver\n"
         "from homogenization_jl_tpu_torch.models.checkerboard import checkerboard_homogenization\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=root)
     assert res.returncode == 0, res.stderr
+
+
+def test_device_mesh_must_be_a_slab_group():
+    """The lattice geometry takes a SlabGroup as device_mesh (the ordered
+    one still raises, above); anything else is a TypeError."""
+    with pytest.raises(TypeError, match="SlabGroup"):
+        tcb.checkerboard_homogenization(1, dim=2, refinements=1, device="cpu",
+                                        geometry="lattice", device_mesh=object())
