@@ -17,6 +17,12 @@ then exits non-zero without the final line):
      segment sum, the aux hierarchy's cube-major 98,304 -> 4,913 one, and
      the aux transfers ([24576, 10]); the kernel, plain and library times
      at the float32 shapes; the segment sum bitwise equal on two launches;
+     at the finest shape (E = 196,608, n = 969), float32 and float64, every
+     entry of K18 (the mask, the Lanczos scale, three-term update, first
+     step and normalization, the Jacobi inverse, the diagonal), K10's r_out
+     and x_zero forms, K3's x_zero form and K1's mask store (apply and
+     residual forms) bitwise equal to their plain forms, with times and
+     bounds; K1's library time (one einsum of the same function);
  3b. the driver's kernels against their plain versions, float32 and
      float64: K9 (sigma integrals, all forms, both reference_quirk
      branches) at E = 196,608, n = 969, bitwise equal on two launches; K8
@@ -89,17 +95,51 @@ then exits non-zero without the final line):
  13. the flagship through the slab: phase 7's call with device_mesh= the
      group of phase 12 (cube order); sigma within 1e-3 of 1.2947696447 in
      at most 14 PCG iterations, its seconds per iteration beside phase
-     7's; then the group is destroyed;
+     7's;
+ 14. K12, the gather-sharded combine, at full size: the ordered 3D base
+     ordered_hypercube(3, 16) (196,608 tets, 5 levels, 190,513,152 DOFs)
+     cut into S = 1, 4 and 8 blocks of rows in one process: on every rank
+     K8 on the rank's owner tables, then the cross partials, added in rank
+     order as SlabGroup.sum adds them, then the scatter; at every level in
+     float32 and at the finest in float64, with and without the boundary
+     mask, the joined result bitwise equal to K12's plain forms, every copy
+     of a shared DOF bitwise equal, and within 1e-6 (float32) / 1e-13
+     (float64) relative of K8 on the full state (the sums' order differs
+     across shards); the cross slots per level; K12 timed at an S = 8
+     shard (the K8 part and the fix-up part) against its plain forms; the
+     comparisons' launches, which are not the path's (15d has those);
+ 15. the gather-sharded solver through the group of phase 12: (a) 3 PCG
+     iterations of ShardedMultigridSolver and of MultigridSolver on the
+     ordered 3D plan from the same rhs (float32, Chebyshev, the coarse
+     kind the ordered driver picks), the residual histories equal; (b) the
+     flagship call of phase 7 with geometry="ordered" and device_mesh= the
+     group (190,513,152 DOFs, one outer step; coarse_mg_tol=5e-2): sigma
+     within 5e-3 (50 x tolerance, the JAX suite's bar between geometries)
+     of 1.2947696447 in at most 14 PCG iterations, its seconds per
+     iteration beside phase 7's; (c) torch.profiler's kernel table of one
+     PCG iteration of phase 5 and of the PCG step of one driver iteration
+     of (b), top 15 by device time, each read only when its kernels cover
+     0.9 of the CUDA-event time of the same call (each profiles up to 4
+     iterations, (b) from its second, until one is covered), with no
+     PyTorch elementwise kernel above 20 us per launch on
+     average; then the group is destroyed; (d) the ordered driver through
+     the gather-sharded solver on 2 spawned ranks that share the card
+     through a gloo group (NCCL refuses two ranks on one card), at one
+     level below the flagship (refinements=3, 32,440,320 DOFs) in float64,
+     tolerance 1e-6: the ranks' sigma bitwise equal, within 1e-8 relative
+     of the single-device driver's, and every kernel of the ordered path
+     launched on every rank, K12's cross-shard kernels included;
 then one JSON line with the kernels (each kernel's launches on its path:
 K4, K5 and K10 on phase 10, K8 on phase 8's ordered run, K11 on phase 13,
-the others on phase 7), and last the device JSON line.
+K12's cross-shard kernels on phase 15d, summed over its ranks, the others
+on phase 7), and last the device JSON line.
 
 Usage: python3 chip_smoke.py            (one card, full size)
        python3 chip_smoke.py --n 16     (a smaller base, for rehearsals)
        python3 chip_smoke.py --profile DIR
-                                        (also trace one PCG iteration with
-                                         torch.profiler; the kernel table
-                                         goes to DIR/profile_pcg_iter.txt)
+                                        (also write phase 5's full
+                                         torch.profiler table to
+                                         DIR/profile_pcg_iter.txt)
 """
 
 from __future__ import annotations
@@ -175,6 +215,16 @@ KERNELS = {
         source="homogenization_jl_tpu_torch/csrc/structured_combine.cu",
         replaces="homogenization_jl_tpu/ops/structured.py:902",
     ),
+    "sharded_combine": dict(
+        route="cuda",
+        source="homogenization_jl_tpu_torch/csrc/sharded_combine.cu",
+        replaces="homogenization_jl_tpu/parallel/sharding.py:376",
+    ),
+    "elementwise": dict(
+        route="cuda",
+        source="homogenization_jl_tpu_torch/csrc/elementwise.cu",
+        replaces="homogenization_jl_tpu/ops/interfaces.py:58",
+    ),
 }
 # NVIDIA's data sheet for the H100 SXM:
 # float32 outside the tensor cores, and HBM bandwidth
@@ -205,6 +255,24 @@ SLAB_TIMED = (8, 3)
 # 10: measured-plus-margin, not run_slab_big.py's 1e-3 / 5%)
 SLAB_INTEGRAL_TOL = 5e-4
 SLAB_RATE_TOL = 0.02
+# phase 14's block counts of the ordered 3D state (S = 1 is the shape phase
+# 15 launches) and the shard it times
+SHARD_COUNTS = (1, 4, 8)
+SHARD_TIMED = (8, 3)
+# phase 15b's bar between geometries: 50 x the tolerance 1e-4
+# (tests/test_homogenization.py:411)
+ORDERED_SIGMA_TOL = 5e-3
+# phase 15c: PyTorch's own elementwise kernels may run only on small
+# vectors (the global-space coarse loops' take 2-5 us); a state-sized pass
+# at the finest two levels takes 80-450 us
+LIBRARY_ELEMENTWISE_MAX_US = 20.0
+# a profile is read only when its kernels cover this share of the CUDA-event
+# time of the same call (torch.profiler has missed half of a step's kernels
+# on the H100); phases 5 and 15b profile up to PROFILE_ATTEMPTS iterations
+# for one
+PROFILE_MIN_COVERAGE = 0.9
+PROFILE_ATTEMPTS = 4
+PROFILE_MARGIN_S = 1.0
 
 
 def bound(nbytes, flops):
@@ -238,24 +306,30 @@ def combine_adds(plan, k, E, rows=slice(None)):
     return total
 
 
-# the kernels each driven path must launch
+# the kernels each driven path must launch (K10 updates PCG too, and K18
+# carries the Lanczos estimate, the Jacobi diagonal and the mask)
 MAIN_PATH = ("element_apply", "structured_combine", "chebyshev_update", "lattice_stencil",
-             "coarse_gather", "transfer", "masked_dot")
+             "coarse_gather", "transfer", "masked_dot", "cg_update", "elementwise")
 FLAGSHIP_PATH = MAIN_PATH + ("integrals",)
 ORDERED_2D_PATH = ("element_apply", "structured_combine", "chebyshev_update", "coarse_gather",
-                   "gather_combine", "integrals", "transfer", "masked_dot")
+                   "gather_combine", "integrals", "transfer", "masked_dot", "cg_update",
+                   "elementwise")
 LATTICE_2D_PATH = FLAGSHIP_PATH
 # the CG smoothers' paths (K3 runs there as the level-0 junction smoother
 # of coarse="mg")
-VCYCLE_PATH = MAIN_PATH + ("cg_update",)
-FLAGSHIP_VCYCLE_PATH = FLAGSHIP_PATH + ("cg_update",)
+VCYCLE_PATH = MAIN_PATH
+FLAGSHIP_VCYCLE_PATH = FLAGSHIP_PATH
 DEFAULTS_2D_PATH = ("element_apply", "coarse_gather", "gather_combine", "integrals",
-                    "transfer", "masked_dot", "cg_update")
-# the slab paths: run_slab (Chebyshev, coarse="chol") and the flagship
-# through the slab (its aux hierarchy of coarse="mg" runs K2)
+                    "transfer", "masked_dot", "cg_update", "elementwise")
+# the slab paths: run_slab (Chebyshev, coarse="chol", V-cycles) and the
+# flagship through the slab (its aux hierarchy of coarse="mg" runs K2)
 SLAB_RUN_PATH = ("element_apply", "slab_combine", "chebyshev_update", "coarse_gather",
-                 "transfer", "masked_dot", "integrals")
+                 "transfer", "masked_dot", "integrals", "elementwise")
 FLAGSHIP_SLAB_PATH = FLAGSHIP_PATH + ("slab_combine",)
+# the ordered flagship through the gather-sharded solver (one rank: K12 is
+# K8 there, no cross groups; the ordered base is no lattice box, so no K6)
+FLAGSHIP_ORDERED_PATH = ("element_apply", "chebyshev_update", "coarse_gather", "gather_combine",
+                         "integrals", "transfer", "masked_dot", "cg_update", "elementwise")
 
 
 def check(cond, msg):
@@ -837,6 +911,138 @@ def check_cg_kernels(solver, plan, dev):
     return timing, dict(per_level=report, f32_other_forms=extra)
 
 
+def check_new_forms(solver, plan, coeff64, dev):
+    """Phase 3, at the finest main-path shape (E = 196,608, n = 969),
+    float32 and float64: every entry of K18 (the first Lanczos step too),
+    K10's r_out and x_zero forms, K3's x_zero form and K1's mask store (the
+    apply and the residual form, in place too) bitwise equal to their plain
+    forms; den == 0 and s == 0 included. Returns ({name: entry}
+    at the float32 shape: K18's entries, "cg_step_r_out",
+    "element_apply_masked"), and K1's library time: one einsum of the same
+    function, sum_p c[e, p] S_p x[e]."""
+    import torch
+
+    from homogenization_jl_tpu_torch.ops import apply as k_apply
+    from homogenization_jl_tpu_torch.ops import cg as k_cg
+    from homogenization_jl_tpu_torch.ops import chebyshev as k_cheb
+    from homogenization_jl_tpu_torch.ops import elementwise as k_ew
+    from homogenization_jl_tpu_torch.ops import interfaces as k_if
+
+    g = torch.Generator(device=dev).manual_seed(9753)
+    top = solver.nlevels - 1
+    E, n = plan.base.nelements, plan.n_local(top)
+    N = E * n
+    L = solver.levels[top]
+    P = L.stack.shape[0]
+    timing = {}
+    for dtype in (torch.float32, torch.float64):
+        f32 = dtype == torch.float32
+        isz = 4 if f32 else 8
+        name = str(dtype)[6:]
+
+        def rnd():
+            return torch.randn((E, n), generator=g, device=dev, dtype=dtype)
+
+        u, v, w, d = rnd(), rnd(), rnd(), rnd()
+        d[torch.rand((E, n), generator=g, device=dev) < 0.2] = 0.0
+        m = torch.rand((E, n), generator=g, device=dev) < 0.7
+        a = torch.tensor(0.37, dtype=dtype, device=dev)
+        zero = torch.zeros((), dtype=dtype, device=dev)
+        c = coeff64.to(dtype)
+        dref = L.diag_ref.to(dtype)
+        # name: (kernel, plain form, bytes moved, operations, library call)
+        forms = {
+            "mask": (lambda: k_if.apply_mask(u, m), lambda: u * m, isz * 2 * N + N, N,
+                     lambda: torch.mul(u, m)),
+            "mul": (lambda: k_ew.mul(d, u), lambda: k_ew.mul_plain(d, u), isz * 3 * N, N,
+                    lambda: torch.mul(d, u)),
+            "lanczos_update": (lambda: k_ew.lanczos_update(u, v, w, a, a),
+                               lambda: k_ew.lanczos_update_plain(u, v, w, a, a),
+                               isz * 4 * N, 4 * N, None),
+            "div_nz": (lambda: k_ew.div_nz(u, a), lambda: k_ew.div_nz_plain(u, a),
+                       isz * 2 * N, N, lambda: torch.div(u, a)),
+            "div_nz_zero": (lambda: k_ew.div_nz(u, zero), lambda: k_ew.div_nz_plain(u, zero),
+                            isz * 2 * N, N, None),
+            "inv_positive": (lambda: k_ew.inv_positive(d), lambda: k_ew.inv_positive_plain(d),
+                             isz * 2 * N, N, None),
+            "diagonal": (lambda: k_ew.diagonal(c, dref), lambda: k_ew.diagonal_plain(c, dref),
+                         isz * (E * P + P * n + N), 2 * P * N, lambda: torch.matmul(c, dref)),
+            "lanczos_first": (lambda: k_ew.lanczos_update(u, v, None, a, a),
+                              lambda: k_ew.lanczos_update_plain(u, v, None, a, a),
+                              isz * 3 * N, 2 * N, None),
+        }
+        for label, (kern, plain, nbytes, flops, lib) in forms.items():
+            got, want = kern(), plain()
+            check(torch.equal(_bits(got), _bits(want)), f"K18 {label} {name}: differs from plain")
+            del got, want
+            if f32 and label not in ("div_nz_zero", "lanczos_first"):
+                timing[label] = entry(0.0, cuda_ms(kern, 10), cuda_ms(plain, 10), nbytes, flops,
+                                      library_ms=None if lib is None else cuda_ms(lib, 10))
+        y = u.clone()
+        k_if.apply_mask(y, m, out=y)
+        check(torch.equal(_bits(y), _bits(u * m)), f"K18 mask in place {name}: differs")
+        del y
+
+        # K10's r_out form: x += alpha p, r_out = r - alpha Ap, r kept
+        for den_v in (1.3, 0.0):
+            den = torch.tensor(den_v, dtype=dtype, device=dev)
+            xk, xp, r0 = u.clone(), u.clone(), v.clone()
+            rk, rp = torch.empty_like(v), torch.empty_like(v)
+            k_cg.cg_step(xk, v, w, d, a, den, r_out=rk)
+            k_cg.cg_step_plain(xp, v, w, d, a, den, r_out=rp)
+            check(torch.equal(xk, xp) and torch.equal(rk, rp) and torch.equal(v, r0),
+                  f"K10 r_out {name} den={den_v}: differs from plain")
+            if f32 and den_v != 0:
+                timing["cg_step_r_out"] = entry(
+                    0.0, cuda_ms(lambda: k_cg.cg_step(xk, v, w, d, a, den, r_out=rk), 10),
+                    cuda_ms(lambda: k_cg.cg_step_plain(xp, v, w, d, a, den, r_out=rp), 10),
+                    nbytes=isz * 6 * N, flops=4 * N)
+            del xk, xp, r0, rk, rp
+        # the x_zero forms of K10 and K3: x unread (NaN here), x = 0 + update
+        xk, xp = torch.full_like(u, float("nan")), torch.empty_like(u)
+        den = torch.tensor(1.3, dtype=dtype, device=dev)
+        k_cg.cg_step(xk, None, w, None, a, den, x_zero=True)
+        k_cg.cg_step_plain(xp, None, w, None, a, den, x_zero=True)
+        check(torch.equal(_bits(xk), _bits(xp)), f"K10 x_zero {name}: differs from plain")
+        ab = torch.tensor([0.4, 0.9], dtype=dtype, device=dev)
+        pk, pp = torch.empty_like(u), torch.empty_like(u)
+        xk.fill_(float("nan"))
+        k_cheb.chebyshev_update(xk, pk, v, u, ab, first=True, x_zero=True)
+        k_cheb.chebyshev_update_plain(xp, pp, v, u, ab, True, x_zero=True)
+        check(torch.equal(pk, pp) and torch.equal(xk, xp), f"K3 x_zero {name}: differs from plain")
+        del xk, xp, pk, pp
+        del v, w, d
+
+        # K1's mask store: the unmasked output times the mask, bit for bit
+        stack, rowsum = L.stack.to(dtype), L.rowsum.to(dtype)
+        b = rnd()
+        for label, kw in (("apply", {}), ("residual", dict(b=b))):
+            want = k_apply.element_apply(u, c, stack, rowsum=rowsum, **kw) * m
+            got = k_apply.element_apply(u, c, stack, rowsum=rowsum, mask=m, **kw)
+            check(torch.equal(_bits(got), _bits(want)), f"K1 mask store {label} {name}: differs")
+            del got, want
+        r = b.clone()
+        k_apply.element_apply(u, c, stack, b=r, out=r, rowsum=rowsum, mask=m)
+        want = k_apply.element_apply(u, c, stack, b=b, rowsum=rowsum) * m
+        check(torch.equal(_bits(r), _bits(want)), f"K1 mask store in place {name}: differs")
+        del r, want
+        if f32:
+            timing["element_apply_masked"] = entry(
+                0.0, cuda_ms(lambda: k_apply.element_apply(u, c, stack, b=b, rowsum=rowsum, mask=m), 3),
+                cuda_ms(lambda: k_apply.element_apply_plain(u, c, stack, b=b, rowsum=rowsum) * m, 3),
+                nbytes=4 * (3 * N + E * P + P * n * n) + N, flops=2 * N * n * P)
+            # K1's library yardstick: one einsum of sum_p c[e, p] S_p x[e],
+            # operands in the order that contracts x with the stack first (a
+            # batched GEMM into [E, P, n], then the sum over the pieces):
+            # without opt_einsum, torch contracts left to right, and c with
+            # the stack first would be an [E, P, n, n] intermediate
+            timing["element_apply_library_ms"] = cuda_ms(
+                lambda: torch.einsum("en,pmn,ep->em", u, stack, c), 3)
+        del u, b, m, c, stack, rowsum
+        torch.cuda.empty_cache()
+    return timing
+
+
 # --------------------------------------------------------------------- #
 # phase 4: small float64 solve against a sparse direct solve
 # --------------------------------------------------------------------- #
@@ -890,37 +1096,6 @@ def small_solve_error(hz, dev, n, **kw):
     mapping = order[np.searchsorted(fk[order], key(allx))]
     xs = x.cpu().numpy().reshape(-1)
     return float(np.abs(u[mapping] - xs).max() / np.abs(u).max()), len(hist) - 2
-
-
-def profile_pcg_iteration(step, out):
-    """Trace one PCG iteration: device time by kernel and the device busy
-    share of the iteration's wall time. The full table goes to
-    out/profile_pcg_iter.txt."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = []
-    for ev in prof.key_averages():
-        # device-side events only (kernels, copies): the CPU-side ops that
-        # launched them carry the same device time again
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dt = ev.self_device_time_total
-        if dt > 0:
-            rows.append((ev.key[:80], dt / 1e3, ev.count))
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
-    os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "profile_pcg_iter.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
-    say("profile", wall_ms=wall * 1e3, device_busy_ms=busy,
-        idle_share=1.0 - busy / (wall * 1e3), top=rows[:12])
 
 
 # --------------------------------------------------------------------- #
@@ -1045,10 +1220,12 @@ def residual_shift_control(solver, x, b, sigma):
                fresh_residual_err_unshifted=err(b - k_apply.element_apply(x, coeff, stack)))
     del ref
 
-    def unshifted_op(x_, coeff_, k, b=None, out=None):
+    def unshifted_op(x_, coeff_, k, b=None, out=None, mask=None):
         if b is None:
-            return k_apply.element_apply(x_, coeff_, solver.levels[k].stack, out=out)
+            return k_apply.element_apply(x_, coeff_, solver.levels[k].stack, out=out, mask=mask)
         y = b - k_apply.element_apply(x_, coeff_, solver.levels[k].stack)
+        if mask is not None:
+            y = y * mask
         return y if out is None else out.copy_(y)
 
     solver._apply_op = unshifted_op
@@ -1336,6 +1513,418 @@ def flagship_slab(kbuild, group, smi, sec_iter_phase7):
 
 
 # --------------------------------------------------------------------- #
+# phases 14-15: the gather-sharded path
+# --------------------------------------------------------------------- #
+def ordered_flagship_problem(hz):
+    """The ordered flagship's base (ordered_hypercube(3, 16)), plan (5
+    levels), conductivity (seed 7) and step-0 rhs, as the ordered driver
+    builds them."""
+    from homogenization_jl_tpu_torch.models.checkerboard import (
+        compute_boundary_layer,
+        compute_box_radius,
+        conductivity_per_element,
+        generate_conductivity,
+        initial_rhs,
+        ordered_hypercube,
+    )
+
+    R = compute_box_radius(0, FLAGSHIP["n"]) + compute_boundary_layer(1.0, FLAGSHIP["n"])
+    check(R == ORDERED_3D_RADIUS, f"ordered flagship radius {R}")
+    mesh, _, _ = ordered_hypercube(3, R)
+    plan = hz.build_grid_plan(mesh, FLAGSHIP["refinements"] + 1, slot_tables=False)
+    field = generate_conductivity(3, 2 * R, np.random.default_rng(7))
+    sigma = conductivity_per_element(mesh, field, np.full(3, float(R)))
+    b = initial_rhs(plan, sigma, np.ones(3) / np.sqrt(3), dtype=np.float32)
+    return plan, sigma, b
+
+
+def shard_cut(x, S):
+    """The rows of each of S blocks of x (B = ceil(E / S) rows each, the
+    last shorter), as contiguous views."""
+    E = x.shape[0]
+    B = -(-E // S)
+    return [x[r * B : min((r + 1) * B, E)] for r in range(S)]
+
+
+def k12_ranks(x, tabs, mask, plain=False):
+    """K12 on every rank of x's blocks in one process: K8 on the rank's
+    owner tables, the cross partials, added in rank order as SlabGroup.sum
+    adds them, then the scatter; or (``plain``) the same with the plain
+    forms. Returns the joined result."""
+    import torch
+
+    from homogenization_jl_tpu_torch.ops import interfaces as k_if
+    from homogenization_jl_tpu_torch.ops import sharded as k_sh
+
+    S = len(tabs)
+    xs = shard_cut(x, S)
+    ms = [None] * S if mask is None else shard_cut(mask, S)
+    if plain:
+        local = [(k_if.combine_gather_rows_plain(xr, gt, mr),
+                  k_sh.cross_partial_plain(xr, ct) if ct.n_groups else None)
+                 for xr, (gt, ct), mr in zip(xs, tabs, ms)]
+    else:
+        local = [k_sh.sharded_combine_local(xr, gt, ct, mr) for xr, (gt, ct), mr in zip(xs, tabs, ms)]
+    if local[0][1] is not None:
+        total = local[0][1]
+        for _, part in local[1:]:
+            total = total + part
+        for (out, _), (_, ct), mr in zip(local, tabs, ms):
+            (k_sh.cross_scatter_plain if plain else k_sh.cross_scatter)(out, total, ct, mr)
+    return torch.cat([out for out, _ in local])
+
+
+def check_sharded_kernel(hz, kbuild, plan, dev, smi, t_plan):
+    """Phase 14: K12 on every rank of S = 1, 4 and 8 blocks of the ordered
+    3D state, against its plain forms (bitwise), K8 on the full state
+    (1e-6 / 1e-13 relative) and itself (every copy of a shared DOF); at
+    every level in float32 and at the finest in float64, with and without
+    the boundary mask; the cross slots per level; K12 timed at an S = 8
+    shard. Returns K12's kernel entry. Its launches here are comparisons
+    (reported, the timing loops' left out); the path's are phase 15d's."""
+    import torch
+
+    from homogenization_jl_tpu_torch.ops import interfaces as k_if
+    from homogenization_jl_tpu_torch.ops import sharded as k_sh
+    from homogenization_jl_tpu_torch.parallel.sharding import shard_tables_all
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(1414)
+    top = plan.nlevels - 1
+    E = plan.base.nelements
+    kbuild.reset_launches()
+    checked, cross_slots, worst, timing, timed_launches = [], {}, {}, None, 0
+    t_tables = 0.0
+    for k in range(plan.nlevels):
+        n = plan.n_local(k)
+        full = k_if.build_gather_tables(plan, k, dev)
+        bm = torch.as_tensor(plan.levels[k].boundary_mask, device=dev)
+        t1 = time.perf_counter()
+        tabs = {S: shard_tables_all(plan, k, S, dev) for S in SHARD_COUNTS}
+        t_tables += time.perf_counter() - t1
+        cross_slots[k] = {S: sum(ct.n_slots for _, ct in tabs[S]) for S in SHARD_COUNTS}
+        check(cross_slots[k][1] == 0 and all(cross_slots[k][S] > 0 for S in SHARD_COUNTS[1:]),
+              f"K12 level {k}: cross slots {cross_slots[k]}")
+        for dtype in (torch.float32, torch.float64) if k == top else (torch.float32,):
+            name = str(dtype)[6:]
+            tol = 1e-6 if dtype == torch.float32 else 1e-13
+            x = torch.randn((E, n), generator=g, device=dev, dtype=dtype)
+            for mask in (None, bm):
+                label = f"level {k} {name} mask={mask is not None}"
+                ref = k_if.combine_gather_rows(x, full, mask=mask)
+                scale = float(ref.abs().max())
+                for S in SHARD_COUNTS:
+                    got = k12_ranks(x, tabs[S], mask)
+                    plain = k12_ranks(x, tabs[S], mask, plain=True)
+                    check(torch.equal(_bits(got), _bits(plain)),
+                          f"K12 {label} S={S}: differs from its plain forms")
+                    del plain
+                    if mask is None:
+                        check(copies_bitwise_equal(got, plan, k), f"K12 {label} S={S}: copies differ")
+                    err = float((got - ref).abs().max()) / scale
+                    check(err <= tol, f"K12 {label} S={S}: rel err {err} > {tol} against K8")
+                    if S == 1:
+                        check(torch.equal(_bits(got), _bits(ref)), f"K12 {label} S=1: not K8's bits")
+                    key = f"{name} S={S}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    del got
+                del ref
+            checked.append((name, k, n))
+            if k == top and dtype == torch.float32:
+                S, r = SHARD_TIMED
+                gt, ct = tabs[S][r]
+                xr = shard_cut(x, S)[r]
+                mr = shard_cut(bm, S)[r]
+                out, part = k_sh.sharded_combine_local(xr, gt, ct, mr)
+                n0 = kbuild.LAUNCHES["sharded_combine"]
+                ms_k8 = cuda_ms(lambda: k_if.combine_gather_rows(xr, gt, mask=mr), 10)
+                ms_fix = cuda_ms(lambda: k_sh.cross_scatter(out, k_sh.cross_partial(xr, ct), ct, mr), 20)
+                ms_plain = cuda_ms(lambda: k_sh.cross_scatter_plain(
+                    k_if.combine_gather_rows_plain(xr, gt, mr), k_sh.cross_partial_plain(xr, ct),
+                    ct, mr), 3)
+                timed_launches += kbuild.LAUNCHES["sharded_combine"] - n0
+                C, G = ct.n_slots, ct.n_groups
+                tab_bytes = sum(c.oe.numel() * 9 + c.gmap.numel() * 4 for c in gt.classes)
+                timing = entry(
+                    0.0, ms_k8 + ms_fix, ms_plain,
+                    # the shard's rows read and written, the mask, the owner
+                    # tables; the cross slots read, the partials written, the
+                    # totals read, the slots written, the slot tables
+                    nbytes=4 * 2 * xr.numel() + mr.numel() + tab_bytes
+                    + 4 * (2 * C + 2 * G) + 8 * 3 * C,
+                    flops=combine_adds(plan, k, E, slice(r * xr.shape[0], (r + 1) * xr.shape[0])) + C,
+                )
+                shard = dict(S=S, rank=r, rows=xr.shape[0], n=n, cross_slots=C, cross_groups=G,
+                             k8_ms=ms_k8, fixup_ms=ms_fix)
+                del out, part
+            del x
+            torch.cuda.empty_cache()
+        del full, bm, tabs
+    torch.cuda.synchronize()
+    compared = kbuild.LAUNCHES["sharded_combine"] - timed_launches
+    check(compared > 0, "K12's cross-shard kernels never launched")
+    kbuild.reset_launches()
+    say(14, ok=True, checked=checked, rel_err_vs_k8=worst,
+        cross_slots_per_level={k: v for k, v in cross_slots.items()},
+        host_plan_s=t_plan, host_tables_s=t_tables, timed_shard=shard, f32=timing,
+        comparison_launches=compared, wall_s=time.perf_counter() - t0, card=smi)
+    return timing
+
+
+def profile_step(step):
+    """torch.profiler over one call of ``step``. Returns ({"rows": [(kernel,
+    device ms, launches)] by device time, "wall_ms", "event_ms": the device
+    ms between two CUDA events around the call on the current stream,
+    "coverage": the rows' time over event_ms}, the profile). The rows add
+    up to event_ms less the idle gaps: a coverage far below 1 means the
+    profile missed kernels, and such a table proves nothing about them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # idle margins inside the trace around the step: a partial profile
+        # lost a prefix of its step's kernels (their device times fell
+        # before the trace's window)
+        torch.ones(1).to("cuda")
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+        t0 = time.perf_counter()
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        time.sleep(PROFILE_MARGIN_S)
+    rows = []
+    for ev in prof.key_averages():
+        # device-side events only (kernels, copies): the CPU-side ops that
+        # launched them carry the same device time again
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if ev.self_device_time_total > 0:
+            rows.append((ev.key, ev.self_device_time_total / 1e3, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    event_ms = start.elapsed_time(end)
+    return dict(rows=rows, wall_ms=wall * 1e3, event_ms=event_ms,
+                coverage=sum(r[1] for r in rows) / event_ms), prof
+
+
+def covered_profile(step, label):
+    """The first of up to PROFILE_ATTEMPTS profiles of ``step`` (one call
+    each) that covers PROFILE_MIN_COVERAGE of its CUDA-event time, with the
+    coverage of every attempt; fails when none does."""
+    tried = []
+    for _ in range(PROFILE_ATTEMPTS):
+        p, prof = profile_step(step)
+        tried.append(p["coverage"])
+        if p["coverage"] >= PROFILE_MIN_COVERAGE:
+            return dict(p, attempts=tried), prof
+        del prof
+    raise RuntimeError(f"chip_smoke: {label}: no profile covers {PROFILE_MIN_COVERAGE} "
+                       f"of the step: coverages {tried}")
+
+
+def library_elementwise(rows):
+    """PyTorch's elementwise kernels of a profile: [(name, mean us per
+    launch, launches)]."""
+    return [(name[:90], ms * 1e3 / count, count) for name, ms, count in rows
+            if "elementwise_kernel" in name]
+
+
+def sharded_pcg_compare(hz, kbuild, group, plan, sigma, b_np, dev, smi):
+    """Phase 15a: 3 PCG iterations from zero of the gather-sharded solver
+    (a world of one) and of MultigridSolver on the ordered 3D plan, the
+    solver the ordered driver builds for its first step (float32,
+    Chebyshev, the coarse kind it picks, coarse_mg_tol=5e-2): equal
+    lambda_max and residual histories."""
+    import torch
+
+    from homogenization_jl_tpu_torch.models.checkerboard import _make_solver
+
+    t0 = time.perf_counter()
+    out = {}
+    for label, grp in (("single", None), ("sharded", group)):
+        sol = _make_solver(plan, torch.float32, dev, 3, "mg", 8_000, "chebyshev",
+                           dict(coarse_mg_tol=5e-2), grp)
+        coeff = sol.coefficients(sigma, 1.0)
+        setup = sol.coarse_setup(sigma, 1.0)
+        lam_max = sol.estimate_lambda_max(coeff)
+        b = torch.as_tensor(np.ascontiguousarray(sol.rows_of(b_np)), device=dev)
+        kbuild.reset_launches()
+        _, hist = sol.pcg(b, coeff, setup, lam_max=lam_max, iters=3)
+        out[label] = dict(kind=sol.coarse_kind, lam_max=lam_max, history=hist,
+                          launches=dict(kbuild.LAUNCHES))
+        del sol, coeff, setup, b
+        torch.cuda.empty_cache()
+    s, m = out["sharded"], out["single"]
+    check(s["kind"] == m["kind"], f"15a: coarse kinds {s['kind']} vs {m['kind']}")
+    check(s["lam_max"] == m["lam_max"] and s["history"] == m["history"],
+          f"15a: sharded {s['lam_max']} {s['history']} vs single {m['lam_max']} {m['history']}")
+    check(all(math.isfinite(h) for h in s["history"]) and s["history"][-1] < s["history"][0],
+          f"15a: history {s['history']}")
+    say("15a", ok=True, coarse=s["kind"], lam_max=s["lam_max"], history=s["history"],
+        single_history=m["history"], launches=s["launches"], wall_s=time.perf_counter() - t0,
+        card=smi)
+
+
+# phase 15b profiles the PCG steps of its driver iterations from this one
+# on, until one covers PROFILE_MIN_COVERAGE of its step
+PROFILE_FIRST_ITERATION = 2
+
+
+def flagship_ordered_sharded(kbuild, group, smi, sec_iter_phase7):
+    """Phase 15b: the flagship call with geometry="ordered" and
+    device_mesh= the group (the gather-sharded solver, a world of one);
+    the PCG steps of up to PROFILE_ATTEMPTS driver iterations from
+    PROFILE_FIRST_ITERATION on are profiled until one is covered. Returns
+    ({iteration: covered profile}, {iteration: coverage} of every
+    profiled iteration)."""
+    import torch
+
+    from homogenization_jl_tpu_torch.models.checkerboard import checkerboard_homogenization
+    from homogenization_jl_tpu_torch.parallel.sharding import ShardedMultigridSolver
+
+    profiled, attempts = {}, {}
+    stepper = ShardedMultigridSolver.pcg_stepper
+
+    def traced_stepper(self, *args, **kwargs):
+        init, step = stepper(self, *args, **kwargs)
+
+        def step_traced(state):
+            calls = profiled["calls"] = profiled.get("calls", 0) + 1
+            done = any(p["coverage"] >= PROFILE_MIN_COVERAGE for p in attempts.values())
+            if calls < PROFILE_FIRST_ITERATION or done or len(attempts) == PROFILE_ATTEMPTS:
+                return step(state)
+            box = {}
+            attempts[calls], _ = profile_step(lambda: box.setdefault("state", step(state)))
+            return box["state"]
+
+        return init, step_traced
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kbuild.reset_launches()
+    ShardedMultigridSolver.pcg_stepper = traced_stepper
+    t0 = time.perf_counter()
+    try:
+        sigma, trace = checkerboard_homogenization(
+            **FLAGSHIP, geometry="ordered", dtype=torch.float32, tolerance=1e-4, seed=7,
+            coarse="mg", smoother="chebyshev", inner="pcg",
+            solver_opts=dict(coarse_mg_tol=5e-2), return_trace=True, device_mesh=group,
+        )
+        torch.cuda.synchronize()
+    finally:
+        ShardedMultigridSolver.pcg_stepper = stepper
+    wall = time.perf_counter() - t0
+    launches = dict(kbuild.LAUNCHES)
+    check(all(launches[k] > 0 for k in FLAGSHIP_ORDERED_PATH),
+          f"flagship ordered: a kernel never ran: {launches}")
+    check(math.isfinite(sigma), f"flagship ordered: sigma {sigma}")
+    check(abs(sigma - FLAGSHIP_SIGMA) < ORDERED_SIGMA_TOL,
+          f"flagship ordered: sigma {sigma} vs {FLAGSHIP_SIGMA}")
+    its = sum(trace.cycles_per_step)
+    check(its <= 14, f"flagship ordered: {its} PCG iterations > 14")
+    covered = {i: p for i, p in attempts.items() if p["coverage"] >= PROFILE_MIN_COVERAGE}
+    check(covered, f"flagship ordered: no profile covers {PROFILE_MIN_COVERAGE} of its step: "
+          f"{ {i: p['coverage'] for i, p in attempts.items()} }")
+    iters = [t for step in trace.iteration_seconds for t in step]
+    # the profiled iterations carry the profiler's cost: left out of the mean
+    plain = [t for i, t in enumerate(iters, 1) if i not in attempts]
+    say("15b", ok=True, sigma=sigma, sigma_steps=trace.sigma_steps,
+        cycles_per_step=trace.cycles_per_step, residuals=trace.residuals, wall_s=wall,
+        host_init_s=trace.init_seconds, step_setup_s=trace.setup_seconds,
+        sec_per_iteration=iters,
+        profile_coverage={i: p["coverage"] for i, p in attempts.items()},
+        sec_per_iteration_mean_unprofiled=sum(plain) / len(plain) if plain else None,
+        phase7_sec_per_iteration_mean=sec_iter_phase7,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        sigma_minus_tpu_record=sigma - FLAGSHIP_SIGMA, launches=launches, card=smi)
+    torch.cuda.empty_cache()
+    return covered, {i: p["coverage"] for i, p in attempts.items()}
+
+
+def profiles_report(pcg_profile, driver_profiles, driver_coverage, smi):
+    """Phase 15c: the kernel tables, top 15 by device time, and no PyTorch
+    elementwise kernel above LIBRARY_ELEMENTWISE_MAX_US per launch on
+    average. The gate reads only tables that cover PROFILE_MIN_COVERAGE of
+    their call's CUDA-event time (below 1 by the idle gaps; far below it,
+    the profile missed kernels); ``driver_coverage``: every 15b attempt's."""
+    out = {}
+    tables = [("phase5_pcg_iteration", pcg_profile)] + [
+        (f"phase15b_driver_iteration{i}_pcg_step", p) for i, p in driver_profiles.items()]
+    check(len(tables) >= 2, "15c: no covered profile of a driver iteration")
+    for label, p in tables:
+        rows = p["rows"]
+        check(p["coverage"] >= PROFILE_MIN_COVERAGE,
+              f"15c {label}: the profile covers {p['coverage']} of the step")
+        busy = sum(r[1] for r in rows)
+        lib = library_elementwise(rows)
+        worst = max((us for _, us, _ in lib), default=0.0)
+        check(worst <= LIBRARY_ELEMENTWISE_MAX_US,
+              f"15c {label}: a PyTorch elementwise kernel takes {worst} us per launch: {lib}")
+        out[label] = dict(wall_ms=p["wall_ms"], event_ms=p["event_ms"], device_busy_ms=busy,
+                          coverage=p["coverage"], idle_share=1.0 - busy / p["wall_ms"],
+                          top15=[(name[:90], ms, count) for name, ms, count in rows[:15]],
+                          library_elementwise=lib)
+    say("15c", ok=True, max_library_elementwise_us=LIBRARY_ELEMENTWISE_MAX_US,
+        min_coverage=PROFILE_MIN_COVERAGE, phase5_attempts=pcg_profile["attempts"],
+        phase15b_attempts=driver_coverage, card=smi, **out)
+
+
+# phase 15d: the ordered driver through the gather-sharded solver on ranks
+# that share the card through a gloo group (NCCL refuses two ranks on one
+# card), one level below the flagship (32.4M DOFs) in float64, against the
+# single-device driver: the run in which K12's cross-shard kernels serve
+# the path (a world of one has no cross groups)
+SHARED_CARD_RANKS = 2
+SHARED_CARD_CALL = dict(n=2, dim=3, refinements=3, tolerance=1e-6, seed=7, coarse="mg",
+                        smoother="chebyshev", inner="pcg", solver_opts=dict(coarse_mg_tol=5e-2))
+SHARED_CARD_SIGMA_TOL = 1e-8
+
+
+def sharded_shared_card(dev, smi):
+    """Phase 15d: SHARED_CARD_CALL (geometry="ordered", float64) on
+    SHARED_CARD_RANKS spawned ranks on the card, each counting its hand
+    kernels' launches from zero over its driver call, and in this process
+    on the single device: every rank's sigma bitwise equal, within
+    SHARED_CARD_SIGMA_TOL relative of the single device's, and every kernel
+    of the ordered path, K12's cross-shard kernels included, launched on
+    every rank. Returns the launches summed over the ranks."""
+    import torch
+
+    from homogenization_jl_tpu_torch.models.checkerboard import checkerboard_homogenization
+    from homogenization_jl_tpu_torch.parallel import run_slab
+
+    t0 = time.perf_counter()
+    kw = dict(SHARED_CARD_CALL, dtype=torch.float64)
+    outs = run_slab.spawn_ranks(
+        SHARED_CARD_RANKS, dict(kind="ordered_driver", kwargs=kw, device="cuda"), timeout=600)
+    t_ranks = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    sigma, trace = checkerboard_homogenization(**kw, geometry="ordered", return_trace=True,
+                                               device=dev)
+    t_single = time.perf_counter() - t1
+    got = outs[0]["sigma"]
+    check(all(o["sigma"] == got for o in outs), f"15d: ranks disagree: {[o['sigma'] for o in outs]}")
+    rel = abs(got - sigma) / abs(sigma)
+    check(rel <= SHARED_CARD_SIGMA_TOL, f"15d: sigma {got} vs single device {sigma} (rel {rel})")
+    path = FLAGSHIP_ORDERED_PATH + ("sharded_combine",)
+    for o in outs:
+        check(all(o["job_launches"][k] > 0 for k in path),
+              f"15d: a kernel never ran on a rank: {o['job_launches']}")
+    launches = {k: sum(o["job_launches"][k] for o in outs) for k in outs[0]["job_launches"]}
+    say("15d", ok=True, ranks=SHARED_CARD_RANKS, call=dict(SHARED_CARD_CALL, dtype="float64"),
+        sigma=got, sigma_single=sigma, sigma_rel_diff=rel, cycles_per_step=outs[0]["cycles_per_step"],
+        cycles_per_step_single=trace.cycles_per_step, ranks_wall_s=t_ranks, single_wall_s=t_single,
+        launches_per_rank=[o["job_launches"] for o in outs], card=smi)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------------- #
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=32, help="cubes per axis of the base")
@@ -1343,6 +1932,7 @@ def main(argv=None):
                     help="trace one PCG iteration with torch.profiler; "
                     "write the kernel table into DIR")
     args = ap.parse_args(argv)
+    t_all = time.perf_counter()
 
     # ---- phase 1: the card -------------------------------------------
     import torch
@@ -1398,12 +1988,17 @@ def main(argv=None):
     timing, report = check_kernels(solver, plan, coeff64, dev)
     timing_c, report_c = check_coarse_kernels(solver, coeff64, dev)
     timing.update(timing_c)
+    torch.cuda.empty_cache()
+    forms = check_new_forms(solver, plan, coeff64, dev)
     del coeff64
+    timing["elementwise"] = forms["mask"]
+    timing["element_apply"]["library_ms"] = forms.pop("element_apply_library_ms")
     torch.cuda.empty_cache()
     timing_g, report_g = check_cg_kernels(solver, plan, dev)
     timing.update(timing_g)
     kbuild.reset_launches()  # comparison launches do not count
-    say(3, ok=True, per_level=report, coarse=report_c, cg_path=report_g, main_f32=timing)
+    say(3, ok=True, per_level=report, coarse=report_c, cg_path=report_g, main_f32=timing,
+        new_forms_f32=forms)
     timing_d, report_d = check_driver_kernels(hz, solver, plan, dev)
     timing.update(timing_d)
     kbuild.reset_launches()
@@ -1484,9 +2079,13 @@ def main(argv=None):
         state[:] = solver._pcg_step_impl(*state[:4], coeff, setup, lam_max, flexible=True)
 
     sec_iter = cuda_ms(pcg_step, 5) / 1e3
+    # one PCG iteration under torch.profiler (read by phase 15c)
+    pcg_profile, prof = covered_profile(pcg_step, "phase 5")
     if args.profile:
-        profile_pcg_iteration(pcg_step, args.profile)
-    del state
+        os.makedirs(args.profile, exist_ok=True)
+        with open(os.path.join(args.profile, "profile_pcg_iter.txt"), "w") as f:
+            f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
+    del state, prof
     say(5, ok=True, coarse="mg", dofs=dofs, history=hist,
         iters_to_1e3=iters_to(hist, 1e-3), iters_to_1e4=iters_to(hist, 1e-4),
         solve_wall_s=t_solve, sec_per_vcycle=sec_vcycle, sec_per_pcg_iter=sec_iter,
@@ -1554,20 +2153,38 @@ def main(argv=None):
         del prob_c
         torch.cuda.empty_cache()
         launches_s = flagship_slab(kbuild, group, smi, flagship_sec_iter)
+        say("11-13", ok=True, wall_s=time.perf_counter() - t_slab)
+
+        # ---- phases 14-15: the gather-sharded path -------------------------
+        t_shard = time.perf_counter()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        plan_o, sigma_o, b_o = ordered_flagship_problem(hz)
+        t_plan_o = time.perf_counter() - t0
+        timing["sharded_combine"] = check_sharded_kernel(hz, kbuild, plan_o, dev, smi, t_plan_o)
+        sharded_pcg_compare(hz, kbuild, group, plan_o, sigma_o, b_o, dev, smi)
+        del plan_o, sigma_o, b_o
+        torch.cuda.empty_cache()
+        driver_profiles, driver_coverage = flagship_ordered_sharded(
+            kbuild, group, smi, flagship_sec_iter)
+        profiles_report(pcg_profile, driver_profiles, driver_coverage, smi)
     finally:
         SlabGroup.destroy()
         shutil.rmtree(store, ignore_errors=True)
-    say("11-13", ok=True, wall_s=time.perf_counter() - t_slab)
+    launches_d = sharded_shared_card(dev, smi)
+    say("14-15", ok=True, wall_s=time.perf_counter() - t_shard)
 
     path_launches = {name: launches_f[name] for name in KERNELS}
     path_launches["gather_combine"] = launches_2d["ordered"]["gather_combine"]
     for name in ("transfer", "masked_dot", "cg_update"):
         path_launches[name] = launches_v[name]
     path_launches["slab_combine"] = launches_s["slab_combine"]
+    path_launches["sharded_combine"] = launches_d["sharded_combine"]
     kernels = [
         dict(name=name, **meta, launches=path_launches[name], **timing[name])
         for name, meta in KERNELS.items()
     ]
+    say("all", ok=True, wall_s=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

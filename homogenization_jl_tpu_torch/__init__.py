@@ -13,13 +13,15 @@ Layer map (host precompute in NumPy, device compute in PyTorch):
              apply (K1, CUDA), structured combine (K2, CUDA),
              chebyshev update (K3, Triton), lattice stencil (K6, CUDA),
              coarse gathers / segment sum (K7, CUDA, in interfaces),
-             transfer
+             transfer, the gather-sharded combine (K12, CUDA, sharded),
+             the state-sized elementwise passes (K18, CUDA, elementwise)
   csrc/    — the CUDA sources and their nvcc build
   solver/  — multigrid (structured, chebyshev; coarse chol / inv / cg / mg
              with the aux hierarchy of coarse.py; FMG + PCG)
   models/  — checkerboard conductivity fields
-  parallel/ — the slab-sharded solver over torch.distributed (SlabGroup,
-             SlabShardedMultigridSolver; slab combine K11, CUDA)
+  parallel/ — the sharded solvers over torch.distributed (SlabGroup;
+             SlabShardedMultigridSolver, slab combine K11, CUDA;
+             ShardedMultigridSolver, gather-sharded combine K12)
 """
 
 from .mesh.grid import Mesh, hypercube, interior_nodes
@@ -27,6 +29,7 @@ from .mesh.refine import refine_uniformly
 from .mesh.reference import refined_reference
 from .ops.plan import build_grid_plan
 from .parallel.group import SlabGroup
+from .parallel.sharding import ShardedMultigridSolver
 from .parallel.slab import SlabShardedMultigridSolver
 from .solver.multigrid import MultigridSolver
 
@@ -39,6 +42,7 @@ __all__ = [
     "build_grid_plan",
     "MultigridSolver",
     "SlabGroup",
+    "ShardedMultigridSolver",
     "SlabShardedMultigridSolver",
 ]
 

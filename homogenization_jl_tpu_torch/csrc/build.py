@@ -34,6 +34,8 @@ LAUNCHES = {
     "masked_dot": 0,
     "cg_update": 0,
     "slab_combine": 0,
+    "sharded_combine": 0,
+    "elementwise": 0,
 }
 
 _CSRC = os.path.dirname(os.path.abspath(__file__))
@@ -50,8 +52,8 @@ _D = ctypes.c_double
 # C entry points: name -> argtypes (every entry returns cudaGetLastError())
 _SIGNATURES = {
     # dtype(0 f32, 1 f64), x, coeff, stack, b (or NULL), row sums (with b),
-    # out, E, n, P, stream
-    "hz_element_apply": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # mask (or NULL), out, E, n, P, stream
+    "hz_element_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # dtype, x, out, mask (or NULL), E, n_local, i0, n, d, ept, type_major,
     # mode, tab, stream
     "hz_structured_combine": [_I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P],
@@ -82,10 +84,26 @@ _SIGNATURES = {
     "hz_restrict": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # dtype, a, b, mask (or NULL), scale (or NULL), blocksum, out, N, stream
     "hz_masked_dot": [_I, _P, _P, _P, _P, _P, _P, _L, _P],
-    # dtype, x, r (or NULL), p, Ap, num, den, N, stream
-    "hz_cg_step": [_I, _P, _P, _P, _P, _P, _P, _L, _P],
+    # dtype, x, r (or NULL), p, Ap, num, den, r_out (or NULL), x_zero, N, stream
+    "hz_cg_step": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _L, _P],
     # dtype, out, rc, p, num, den, N, stream
     "hz_cg_direction": [_I, _P, _P, _P, _P, _P, _L, _P],
+    # dtype, x, mask, out, N, stream
+    "hz_ew_mask": [_I, _P, _P, _P, _L, _P],
+    # dtype, a, b, out, N, stream
+    "hz_ew_mul": [_I, _P, _P, _P, _L, _P],
+    # dtype, u, v, w (or NULL), alpha, beta, out, N, stream
+    "hz_ew_lanczos": [_I, _P, _P, _P, _P, _P, _P, _L, _P],
+    # dtype, v, s, out, N, stream
+    "hz_ew_div_nz": [_I, _P, _P, _P, _L, _P],
+    # dtype, d, out, N, stream
+    "hz_ew_inv_positive": [_I, _P, _P, _L, _P],
+    # dtype, coeff, diag_ref, out, E, P, n, stream
+    "hz_ew_diagonal": [_I, _P, _P, _P, _L, _I, _I, _P],
+    # dtype, x, perm (int64), start (int64), partial, n_groups, stream
+    "hz_cross_partial": [_I, _P, _P, _P, _P, _L, _P],
+    # dtype, out, total, idx (int64), grp (int64), mask (or NULL), n_slots, stream
+    "hz_cross_scatter": [_I, _P, _P, _P, _P, _P, _L, _P],
 }
 
 

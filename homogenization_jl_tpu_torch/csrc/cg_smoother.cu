@@ -8,6 +8,10 @@
 //   cg_step:       alpha = safe_div(num, den);  x += alpha p;  r -= alpha Ap
 //   cg_direction:  beta = safe_div(num, den);   out = rc + beta p
 //
+// and the same cg_step for V-cycle-preconditioned CG (solver/multigrid.py::
+// pcg, :1210-1222): x += alpha p, and r - alpha Ap into r or, for the
+// flexible beta that reads the old residual once more, into a new buffer
+// ``r_out`` with r kept;
 // with safe_div(num, den) = den == 0 ? 0 : num / den (the JAX _safe_div:
 // once a smoother has converged exactly, the next step is a no-op). num and
 // den are 0-d device tensors, the outputs of kernel K5: no host read of
@@ -18,7 +22,10 @@
 // 3.35 TB/s; cg_direction moves 3 x 0.76 GB, 0.68 ms. Design: one thread per
 // entry, in place (out may be rc or p), and every product and sum rounded on
 // its own (the _rn intrinsics: nothing is fused into an FMA), so the kernel
-// gives the bits of the plain form's x + alpha * p.
+// gives the bits of the plain form's x + alpha * p. With ``x_zero`` x is not
+// read and receives 0 + alpha p: the first step of a smooth from a zero
+// iterate, whose buffer is then never zeroed (the JAX form's zeros_like,
+// which XLA folds into this first use).
 
 #include <cuda_runtime.h>
 
@@ -41,16 +48,17 @@ __device__ __forceinline__ T safe_div(const T* num, const T* den) {
   return d == T(0) ? T(0) : div_rn(*num, d);
 }
 
+// r_out receives r - alpha Ap (r itself when r_out is r: in place)
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-cg_step_kernel(T* __restrict__ x, T* __restrict__ r, const T* __restrict__ p,
+cg_step_kernel(T* __restrict__ x, const T* r, const T* __restrict__ p,
                const T* __restrict__ Ap, const T* __restrict__ num,
-               const T* __restrict__ den, long long N) {
+               const T* __restrict__ den, T* r_out, int x_zero, long long N) {
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (i >= N) return;
   const T alpha = safe_div(num, den);
-  x[i] = add_rn(x[i], mul_rn(alpha, p[i]));
-  if (r != nullptr) r[i] = sub_rn(r[i], mul_rn(alpha, Ap[i]));
+  x[i] = add_rn(x_zero ? T(0) : x[i], mul_rn(alpha, p[i]));
+  if (r != nullptr) r_out[i] = sub_rn(r[i], mul_rn(alpha, Ap[i]));
 }
 
 // out may alias rc or p (each entry is read before it is written)
@@ -67,23 +75,26 @@ cg_direction_kernel(T* out, const T* rc, const T* p, const T* __restrict__ num,
 }  // namespace
 
 // dtype: 0 = float32, 1 = float64. x, p, Ap: N values; r: N values or NULL
-// (then only x is updated); num, den: one value each. Returns
-// cudaGetLastError().
+// (then only x is updated); num, den: one value each; r_out: N values or
+// NULL (then r is updated in place); x_zero: x is taken as zero, not read.
+// Returns cudaGetLastError().
 extern "C" int hz_cg_step(int dtype, void* x, void* r, const void* p, const void* Ap,
-                          const void* num, const void* den, long long N, void* stream) {
+                          const void* num, const void* den, void* r_out, int x_zero,
+                          long long N, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned blocks = static_cast<unsigned>((N + THREADS - 1) / THREADS);
+  if (r_out == nullptr) r_out = r;
   if (N > 0) {
     if (dtype == 0)
       cg_step_kernel<float><<<blocks, THREADS, 0, st>>>(
-          static_cast<float*>(x), static_cast<float*>(r), static_cast<const float*>(p),
+          static_cast<float*>(x), static_cast<const float*>(r), static_cast<const float*>(p),
           static_cast<const float*>(Ap), static_cast<const float*>(num),
-          static_cast<const float*>(den), N);
+          static_cast<const float*>(den), static_cast<float*>(r_out), x_zero, N);
     else
       cg_step_kernel<double><<<blocks, THREADS, 0, st>>>(
-          static_cast<double*>(x), static_cast<double*>(r), static_cast<const double*>(p),
+          static_cast<double*>(x), static_cast<const double*>(r), static_cast<const double*>(p),
           static_cast<const double*>(Ap), static_cast<const double*>(num),
-          static_cast<const double*>(den), N);
+          static_cast<const double*>(den), static_cast<double*>(r_out), x_zero, N);
   }
   return static_cast<int>(cudaGetLastError());
 }

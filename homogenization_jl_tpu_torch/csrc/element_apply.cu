@@ -28,6 +28,12 @@
 // residual never takes a second pass. Tensor cores (TF32 / 3xTF32 wgmma)
 // are later work.
 //
+// The optional bool mask multiplies each output at the store (the mask
+// constraint after the apply, ``apply_mask(A x, m)`` or ``apply_mask(b - A x,
+// m)`` of the JAX smoothers): y * 1 or y * 0, rounded on its own, so the
+// result has the bits of the unmasked output times the mask, a -0.0 or a
+// NaN included, and the masked state never takes a second pass.
+//
 // The residual form is shifted. Near convergence each output of b - A x is
 // a small difference of products of the size of S_p * x, so the rounding
 // of the running float32 sum, not the iterate, sets the floor of the
@@ -59,6 +65,9 @@ __device__ __forceinline__ void load4(const double* p, double* o) {
   o[3] = b.y;
 }
 
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
 // the residual form's pieces staged per block (3D: 6 conductivity pieces
 // and the mass)
 constexpr int MAXP = 8;
@@ -67,7 +76,8 @@ template <typename T, int BM, int BN, int BK, int TM, int TN, bool RES>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 element_apply_kernel(const T* __restrict__ x, const T* __restrict__ coeff,
                      const T* __restrict__ S, const T* b,
-                     const T* __restrict__ rs, T* out, int E, int n, int P) {
+                     const T* __restrict__ rs, const bool* __restrict__ mask, T* out,
+                     int E, int n, int P) {
   constexpr int NTX = BN / TN;
   constexpr int NTY = BM / TM;
   constexpr int NT = NTX * NTY;
@@ -192,71 +202,75 @@ element_apply_kernel(const T* __restrict__ x, const T* __restrict__ coeff,
       const int m = m0 + c;
       if (m >= n) continue;
       const long long o = e * n + m;
+      T v;
       if constexpr (RES) {
         // y = A (x - s) + s * (A 1), the row sums in piece order
         T t = T(0);
 #pragma unroll
         for (int p = 0; p < MAXP; ++p) t += Cs[r][p] * Rs[p][c];
-        out[o] = b[o] - (acc[i][j] + Ss[r] * t);
+        v = b[o] - (acc[i][j] + Ss[r] * t);
       } else {
-        out[o] = acc[i][j];
+        v = acc[i][j];
       }
+      out[o] = mask ? mul_rn(v, T(mask[o])) : v;
     }
   }
 }
 
 template <typename T, int BM, int BN, int BK, int TM, int TN>
 void launch_tile(const T* x, const T* coeff, const T* S, const T* b,
-                 const T* rs, T* out, int E, int n, int P,
+                 const T* rs, const bool* mask, T* out, int E, int n, int P,
                  cudaStream_t stream) {
   dim3 grid((n + BN - 1) / BN, (E + BM - 1) / BM);
   dim3 block((BM / TM) * (BN / TN));
   if (b)
     element_apply_kernel<T, BM, BN, BK, TM, TN, true>
-        <<<grid, block, 0, stream>>>(x, coeff, S, b, rs, out, E, n, P);
+        <<<grid, block, 0, stream>>>(x, coeff, S, b, rs, mask, out, E, n, P);
   else
     element_apply_kernel<T, BM, BN, BK, TM, TN, false>
-        <<<grid, block, 0, stream>>>(x, coeff, S, b, rs, out, E, n, P);
+        <<<grid, block, 0, stream>>>(x, coeff, S, b, rs, mask, out, E, n, P);
 }
 
 template <typename T>
 void launch_apply(const void* x, const void* coeff, const void* S,
-                  const void* b, const void* rs, void* out, int E, int n,
-                  int P, cudaStream_t stream) {
+                  const void* b, const void* rs, const void* mask, void* out,
+                  int E, int n, int P, cudaStream_t stream) {
   const T* xx = static_cast<const T*>(x);
   const T* cc = static_cast<const T*>(coeff);
   const T* ss = static_cast<const T*>(S);
   const T* bb = static_cast<const T*>(b);
   const T* rr = static_cast<const T*>(rs);
+  const bool* mm = static_cast<const bool*>(mask);
   T* oo = static_cast<T*>(out);
   // the 8x8 register tile is for float only: in double it needs ~2x the
   // registers and would spill
   if constexpr (sizeof(T) == 4) {
     if (n > 64) {
-      launch_tile<T, 128, 128, 8, 8, 8>(xx, cc, ss, bb, rr, oo, E, n, P, stream);
+      launch_tile<T, 128, 128, 8, 8, 8>(xx, cc, ss, bb, rr, mm, oo, E, n, P, stream);
       return;
     }
   }
   if (n > 16)
-    launch_tile<T, 64, 64, 8, 4, 4>(xx, cc, ss, bb, rr, oo, E, n, P, stream);
+    launch_tile<T, 64, 64, 8, 4, 4>(xx, cc, ss, bb, rr, mm, oo, E, n, P, stream);
   else
-    launch_tile<T, 128, 16, 8, 4, 4>(xx, cc, ss, bb, rr, oo, E, n, P, stream);
+    launch_tile<T, 128, 16, 8, 4, 4>(xx, cc, ss, bb, rr, mm, oo, E, n, P, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = float64. b may be NULL (plain apply) and may alias
 // out (in-place r -= A x); with b, rs holds the [P, n] row sums of S and P
-// is at most MAXP; x must not alias out. Returns cudaGetLastError().
+// is at most MAXP; mask (bool [E, n]) may be NULL; x must not alias out.
+// Returns cudaGetLastError().
 extern "C" int hz_element_apply(int dtype, const void* x, const void* coeff,
                                 const void* S, const void* b, const void* rs,
-                                void* out, int E, int n, int P,
-                                void* stream) {
+                                const void* mask, void* out, int E, int n,
+                                int P, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b && P > MAXP) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    launch_apply<float>(x, coeff, S, b, rs, out, E, n, P, s);
+    launch_apply<float>(x, coeff, S, b, rs, mask, out, E, n, P, s);
   else
-    launch_apply<double>(x, coeff, S, b, rs, out, E, n, P, s);
+    launch_apply<double>(x, coeff, S, b, rs, mask, out, E, n, P, s);
   return static_cast<int>(cudaGetLastError());
 }

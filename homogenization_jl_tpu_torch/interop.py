@@ -7,10 +7,12 @@ are loaded into the port's solver here. The coarse payload follows the JAX
 ``coarse_setup``: the Cholesky factor ("chol"), the interior inverse
 ("inv"), nothing ("cg"), or for "mg" a mapping with the JAX dict's ``coeff``,
 ``chol`` (the aux inverse), ``lam_max``, ``lam_max0`` and ``dinv_g`` plus the
-aux solver's ``stacks`` and ``P_up``. ``slab_rows`` and ``join_slabs``
-cut a global element-leading array of a cube-major base into one rank's
-slab of the slab-sharded solver (parallel/slab.py) and join the slabs back.
-This module imports no JAX.
+aux solver's ``stacks`` and ``P_up``. ``shard_rows`` cuts a global
+element-leading array into one rank's block of B = ceil(E / S) rows (the
+last block shorter) of the gather-sharded solver (parallel/sharding.py),
+``slab_rows`` into one rank's slab of the slab-sharded solver
+(parallel/slab.py; E / S rows each), and ``join_shards`` / ``join_slabs``
+join the blocks back. This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -106,18 +108,29 @@ def solver_state_from_numpy(
     )
 
 
+def shard_rows(a, rank: int, size: int) -> np.ndarray:
+    """Rank ``rank``'s rows of a global element-leading array (as numpy)
+    split into ``size`` blocks: rows [rank B, min((rank + 1) B, E)) with
+    B = ceil(E / size), what ShardedMultigridSolver holds there."""
+    from .parallel.sharding import shard_slice
+
+    a = np.asarray(a)
+    return a[shard_slice(a.shape[0], rank, size)]
+
+
 def slab_rows(a, rank: int, size: int) -> np.ndarray:
     """Rank ``rank``'s rows of a global element-leading array (as numpy) of
     a cube-major base split into ``size`` slabs: the contiguous E / size
     rows that SlabShardedMultigridSolver holds there."""
-    a = np.asarray(a)
-    E = a.shape[0]
+    E = np.asarray(a).shape[0]
     if E % size:
         raise ValueError(f"{E} rows do not split into {size} slabs")
-    rows = E // size
-    return a[rank * rows : (rank + 1) * rows]
+    return shard_rows(a, rank, size)
 
 
-def join_slabs(parts) -> np.ndarray:
-    """The global array from the ranks' slabs, in rank order."""
+def join_shards(parts) -> np.ndarray:
+    """The global array from the ranks' blocks (or slabs), in rank order."""
     return np.concatenate([np.asarray(p) for p in parts], axis=0)
+
+
+join_slabs = join_shards

@@ -29,15 +29,19 @@ The driver's defaults are the JAX driver's: ``smoother="cg"`` and
 updates on kernel K10); only the Chebyshev smoothers get a lambda_max
 estimate per step.
 
-``device_mesh`` (a ``parallel.group.SlabGroup``) runs the lattice geometry
-on the slab-sharded solver (parallel/slab.py), SPMD on every rank: the base
-in cube order, the random start and the rhs drawn on the whole base and cut
-to the rank's rows (the single-device run with ``lattice_order="cube"``
-sees the same numbers), the per-step masks ``Ls`` cut too, ``interior``
-replicated, and each integral summed over the ranks.
+``device_mesh`` (a ``parallel.group.SlabGroup``) runs the driver SPMD on
+every rank of the group, each integral summed over the ranks:
+  * "lattice" on the slab-sharded solver (parallel/slab.py): the base in
+    cube order, the random start and the rhs drawn on the whole base and
+    cut to the rank's rows (the single-device run with
+    ``lattice_order="cube"`` sees the same numbers), the per-step masks
+    ``Ls`` cut too, ``interior`` replicated;
+  * "ordered" on the gather-sharded solver (parallel/sharding.py), one per
+    step: every element-leading array cut to the rank's block of rows; at a
+    shrink the state is joined across the ranks, sliced to the new prefix,
+    masked and cut to the new partition, as the JAX driver does on the host.
 
 Not ported yet (``NotImplementedError``, ROADMAP.md queue 1):
-``device_mesh`` with the ordered geometry (parallel/sharding.py),
 ``solver="multishift"`` (item 9), ``checkpoint_dir`` / ``resume_from`` and
 ``save_level`` (item 11, utils/).
 """
@@ -54,6 +58,7 @@ import torch
 from ..fem.local_operators import partial_derivative_functionals
 from ..mesh.grid import Mesh, affine_maps, hypercube
 from ..ops.integrals import integrals_fns
+from ..ops.interfaces import apply_mask
 from ..ops.plan import build_grid_plan
 from ..solver.coarse import coarsening_depth
 from ..solver.multigrid import CHEBYSHEV_SMOOTHERS, MultigridSolver, resolve_device
@@ -185,20 +190,23 @@ def consistent_random(plan, k: int, rng) -> np.ndarray:
 # solver factory and integrals
 # ---------------------------------------------------------------------------
 def _make_solver(plan, dtype, device, smoothing_steps, coarse, coarse_dense_limit,
-                 smoother, solver_opts=None):
+                 smoother, solver_opts=None, group=None):
     """The solver of one ordered-geometry step (JAX checkerboard.py:160-185):
     "mg" where the base coarsens, else "chol", and "cg" past the dense
-    limit."""
+    limit; with a ``group`` (SlabGroup) the gather-sharded solver."""
     kind = coarse
     if kind == "mg" and coarsening_depth(plan.base, 4000) == 0:
         # a base that is not a coarsenable box keeps the direct solve
         kind = "chol"
     if kind == "chol" and len(plan.interior_base_nodes) > coarse_dense_limit:
         kind = "cg"
-    return MultigridSolver(
-        plan, dtype=dtype, device=device, smoothing_steps=smoothing_steps,
-        coarse=kind, smoother=smoother, **(solver_opts or {}),
-    )
+    opts = dict(dtype=dtype, smoothing_steps=smoothing_steps, coarse=kind, smoother=smoother,
+                **(solver_opts or {}))
+    if group is None:
+        return MultigridSolver(plan, device=device, **opts)
+    from ..parallel.sharding import ShardedMultigridSolver
+
+    return ShardedMultigridSolver(plan, group, **opts)
 
 
 def _lambda_max(solver, coeff):
@@ -242,8 +250,6 @@ class HomogenizationTrace:
 
 
 _NOT_PORTED = {
-    "device_mesh": "the ordered geometry's gather-sharded solver (ROADMAP.md, "
-                   "parallel/sharding.py); geometry='lattice' takes a SlabGroup",
     "checkpoint_dir": "checkpoints (ROADMAP.md queue 1 item 11, utils/checkpoint.py)",
     "resume_from": "checkpoints (ROADMAP.md queue 1 item 11, utils/checkpoint.py)",
     "save_level": "VTK export (ROADMAP.md queue 1 item 11, utils/vtk.py)",
@@ -327,14 +333,13 @@ def checkerboard_homogenization(
     stabilizes) or "pcg" (V-cycle-preconditioned CG steps under the same
     stopping rule; requires a Chebyshev smoother). ``lanczos_iters`` belongs
     to ``solver="multishift"`` and is accepted for signature parity.
-    ``device_mesh``: a ``SlabGroup`` (lattice geometry only): every rank
-    calls the driver, and the tensors live on the group's device.
+    ``device_mesh``: a ``SlabGroup``: every rank calls the driver, and the
+    tensors live on the group's device (the slab-sharded solver for
+    "lattice", the gather-sharded one for "ordered").
     Returns sigma, or (sigma, HomogenizationTrace) with ``return_trace``.
     """
     unported = [("checkpoint_dir", checkpoint_dir), ("resume_from", resume_from),
                 ("save_level", save_level)]
-    if geometry != "lattice":
-        unported.insert(0, ("device_mesh", device_mesh))
     for name, value in unported:
         if value is not None:
             raise NotImplementedError(f"{name}= is not ported yet: {_NOT_PORTED[name]}")
@@ -374,7 +379,7 @@ def checkerboard_homogenization(
         sigma, trace = _checkerboard_lattice(lattice_order=lattice_order,
                                              device_mesh=device_mesh, **kw)
     elif geometry == "ordered":
-        sigma, trace = _checkerboard_ordered(**kw)
+        sigma, trace = _checkerboard_ordered(device_mesh=device_mesh, **kw)
     else:
         raise ValueError(f"geometry={geometry!r}")
     return (sigma, trace) if return_trace else sigma
@@ -406,10 +411,12 @@ def _field_and_xi(dim, R0, xi, cond_field, seed):
 def _checkerboard_ordered(
     n, dim, refinements, smoothing_steps, tolerance, xi, cond_field, seed, dtype,
     coarse, coarse_dense_limit, max_cycles, verbose, smoother, shrink, solver_opts,
-    inner, device,
+    inner, device, device_mesh=None,
 ):
     """Reference-order geometry (JAX checkerboard.py:356-573): prefix-slice
-    domain shrinking with a plan and solver rebuild per outer step."""
+    domain shrinking with a plan and solver rebuild per outer step. With a
+    ``device_mesh`` (SlabGroup) each step's solver is the gather-sharded
+    one and every element-leading array is cut to the rank's rows."""
     t_start = time.perf_counter()
     lam = 1.0
     sigma = 0.0
@@ -425,16 +432,22 @@ def _checkerboard_ordered(
     nlevels = refinements + 1
     plan = build_grid_plan(base, nlevels, slot_tables=False)
 
+    group = device_mesh
+
     def make_solver(plan):
         sol = _make_solver(
             plan, dtype, device, smoothing_steps, coarse, coarse_dense_limit,
-            smoother, solver_opts,
+            smoother, solver_opts, group,
         )
         _, _, detJ_np, _ = affine_maps(plan.base)
-        return sol, _solver_integrals(sol, detJ_np)
+        return sol, _solver_integrals(sol, detJ_np, group)
 
-    to_dev = _to_device(dtype, device)
+    to_dev_all = _to_device(dtype, device)
     sol, (area_fn, first_fn, terms_fn, next_rhs_fn) = make_solver(plan)
+
+    def to_dev(a):  # the solver's rows of a global element-leading array
+        return to_dev_all(sol.rows_of(a))
+
     # random consistent x with zero boundary values (:246-248)
     x = to_dev(consistent_random(plan, nlevels - 1, rng))
     b = to_dev(initial_rhs(plan, sigma_el, xi))
@@ -485,6 +498,11 @@ def _checkerboard_ordered(
 
         n_nodes = prefix_in_radius(node_norms, total_radius, eps=1e-12)
         n_elems = prefix_in_radius(center_norms, total_radius)
+        if group is not None:
+            # every rank's rows of the old partition, joined
+            from ..parallel.sharding import join_rows
+
+            x = join_rows(group, x, base.nelements)
         base = Mesh(base.nodes[:n_nodes], base.elements[:n_elems])
         node_norms = node_norms[:n_nodes]
         center_norms = center_norms[:n_elems]
@@ -493,8 +511,10 @@ def _checkerboard_ordered(
         plan = build_grid_plan(base, nlevels, slot_tables=False)
         del sol, coeff, setup
         sol, (area_fn, first_fn, terms_fn, next_rhs_fn) = make_solver(plan)
-        # slice state, re-apply the (new) boundary condition
-        x = x[:n_elems] * torch.as_tensor(plan.levels[nlevels - 1].boundary_mask, device=device)
+        # slice state, re-apply the (new) boundary condition, cut to the
+        # rank's rows of the new partition
+        bmask = torch.as_tensor(sol.rows_of(plan.levels[nlevels - 1].boundary_mask), device=device)
+        x = apply_mask(sol.rows_of(x[:n_elems]).contiguous(), bmask)
         v_prev = x
         b = next_rhs_fn(x, lam)
 
@@ -684,7 +704,7 @@ def _checkerboard_lattice(
         if shrink and box_radius + boundary_layer < total_radius:
             total_radius = box_radius + boundary_layer
             # re-apply the (new, smaller) sub-box Dirichlet condition to x
-            x = x * put_bool(level_norms(nlevels - 1) < (total_radius - 1e-9))
+            x = apply_mask(x, put_bool(level_norms(nlevels - 1) < (total_radius - 1e-9)))
         v_prev = x
         b = next_rhs_fn(x, lam)
 

@@ -16,6 +16,10 @@ rowsum_p = S_p 1 (``stack_rowsum``). The algebra is exact. Near convergence
 b - A x is a small difference of products of the size of S_p x, and the
 rounding of their float32 sum set the floor of the solve's residual; the
 shift shrinks the products to the variation of x inside an element.
+
+An optional bool ``mask`` multiplies the result at the store (the mask
+constraint after the apply): the kernel's output is the unmasked output
+times the mask, bit for bit.
 """
 
 from __future__ import annotations
@@ -69,9 +73,10 @@ def _check(name, t, dtype, device, shape=None):
         raise ValueError(f"{name} must be contiguous")
 
 
-def element_apply(x, coeff, stack, b=None, out=None, rowsum=None):
+def element_apply(x, coeff, stack, b=None, out=None, rowsum=None, mask=None):
     """y[e] = sum_p coeff[e, p] * (stack[p] @ x[e]); with ``b``, b - y
-    (shifted, module docstring).
+    (shifted, module docstring); with ``mask`` (bool [E, n]), that result
+    times the mask.
 
     x: [E, n], coeff: [E, P], stack: [P, n, n] (symmetric slices), b: [E, n]
     or None; float32 or float64, all on one device and contiguous.
@@ -101,8 +106,12 @@ def element_apply(x, coeff, stack, b=None, out=None, rowsum=None):
         _check("out", out, x.dtype, dev, (E, n))
         if out.data_ptr() == x.data_ptr():
             raise ValueError("element_apply: out must not alias x")
+    if mask is not None:
+        _check("mask", mask, torch.bool, dev, (E, n))
     if dev.type == "cpu":
         y = element_apply_plain(x, coeff, stack, b, rowsum)
+        if mask is not None:
+            y = y * mask
         return y if out is None else out.copy_(y)
     if dev.type != "cuda":
         raise ValueError(f"element_apply: unsupported device {dev}")
@@ -112,7 +121,8 @@ def element_apply(x, coeff, stack, b=None, out=None, rowsum=None):
     launch(
         "hz_element_apply", _DTYPES[x.dtype], x.data_ptr(), coeff.data_ptr(),
         stack.data_ptr(), None if b is None else b.data_ptr(),
-        None if b is None else rowsum.data_ptr(), out.data_ptr(), E, n, P,
+        None if b is None else rowsum.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(), E, n, P,
     )
     return out
 

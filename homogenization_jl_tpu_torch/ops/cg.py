@@ -7,6 +7,13 @@ Replaces the update expressions of the JAX package's CG smoothers
     cg_step:       alpha = safe_div(num, den);  x += alpha p;  r -= alpha Ap
     cg_direction:  beta  = safe_div(num, den);  out = rc + beta p
 
+and ``cg_step`` serves V-cycle-preconditioned CG too (the JAX ``pcg``
+step, :1210-1222), where the flexible beta keeps the old residual: then
+``r_out`` receives r - alpha Ap and r stays as it was. With ``x_zero`` x is
+not read and receives 0 + alpha p: the first step of a smooth from a zero
+iterate, whose buffer then needs no zero pass (the JAX form's zeros_like,
+which XLA folds into this first use);
+
 with safe_div(num, den) = 0 where den == 0, else num / den (the JAX
 ``_safe_div``). ``num`` and ``den`` are 0-d tensors on the state's device,
 the outputs of ``ops/dots.py::dot`` (kernel K5): alpha and beta never reach
@@ -32,12 +39,12 @@ def safe_div(num, den):
     return torch.where(zero, torch.zeros_like(num), num / torch.where(zero, torch.ones_like(den), den))
 
 
-def cg_step_plain(x, r, p, Ap, num, den):
-    """Plain form of ``cg_step``: x and r updated in place."""
+def cg_step_plain(x, r, p, Ap, num, den, r_out=None, x_zero=False):
+    """Plain form of ``cg_step``: x and r (or ``r_out``) updated in place."""
     alpha = safe_div(num, den)
-    x.copy_(x + alpha * p)
+    x.copy_((torch.zeros_like(x) if x_zero else x) + alpha * p)
     if r is not None:
-        r.copy_(r - alpha * Ap)
+        (r if r_out is None else r_out).copy_(r - alpha * Ap)
 
 
 def cg_direction_plain(out, rc, p, num, den):
@@ -60,15 +67,21 @@ def _check(fn, tensors, scalars):
     return ref.device
 
 
-def cg_step(x, r, p, Ap, num, den):
+def cg_step(x, r, p, Ap, num, den, r_out=None, x_zero=False):
     """In place: alpha = safe_div(num, den); x += alpha * p; r -= alpha * Ap
-    (r=None: x only). x, r, p, Ap: one shape, float32 or float64, one
-    device, contiguous; num, den: 0-d tensors of that dtype and device.
-    Kernel K10 for CUDA tensors, the plain form for CPU tensors."""
+    (r=None: x only), or with ``r_out`` r_out = r - alpha * Ap and r kept;
+    ``x_zero``: x = 0 + alpha * p, x's old values unread.
+    x, r, p, Ap, r_out: one shape, float32 or float64, one device,
+    contiguous; num, den: 0-d tensors of that dtype and device. Kernel K10
+    for CUDA tensors, the plain form for CPU tensors."""
     tensors = [("x", x), ("p", p)] + ([("r", r), ("Ap", Ap)] if r is not None else [])
+    if r_out is not None:
+        if r is None:
+            raise ValueError("cg_step: r_out needs r")
+        tensors.append(("r_out", r_out))
     dev = _check("cg_step", tensors, [("num", num), ("den", den)])
     if dev.type == "cpu":
-        cg_step_plain(x, r, p, Ap, num, den)
+        cg_step_plain(x, r, p, Ap, num, den, r_out, x_zero)
         return
     if dev.type != "cuda":
         raise ValueError(f"cg_step: unsupported device {dev}")
@@ -76,7 +89,7 @@ def cg_step(x, r, p, Ap, num, den):
     launch(
         "hz_cg_step", _DTYPES[x.dtype], x.data_ptr(), None if r is None else r.data_ptr(),
         p.data_ptr(), None if r is None else Ap.data_ptr(), num.data_ptr(),
-        den.data_ptr(), x.numel(),
+        den.data_ptr(), None if r_out is None else r_out.data_ptr(), int(x_zero), x.numel(),
     )
 
 

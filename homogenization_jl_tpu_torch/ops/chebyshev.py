@@ -8,7 +8,9 @@ inside ``_smooth_chebyshev``):
 
 with ``rc`` the combined, constrained local residual. The first step of a
 smooth has no previous direction: p = b * z (``first=True``; p is then
-written, never read).
+written, never read). From a zero iterate (``x_zero=True``) x is written
+0 + p and never read, so its buffer needs no zero pass (the JAX form's
+zeros_like, which XLA folds into this first use).
 
 Kernel K3 (Triton, CUDA tensors): one fused elementwise pass — it reads
 dinv, rc, p and x and writes p and x, so z never reaches device memory.
@@ -30,14 +32,14 @@ _KERNEL = None
 _BLOCK = 1024
 
 
-def chebyshev_update_plain(x, p, rc, dinv, ab, first: bool):
+def chebyshev_update_plain(x, p, rc, dinv, ab, first: bool, x_zero: bool = False):
     """Plain PyTorch form; updates p and x in place."""
     z = dinv * rc
     if first:
         p.copy_(ab[1] * z)
     else:
         p.copy_(ab[0] * p + ab[1] * z)
-    x.add_(p)
+    x.copy_((torch.zeros_like(x) if x_zero else x) + p)
 
 
 def _kernel():
@@ -48,7 +50,7 @@ def _kernel():
 
         @triton.jit
         def cheb_update(x_ptr, p_ptr, rc_ptr, dinv_ptr, ab_ptr, N,
-                        FIRST: tl.constexpr, BLOCK: tl.constexpr):
+                        FIRST: tl.constexpr, X_ZERO: tl.constexpr, BLOCK: tl.constexpr):
             pid = tl.program_id(0)
             offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
             m = offs < N
@@ -60,18 +62,22 @@ def _kernel():
                 a = tl.load(ab_ptr)
                 p = a * tl.load(p_ptr + offs, mask=m) + b * z
             tl.store(p_ptr + offs, p, mask=m)
-            x = tl.load(x_ptr + offs, mask=m) + p
+            if X_ZERO:
+                x = 0.0 + p
+            else:
+                x = tl.load(x_ptr + offs, mask=m) + p
             tl.store(x_ptr + offs, x, mask=m)
 
         _KERNEL = (triton, cheb_update)
     return _KERNEL
 
 
-def chebyshev_update(x, p, rc, dinv, ab, first: bool = False):
+def chebyshev_update(x, p, rc, dinv, ab, first: bool = False, x_zero: bool = False):
     """In place: p = a*p + b*(dinv*rc) (p = b*(dinv*rc) when ``first``),
-    then x += p. x, p, rc, dinv: one shape, float32 or float64, contiguous,
-    one device; ab: [2] tensor (a, b) of the same dtype and device. Kernel
-    K3 for CUDA tensors, the plain form for CPU tensors."""
+    then x += p (x = 0 + p, x unread, when ``x_zero``). x, p, rc, dinv: one
+    shape, float32 or float64, contiguous, one device; ab: [2] tensor (a,
+    b) of the same dtype and device. Kernel K3 for CUDA tensors, the plain
+    form for CPU tensors."""
     dt = x.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"chebyshev_update: unsupported dtype {dt}")
@@ -84,7 +90,7 @@ def chebyshev_update(x, p, rc, dinv, ab, first: bool = False):
         if not t.is_contiguous():
             raise ValueError(f"chebyshev_update: {name} must be contiguous")
     if x.device.type == "cpu":
-        chebyshev_update_plain(x, p, rc, dinv, ab, first)
+        chebyshev_update_plain(x, p, rc, dinv, ab, first, x_zero)
         return
     if x.device.type != "cuda":
         raise ValueError(f"chebyshev_update: unsupported device {x.device}")
@@ -92,5 +98,6 @@ def chebyshev_update(x, p, rc, dinv, ab, first: bool = False):
     N = x.numel()
     LAUNCHES["chebyshev_update"] += 1
     kern[(triton.cdiv(N, _BLOCK),)](
-        x, p, rc, dinv, ab, N, FIRST=bool(first), BLOCK=_BLOCK, num_warps=4
+        x, p, rc, dinv, ab, N, FIRST=bool(first), X_ZERO=bool(x_zero), BLOCK=_BLOCK,
+        num_warps=4,
     )

@@ -1,7 +1,8 @@
 """Interface combine, constraint and base-grid transfer ops (device,
-PyTorch + CUDA kernels K7 and K8).
+PyTorch + CUDA kernels K7, K8 and K18).
 
-Port of homogenization_jl_tpu/ops/interfaces.py: apply_mask, copy_to_base,
+Port of homogenization_jl_tpu/ops/interfaces.py: apply_mask (kernel K18's
+mask entry, ops/elementwise.py), copy_to_base,
 distribute and the general-mesh gather combine ``combine_gather_rows``
 (kernel K8, csrc/gather_combine.cu; see ``GatherTables``), plus the
 coarse-solve plumbing of homogenization_jl_tpu/solver/multigrid.py that
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from ..csrc.build import LAUNCHES, launch
+from .elementwise import route, run
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 _ITYPES = {torch.int32: 0, torch.int64: 1}
@@ -178,13 +180,25 @@ def gather_scale(src, idx, mask=None):
     return out
 
 
-def apply_mask(x, mask):
-    """Zero Dirichlet constraint / first-copy selection as a mask multiply.
+def apply_mask(x, mask, out=None):
+    """Zero Dirichlet constraint / first-copy selection as a mask multiply,
+    x * mask with a bool ``mask`` of x's shape; ``out`` may be ``x``. Kernel
+    K18 (ops/elementwise.py) for CUDA tensors, the plain product for CPU
+    tensors; both give x * 1 or x * 0.
 
     Reference: apply_constraint! (src/implicit_fine_grid.jl:94-139),
     zero_out_all_but_one! (:334-386).
     """
-    return x * mask
+    kern = route("apply_mask", x, [("out", out)] if out is not None else [])
+    if (not isinstance(mask, torch.Tensor) or mask.dtype != torch.bool
+            or mask.shape != x.shape or mask.device != x.device or not mask.is_contiguous()):
+        raise ValueError("apply_mask: mask must be a contiguous bool tensor shaped like x")
+    if not kern:
+        y = x * mask
+        return y if out is None else out.copy_(y)
+    out = torch.empty_like(x) if out is None else out
+    run("hz_ew_mask", x.dtype, x.data_ptr(), mask.data_ptr(), out.data_ptr(), x.numel())
+    return out
 
 
 def copy_to_base(b, asm: SegmentTables):
@@ -248,24 +262,28 @@ class GatherTables:
         return np.ascontiguousarray(np.asarray(rows, dtype=np.int64))
 
 
-def build_gather_tables(plan, k: int, device="cpu") -> GatherTables:
+def build_gather_tables(plan, k: int, device="cpu", owners=None) -> GatherTables:
     """The gather-combine tables of level k of ``plan`` on ``device``, from
     its owner tables (ops/plan.py) and contiguous interface layout. Every
     class span must be contiguous (each cell's W columns right after the
     previous cell's), and the spans must tile [i0, n_local) in the order
-    faces, edges, corners, as the JAX form's concatenation assumes."""
+    faces, edges, corners, as the JAX form's concatenation assumes.
+    ``owners`` ({"face"/"edge"/"corner": (oe, ol, om, gmap)}) replaces the
+    plan's owner tables: one shard's, for the gather-sharded solver."""
     lay = plan.reference.layout[k]
     if lay is None:
         raise ValueError("the gather combine needs the contiguous interface layout")
     gt = plan.levels[k].gather
+    if owners is None:
+        owners = dict(face=gt.face, edge=gt.edge, corner=gt.corner)
     n_local = plan.n_local(k)
     i0 = int(min(list(lay.face_offsets) + list(lay.edge_offsets) + list(lay.corner_cols)))
     classes = []
     cursor = i0
     for tables, offsets, width in (
-        (gt.face, lay.face_offsets, lay.npf),
-        (gt.edge, lay.edge_offsets, lay.npe),
-        (gt.corner, lay.corner_cols, 1),
+        (owners.get("face"), lay.face_offsets, lay.npf),
+        (owners.get("edge"), lay.edge_offsets, lay.npe),
+        (owners.get("corner"), lay.corner_cols, 1),
     ):
         if tables is None or width == 0 or len(offsets) == 0:
             continue

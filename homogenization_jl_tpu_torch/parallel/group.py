@@ -19,7 +19,10 @@ the r-th x-plane slab. It offers the two collectives the slab solver needs:
     different bits would run different loop counts and deadlock.
 
 CUDA tensors need an NCCL group and CPU tensors a gloo one; anything else
-raises. ``SlabGroup.from_file`` initialises the default process group from
+raises, but for one case: several ranks on ONE card, which NCCL refuses,
+may share it through a gloo group (``backend="gloo"``). Gloo moves each
+collective through the host and offers ``sum`` on CUDA tensors, not
+``exchange``: it serves the gather-sharded solver, which needs only the sum. ``SlabGroup.from_file`` initialises the default process group from
 a ``FileStore`` (no network; a world of one, or the spawned ranks of the CPU
 tests); under ``torchrun`` the environment's rendezvous serves
 (``SlabGroup.from_env``).
@@ -60,18 +63,19 @@ class SlabGroup:
 
     ``device``: where this rank's tensors live (default: the card of
     LOCAL_RANK). The group's backend must be the device's: NCCL for CUDA,
-    gloo for the CPU."""
+    gloo for the CPU; ``backend="gloo"`` asks for gloo on CUDA (ranks that
+    share a card, ``sum`` only)."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, backend=None):
         if not dist.is_initialized():
             raise RuntimeError("SlabGroup: initialise torch.distributed first")
         kind = "cuda" if device is None else torch.device(device).type
-        want = _BACKEND.get(kind)
-        backend = str(dist.get_backend())
-        if want is None or backend != want:
+        want = "gloo" if kind == "cuda" and backend == "gloo" else _BACKEND.get(kind)
+        self.backend = str(dist.get_backend())
+        if want is None or self.backend != want:
             raise ValueError(
                 f"SlabGroup: {kind} tensors need a {want or 'nccl/gloo'} group, "
-                f"this one is {backend}"
+                f"this one is {self.backend}"
             )
         self.device = resolve_device(device)
         self.rank = dist.get_rank()
@@ -79,17 +83,18 @@ class SlabGroup:
 
     @classmethod
     def from_file(cls, path, rank: int = 0, size: int = 1, device=None,
-                  timeout=DEFAULT_TIMEOUT) -> "SlabGroup":
+                  timeout=DEFAULT_TIMEOUT, backend=None) -> "SlabGroup":
         """Initialise the default process group from a FileStore at
         ``path`` (a file that does not exist yet, the same for every rank)
-        and return the group; the backend follows the device."""
+        and return the group; the backend follows the device unless
+        ``backend`` names one (gloo for ranks that share a card)."""
         device = resolve_device(device)
         if device.type == "cuda":
             torch.cuda.set_device(device)
         store = dist.FileStore(str(path), size)
-        dist.init_process_group(_BACKEND[device.type], store=store, rank=rank,
+        dist.init_process_group(backend or _BACKEND[device.type], store=store, rank=rank,
                                 world_size=size, timeout=timeout)
-        return cls(device)
+        return cls(device, backend)
 
     @classmethod
     def from_env(cls, device=None, timeout=DEFAULT_TIMEOUT) -> "SlabGroup":
@@ -128,6 +133,8 @@ class SlabGroup:
         None) and its halo is None, for the slab combine reads no owner
         outside the domain. The edges must be contiguous and of one shape on
         every rank."""
+        if self.device.type == "cuda" and self.backend == "gloo":
+            raise ValueError("SlabGroup.exchange: CUDA tensors need an NCCL group")
         for side, t, want in (("lo", lo_edge, self.has_lo), ("hi", hi_edge, self.has_hi)):
             if t is None:
                 if want:

@@ -21,9 +21,14 @@ On cards, one process per card:
 prints rank 0's result as one JSON line (``--device cpu`` runs gloo ranks
 on the CPU instead). In-process with a world of one
 (``SlabGroup.from_file``), as chip_smoke.py drives it, ``run`` is called
-directly. ``spawn_ranks(size, job)`` starts ``size`` CPU processes with a
-gloo group over a FileStore, runs ``job`` on each (``worker``) and returns
-their outputs in rank order; the spawned ranks import no JAX.
+directly. ``spawn_ranks(size, job)`` starts ``size`` processes with a
+gloo group over a FileStore, on the CPU or sharing one card (NCCL refuses
+two ranks on one card), runs ``job`` on each (``worker``) and returns
+their outputs in rank order; the spawned ranks import no JAX. The job kinds:
+"run" (this module's slab run), "driver" (the lattice driver through the
+slab solver), "sharded" (the gather-sharded solver of parallel/sharding.py
+on the JAX suite's problem, ``run_sharded``) and "ordered_driver" (the
+ordered driver through it).
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ import time
 import numpy as np
 import torch
 
-from ..csrc.build import LAUNCHES
+from ..csrc.build import LAUNCHES, reset_launches
 from ..fem.local_operators import load_vector, mass_matrix
 from ..mesh.grid import affine_maps, hypercube
 from ..models.checkerboard import conductivity_per_element, generate_conductivity
@@ -48,6 +53,7 @@ from ..ops.integrals import integrals_fns
 from ..ops.plan import build_grid_plan
 from ..solver.multigrid import CHEBYSHEV_SMOOTHERS, MultigridSolver
 from .group import SlabGroup
+from .sharding import ShardedMultigridSolver
 from .slab import SlabShardedMultigridSolver
 
 
@@ -165,18 +171,83 @@ def run_driver(group: SlabGroup, **kwargs) -> dict:
                 cycles_per_step=trace.cycles_per_step, residuals=trace.residuals)
 
 
-JOBS = {"run": run, "driver": run_driver}
+def sharded_problem(dim: int, n: int, nlevels: int, seed: int = 3):
+    """(plan, sigma_el, b) of the JAX suite's sharded tests
+    (tests/test_sharding.py:23-35): ``hypercube(dim, n)``, a checkerboard
+    conductivity from ``default_rng(seed)``, the ``load_vector`` rhs."""
+    base = hypercube(dim, n)
+    sigma = conductivity_per_element(
+        base, generate_conductivity(dim, n, np.random.default_rng(seed)), np.zeros(dim)
+    )
+    plan = build_grid_plan(base, nlevels, slot_tables=False)
+    _, _, detJ, _ = affine_maps(base)
+    return plan, sigma, detJ[:, None] * load_vector(plan.reference.levels[nlevels - 1])[None, :]
+
+
+def run_sharded(group: SlabGroup, dim: int, n: int, nlevels: int, mode: str = "vcycle", *,
+                lam: float = 0.0, seed: int = 3, cycles: int = 3, iters: int = 8,
+                tol: float = 1e-8, solver_opts: dict | None = None) -> dict:
+    """One rank of the gather-sharded solver on ``sharded_problem`` in
+    float64: ``mode`` "vcycle" (``cycles`` V-cycles from zero, the residual
+    norm after each), "pcg" (``iters`` PCG iterations from zero), "fmg"
+    (one FMG start) or "solve" (``solve(tol=tol)``). Returns the rank's rows
+    of x (and r), the residual norms and, for the Chebyshev smoothers, the
+    lambda_max estimate."""
+    plan, sigma, b_np = sharded_problem(dim, n, nlevels, seed)
+    s = ShardedMultigridSolver(plan, group, dtype=torch.float64, **(solver_opts or {}))
+    out = dict(rank=group.rank, rows=s.n_rows, cross_slots=[s.cross_slots(k) for k in range(nlevels)])
+    b = s.put(b_np)
+    if mode == "solve":
+        x, hist = s.solve(b, sigma, lam, tol=tol)
+        return dict(out, x=x.cpu().numpy(), hist=hist)
+    coeff = s.coefficients(sigma, lam)
+    setup = s.coarse_setup(sigma, lam)
+    lam_max = None
+    if s.smoother in CHEBYSHEV_SMOOTHERS:
+        lam_max = out["lam_max"] = s.estimate_lambda_max(coeff)
+    if mode == "pcg":
+        x, hist = s.pcg(b, coeff, setup, lam_max=lam_max, iters=iters)
+        return dict(out, x=x.cpu().numpy(), hist=hist)
+    if mode == "fmg":
+        x, r = s.fmg(b, coeff, setup, lam_max=lam_max)
+        return dict(out, x=x.cpu().numpy(), r=r.cpu().numpy(), hist=[float(s.residual_norm(r))])
+    x, _ = s.zero_states()
+    hist = []
+    for _ in range(cycles):
+        x, r = s.vcycle(x, b, coeff, setup, lam_max=lam_max)
+        hist.append(float(s.residual_norm(r)))
+    return dict(out, x=x.cpu().numpy(), r=r.cpu().numpy(), hist=hist)
+
+
+def run_ordered_driver(group: SlabGroup, **kwargs) -> dict:
+    """The ordered driver with ``device_mesh=group`` on one rank."""
+    from ..models.checkerboard import checkerboard_homogenization
+
+    sigma, trace = checkerboard_homogenization(
+        geometry="ordered", device_mesh=group, return_trace=True, **kwargs
+    )
+    return dict(sigma=sigma, sigma_steps=trace.sigma_steps,
+                cycles_per_step=trace.cycles_per_step, residuals=trace.residuals)
+
+
+JOBS = {"run": run, "driver": run_driver, "sharded": run_sharded,
+        "ordered_driver": run_ordered_driver}
 
 
 def worker(rank: int, size: int, init_file: str, out_dir: str, job: dict) -> None:
-    """One spawned CPU rank: join the gloo group over ``init_file``, run
-    ``JOBS[job["kind"]](group, **job["kwargs"])`` and pickle its result to
+    """One spawned rank: join the gloo group over ``init_file`` (on the CPU,
+    or with ``job["device"]`` on a card that the ranks share), run
+    ``JOBS[job["kind"]](group, **job["kwargs"])`` and pickle its result, with
+    the hand kernels' launches in the job (``job_launches``), to
     ``out_dir/rank{rank}.pkl``."""
     torch.set_num_threads(1)
-    group = SlabGroup.from_file(init_file, rank, size, device="cpu",
-                                timeout=datetime.timedelta(seconds=job.get("timeout", 120)))
+    group = SlabGroup.from_file(init_file, rank, size, device=job.get("device", "cpu"),
+                                timeout=datetime.timedelta(seconds=job.get("timeout", 120)),
+                                backend="gloo")
     try:
+        reset_launches()
         res = JOBS[job["kind"]](group, **job["kwargs"])
+        res["job_launches"] = dict(LAUNCHES)
     finally:
         SlabGroup.destroy()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
@@ -184,8 +255,9 @@ def worker(rank: int, size: int, init_file: str, out_dir: str, job: dict) -> Non
 
 
 def spawn_ranks(size: int, job: dict, timeout: float = 300.0) -> list:
-    """Run ``job`` ({"kind": a key of JOBS, "kwargs": ...}) on ``size``
-    spawned CPU ranks with a gloo group; return their results in rank order.
+    """Run ``job`` ({"kind": a key of JOBS, "kwargs": ..., and "device":
+    "cuda" for ranks that share the card, default "cpu"}) on ``size``
+    spawned ranks with a gloo group; return their results in rank order.
     Raises if a rank fails or the ranks outlive ``timeout`` seconds (they
     are killed then)."""
     tmp = tempfile.mkdtemp(prefix="slab_ranks_")

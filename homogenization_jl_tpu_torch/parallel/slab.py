@@ -64,8 +64,8 @@ class SlabShardedMultigridSolver(MultigridSolver):
         if det is None:
             raise ValueError(
                 "slab sharding requires a structured (full-box hypercube) base; "
-                "the gather-sharded solver (parallel/sharding.py) is not ported "
-                "yet (ROADMAP.md)"
+                "any other base takes the gather-sharded solver "
+                "(parallel/sharding.py::ShardedMultigridSolver)"
             )
         n, ept, order = det
         if order != "cube":

@@ -53,7 +53,13 @@ Every device kernel on this path is a hand kernel on CUDA tensors:
   * K5 ``dot`` (ops/dots.py, CUDA C++): every dot and norm, with the
     first-copy mask and the Lanczos scale fused, in a fixed order;
   * K10 ``cg_step`` / ``cg_direction`` (ops/cg.py, CUDA C++): the CG
-    smoothers' updates, alpha and beta read from K5's device scalars;
+    smoothers' and PCG's updates, alpha and beta read from K5's device
+    scalars;
+  * K18 (ops/elementwise.py, ``apply_mask`` in ops/interfaces.py; CUDA
+    C++): the mask constraint, the Lanczos estimate's scale, three-term
+    update and normalization, the assembled diagonal and the Jacobi
+    inverse; K1 takes the mask at its store where the mask constraint
+    follows an apply;
   * K6 ``lattice_*`` (ops/stencil.py, CUDA C++): the level-0 operator of the
     global-space coarse solves;
   * K7 ``segment_sum`` / ``gather_scale`` (ops/interfaces.py, CUDA C++): the
@@ -64,7 +70,9 @@ with the inverse — the JAX package leaves the same to ``cho_solve`` and XLA.
 PyTorch runs eagerly: where the JAX package relies on dead-code elimination
 inside one jitted program (the post-smooth residual that no caller reads),
 this port skips the computation explicitly (``need_r``). State updates of
-the smoothers and of PCG run in place. The tolerance-stopped coarse loops
+the smoothers and of PCG run in place. A cycle's zero iterates are never
+zeroed: the first smoothing update writes them (``x_zero``), as XLA folds
+``zeros_like`` into that first use. The tolerance-stopped coarse loops
 (``lax.while_loop`` in JAX) are Python loops that read one device scalar
 per iteration (``host_syncs`` counts the reads).
 
@@ -75,14 +83,16 @@ taken.
 The solver's tensors live on ``device``: the card (``"cuda"``) unless the
 caller asks for the CPU; without a CUDA device the default raises.
 
-Hooks of the slab-sharded subclass (parallel/slab.py), which holds a block
-of element rows per rank: ``_rows`` (the rows this solver holds; None = all,
-cut on the host by ``rows_of`` before any element-leading array reaches the
-device), ``_lattice_window`` (the level-0 lattice planes of those rows) and
-``_sum_partial`` (the sum over the ranks of a partial from the rows: every
-dot of element-leading states in ``_vdot``, the segment sum of
-``_to_global``, the lattice weights and assembly). The dots of the
-replicated global-space coarse loops call K5 directly.
+Hooks of the sharded subclasses (parallel/slab.py, parallel/sharding.py),
+which hold a block of element rows per rank: ``_rows`` (the rows this
+solver holds; None = all, cut on the host by ``rows_of`` before any
+element-leading array reaches the device), ``_lattice_window`` (the level-0
+lattice planes of those rows), ``_gather_tables`` (a level's gather-combine
+tables: the rank's own for the gather-sharded solver) and ``_sum_partial``
+(the sum over the ranks of a partial from the rows: every dot of
+element-leading states in ``_vdot``, the segment sum of ``_to_global``, the
+lattice weights and assembly). The dots of the replicated global-space
+coarse loops call K5 directly.
 """
 
 from __future__ import annotations
@@ -99,6 +109,13 @@ from ..ops.apply import element_apply, stack_rowsum
 from ..ops.cg import cg_direction, cg_step, safe_div
 from ..ops.chebyshev import chebyshev_update
 from ..ops.dots import dot
+from ..ops.elementwise import (
+    diagonal as diagonal_sum,
+    div_nz,
+    inv_positive,
+    lanczos_update,
+    mul,
+)
 from ..ops.interfaces import (
     apply_mask,
     build_gather_tables,
@@ -149,12 +166,6 @@ def resolve_device(device=None) -> torch.device:
             "device='cpu' to run on the CPU"
         )
     return dev
-
-
-def _inv_positive(d):
-    """1/d where d > 0, else 0 (the Jacobi inverse diagonal)."""
-    pos = d > 0
-    return torch.where(pos, 1.0 / torch.where(pos, d, torch.ones_like(d)), torch.zeros_like(d))
 
 
 @dataclasses.dataclass
@@ -323,7 +334,7 @@ class MultigridSolver:
                 sc = build_structured_combine_auto(plan, k, det=det)
                 structured = flatten_structured(sc, i0, device=dev)
             else:
-                gather = build_gather_tables(plan, k, device=dev)
+                gather = self._gather_tables(plan, k, dev)
             if self.constraint_kind == "mask":
                 bmask = tens(self.rows_of(plan.levels[k].boundary_mask) != 0, torch.bool)
             stack = ref_ops[k].stack
@@ -456,7 +467,7 @@ class MultigridSolver:
         lam_max = aux.estimate_lambda_max(coeff_a)
         coeff0 = self.coefficients(sigma_el, lam)
         lam_max0 = self.estimate_lambda_max(coeff0, k=0)
-        dinv_g = _inv_positive(self._diag_global(coeff0))
+        dinv_g = inv_positive(self._diag_global(coeff0))
         return self.mg_setup(coeff_a, inv_a, lam_max, lam_max0, dinv_g)
 
     def mg_setup(self, coeff, inv, lam_max, lam_max0, dinv_g) -> MGCoarseSetup:
@@ -469,7 +480,7 @@ class MultigridSolver:
 
     def _diag_global(self, coeff0):
         """Assembled global diagonal of the level-0 operator, [N]."""
-        return self._to_global(torch.matmul(coeff0, self.levels[0].diag_ref))
+        return self._to_global(diagonal_sum(coeff0, self.levels[0].diag_ref))
 
     def drop_caches(self) -> None:
         """Forget the per-coefficient device caches (inverse diagonals,
@@ -484,6 +495,11 @@ class MultigridSolver:
     # ------------------------------------------------------------------ #
     # building blocks
     # ------------------------------------------------------------------ #
+    def _gather_tables(self, plan, k, device):
+        """Level k's gather-combine tables (the gather-sharded subclass
+        returns its shard's)."""
+        return build_gather_tables(plan, k, device=device)
+
     def _bmask(self, k, Ls=None):
         """Level k's boundary mask of this call: the per-call ``Ls`` mask,
         else the solver's own (None: the structured constraint)."""
@@ -559,26 +575,36 @@ class MultigridSolver:
     # num / den, but 0 when den == 0 (converged-exactly guard)
     _safe_div = staticmethod(safe_div)
 
-    def _apply_op(self, x, coeff, k, b=None, out=None):
+    def _apply_op(self, x, coeff, k, b=None, out=None, mask=None):
+        """A x (with ``b``: b - A x), times the bool ``mask`` at K1's store
+        when one is given."""
         L = self.levels[k]
-        return element_apply(x, coeff, L.stack, b=b, out=out, rowsum=L.rowsum)
+        return element_apply(x, coeff, L.stack, b=b, out=out, rowsum=L.rowsum, mask=mask)
+
+    def _apply_constrained(self, x, coeff, k, Ls=None, b=None):
+        """constrain(A x), with ``b`` constrain(b - A x): the mask multiply
+        at K1's store, or the structured constraint after the apply."""
+        bm = self._bmask(k, Ls)
+        if bm is None:
+            return self._constrain(self._apply_op(x, coeff, k, b=b), k)
+        return self._apply_op(x, coeff, k, b=b, mask=bm)
 
     def _local_residual(self, x, b, coeff, k, Ls=None):
         """r = constrain(b - A x)."""
-        return self._constrain(self._apply_op(x, coeff, k, b=b), k, Ls)
+        return self._apply_constrained(x, coeff, k, Ls, b=b)
 
     def diagonal(self, coeff, k, Ls=None):
         """Assembled diagonal on the duplicated layout: each copy gets the
-        full assembled diagonal entry. ``Ls`` changes no combine, so the
-        diagonal is the same with or without it."""
-        d = torch.matmul(coeff, self.levels[k].diag_ref)
-        return self._combine(d.contiguous(), k)
+        full assembled diagonal entry (the pieces summed by K18, then the
+        combine). ``Ls`` changes no combine, so the diagonal is the same
+        with or without it."""
+        return self._combine(diagonal_sum(coeff, self.levels[k].diag_ref), k)
 
     def _dinv_all(self, coeff):
         """Inverse diagonals of every level, computed once per coefficient
         tensor (the JAX smoother recomputes them on every call)."""
         if self._dinv_key is not coeff:
-            self._dinv = [_inv_positive(self.diagonal(coeff, k)) for k in range(self.nlevels)]
+            self._dinv = [inv_positive(self.diagonal(coeff, k)) for k in range(self.nlevels)]
             self._dinv_key = coeff
         return self._dinv
 
@@ -698,30 +724,29 @@ class MultigridSolver:
             device=self.device,
         ).to(self.dtype)
         d = self.diagonal(coeff, k)
-        dinv = _inv_positive(d)
+        dinv = inv_positive(d)
         w = self.levels[k].first_copy_mask
         v = self._constrain(self._combine(v, k), k)
 
         def matvec(u):
-            return dinv * self._combine(self._constrain(self._apply_op(u, coeff, k), k), k)
+            return mul(dinv, self._combine(self._apply_constrained(u, coeff, k), k))
 
         def ddot(a, b_):
             # vdot(a * w, d * b) with the mask and the scale fused (K5)
             return self._vdot(a, b_, mask=w, scale=d)
 
-        def nz(s):
-            return torch.where(s == 0, torch.ones_like(s), s)
-
-        v = v / nz(torch.sqrt(ddot(v, v)))
-        v_prev = torch.zeros_like(v)
+        # the state-sized updates on K18, the scalars on the device; the
+        # first step has no v_prev (JAX: zeros, whose term adds nothing)
+        v = div_nz(v, torch.sqrt(ddot(v, v)), out=v)
+        v_prev = None
         beta_prev = torch.zeros((), dtype=v.dtype, device=v.device)
         alphas, betas = [], []
         for _ in range(iters):
             u = matvec(v)
             alpha = ddot(u, v)
-            u = u - alpha * v - beta_prev * v_prev
+            u = lanczos_update(u, v, v_prev, alpha, beta_prev, out=u)
             beta = torch.sqrt(torch.clamp(ddot(u, u), min=0.0))
-            v_prev, v = v, u / nz(beta)
+            v_prev, v = v, div_nz(u, beta, out=u)
             beta_prev = beta
             alphas.append(alpha)
             betas.append(beta)
@@ -736,7 +761,10 @@ class MultigridSolver:
     def _smooth(self, x, b, coeff, lam_max, *, k, steps, need_r=True, x_zero=False, Ls=None):
         """The solver's smoother at level k: updates x in place and returns
         (x, r) — for "cg" the combined residual, for the others the LOCAL
-        residual (None when ``need_r`` is False)."""
+        residual (None when ``need_r`` is False). ``x_zero``: x is taken as
+        zero and its values are never read (the first update writes it)."""
+        if x_zero and steps < 1:
+            x.zero_()
         kw = dict(k=k, steps=steps, need_r=need_r, x_zero=x_zero, Ls=Ls)
         if self.smoother == "cg":
             return self._smooth_cg(x, b, coeff, **kw)
@@ -753,14 +781,16 @@ class MultigridSolver:
         Updates x in place and returns (x, r), r combined and constrained
         (None when ``need_r`` is False: the last step skips its r update).
         The last step's direction and dot, which no caller reads, are
-        skipped. ``x_zero``: x == 0, so the entry residual is b."""
+        skipped. ``x_zero``: x is zero (unread: the first step writes it),
+        so the entry residual is b."""
         r = self._combine_constrained(b if x_zero else self._apply_op(x, coeff, k, b=b), k, Ls)
         p = r.clone()
         rs = self._vdot(r, r)
         for i in range(steps):
             last = i + 1 == steps
             Ap = self._combine_constrained(self._apply_op(p, coeff, k), k, Ls)
-            cg_step(x, None if (last and not need_r) else r, p, Ap, rs, self._vdot(p, Ap))
+            cg_step(x, None if (last and not need_r) else r, p, Ap, rs, self._vdot(p, Ap),
+                    x_zero=x_zero and i == 0)
             del Ap
             if not last:
                 rs_new = self._vdot(r, r)
@@ -778,22 +808,21 @@ class MultigridSolver:
         K5). Under the structured constraint the separate constrain passes
         are skipped (see the JAX ``_combine_constrained``). Updates x in
         place; returns (x, r_loc), r_loc None when ``need_r`` is False (the
-        last step then skips its r update). ``x_zero``: x == 0, so the entry
-        residual is b."""
+        last step then skips its r update). ``x_zero``: x is zero (unread:
+        the first step writes it), so the entry residual is b."""
         w = self.levels[k].first_copy_mask
         bm = self._bmask(k, Ls)
         if bm is None:
             r_loc = b.clone() if x_zero else self._apply_op(x, coeff, k, b=b)
         else:
-            r_loc = b * bm if x_zero else self._apply_op(x, coeff, k, b=b).mul_(bm)
+            r_loc = apply_mask(b, bm) if x_zero else self._apply_op(x, coeff, k, b=b, mask=bm)
         p = self._combine_constrained(r_loc, k, Ls)
         rs = self._vdot(p, p, mask=w)
         for i in range(steps):
             last = i + 1 == steps
-            Ap = self._apply_op(p, coeff, k)
-            if bm is not None:
-                Ap.mul_(bm)
-            cg_step(x, None if (last and not need_r) else r_loc, p, Ap, rs, self._vdot(p, Ap))
+            Ap = self._apply_op(p, coeff, k, mask=bm)
+            cg_step(x, None if (last and not need_r) else r_loc, p, Ap, rs, self._vdot(p, Ap),
+                    x_zero=x_zero and i == 0)
             del Ap
             if not last:
                 rc = self._combine_constrained(r_loc, k, Ls)
@@ -814,8 +843,9 @@ class MultigridSolver:
         rows of ``_cheb_coeffs``). Updates x in place; returns
         (x, r_loc) with the LOCAL residual maintained incrementally (None
         when ``need_r`` is False: the final r -= A p is skipped).
-        ``x_zero``: the caller guarantees x == 0, so the entry residual
-        b - A x is b itself and its apply is skipped (same values).
+        ``x_zero``: x is zero (unread: the first update writes it), so the
+        entry residual b - A x is b itself and its apply is skipped (same
+        values).
         Under a mask constraint (the solver's, or the call's ``Ls``) the
         entry residual is constrained and each update subtracts the
         constrained A p, as the JAX smoother does; the structured
@@ -824,20 +854,22 @@ class MultigridSolver:
         dinv = self._dinv_all(coeff)[k]
         ab = self._cheb_coeffs(lam_max, fourth=self.smoother == "chebyshev4")
         bm = self._bmask(k, Ls)
-        # entry residual, then incremental r_loc -= A p (fused epilogue)
+        # entry residual, then incremental r_loc -= A p (fused epilogue;
+        # under a mask, r_loc = (r_loc - A p) * bm at K1's store, where JAX
+        # computes r_loc - (A p) * bm: the same in exact arithmetic, but K1's
+        # residual form is shifted by x[e, 0] (ops/apply.py), so the f32
+        # rounding differs, as on the unmasked path since the shift came)
         if bm is None:
             r_loc = b.clone() if x_zero else self._apply_op(x, coeff, k, b=b)
         else:
-            r_loc = b * bm if x_zero else self._apply_op(x, coeff, k, b=b).mul_(bm)
+            r_loc = apply_mask(b, bm) if x_zero else self._apply_op(x, coeff, k, b=b, mask=bm)
         p = torch.empty_like(x)
 
         def update_residual():
-            if bm is None:
-                self._apply_op(p, coeff, k, b=r_loc, out=r_loc)
-            else:
-                r_loc.sub_(self._apply_op(p, coeff, k).mul_(bm))
+            self._apply_op(p, coeff, k, b=r_loc, out=r_loc, mask=bm)
 
-        chebyshev_update(x, p, self._combine_constrained(r_loc, k, Ls), dinv, ab[0], first=True)
+        chebyshev_update(x, p, self._combine_constrained(r_loc, k, Ls), dinv, ab[0], first=True,
+                         x_zero=x_zero)
         for j in range(2, steps + 1):
             update_residual()
             chebyshev_update(x, p, self._combine_constrained(r_loc, k, Ls), dinv, ab[j - 1])
@@ -917,7 +949,7 @@ class MultigridSolver:
             # global residual -> aux finest layout in local-contribution
             # form (whole nodal value on the first aux copy) -> aux V-cycle
             b_aux = gather_scale(r, self._node_map, self._aux_first_mask)
-            x_a = torch.zeros_like(b_aux)
+            x_a = torch.empty_like(b_aux)  # the first cycle writes it (x_zero)
             for c in range(self.coarse_prec_cycles):
                 x_a, _ = aux._vcycle_impl(
                     x_a, b_aux, setup.coeff, setup.inv, setup.lam_max,
@@ -980,9 +1012,10 @@ class MultigridSolver:
         """One cycle (V, or W with ``cycle="W"``) from level ``top``; x_top
         is updated in place and returned: (x_top, r_finest) with r_finest
         the combined, constrained residual after the post-smooth (None when
-        ``need_r`` is False). ``x_zero``: x_top is known to be zero (the
-        preconditioner cycles of PCG); every sub-top level's first
-        pre-smooth starts from zero anyway. ``Ls`` / ``interior``: the
+        ``need_r`` is False). ``x_zero``: x_top is taken as zero and never
+        read (the preconditioner cycles of PCG); every sub-top level's first
+        pre-smooth starts from zero anyway, in a buffer its first smoothing
+        update writes. ``Ls`` / ``interior``: the
         call's level masks and coarse interior mask."""
         top = self.nlevels - 1 if top is None else top
         c = _Cycle(
@@ -1025,9 +1058,7 @@ class MultigridSolver:
         c.bs[k - 1] = restrict(r_local, L.transfer)
         del r_local
         if k - 1 > 0:
-            c.xs[k - 1] = torch.zeros(
-                (x.shape[0], self.plan.n_local(k - 1)), dtype=x.dtype, device=x.device
-            )
+            c.xs[k - 1] = x.new_empty((x.shape[0], self.plan.n_local(k - 1)))
         self._cycle_level(c, k - 1)
         if self.cycle == "W" and k - 1 > 0:
             self._cycle_level(c, k - 1, x_zero=False)
@@ -1044,10 +1075,8 @@ class MultigridSolver:
     def zero_states(self):
         """(x, b) zeros at the finest level."""
         shape = (self.n_rows, self.plan.n_local(self.nlevels - 1))
-        return (
-            torch.zeros(shape, dtype=self.dtype, device=self.device),
-            torch.zeros(shape, dtype=self.dtype, device=self.device),
-        )
+        return (torch.zeros(shape, dtype=self.dtype, device=self.device),
+                torch.zeros(shape, dtype=self.dtype, device=self.device))
 
     def vcycle(self, x, b, coeff, chol=None, lam_max=None, Ls=None, interior=None):
         """One cycle (V or W, the solver's ``cycle``): (x, b) -> (x,
@@ -1084,7 +1113,7 @@ class MultigridSolver:
         top = self.nlevels - 1
         r = self._local_residual(x, b, coeff, top, Ls)
         z, _ = self._vcycle_impl(
-            torch.zeros_like(x), r, coeff, chol, lam_max, need_r=False, x_zero=True,
+            torch.empty_like(x), r, coeff, chol, lam_max, need_r=False, x_zero=True,
             Ls=Ls, interior=interior,
         )
         rz = self._vdot(z, r)
@@ -1095,7 +1124,9 @@ class MultigridSolver:
         """One PCG iteration; x and p are updated in place, and r too unless
         ``flexible``. Exact global dots without combines: p and z are
         interface-consistent, Ap and r stay in local form (see the JAX method
-        for the identity).
+        for the identity). The updates are K10's: x += alpha p with r -=
+        alpha Ap (into a new buffer when ``flexible``), then p = z + beta p,
+        alpha and beta read from K5's device scalars.
 
         ``flexible``: the Polak-Ribiere beta (rz_new - <z, r_old>) / rz that
         tolerates the mildly nonlinear preconditioner of a tolerance-stopped
@@ -1105,23 +1136,22 @@ class MultigridSolver:
         JAX package's arithmetic — the same peak memory as keeping Ap for
         the algebraically equal -alpha <z, Ap>, and no extra copy pass."""
         top = self.nlevels - 1
-        Ap = self._constrain(self._apply_op(p, coeff, top), top, Ls)
-        alpha = self._safe_div(rz, self._vdot(p, Ap))
-        x.addcmul_(p, alpha)
+        Ap = self._apply_constrained(p, coeff, top, Ls)
         if flexible:
-            r_old, r = r, torch.addcmul(r, Ap, alpha, value=-1.0)
+            r_old, r = r, torch.empty_like(r)
+            cg_step(x, r_old, p, Ap, rz, self._vdot(p, Ap), r_out=r)
         else:
-            r.addcmul_(Ap, alpha, value=-1.0)
+            cg_step(x, r, p, Ap, rz, self._vdot(p, Ap))
         del Ap
         z, _ = self._vcycle_impl(
-            torch.zeros_like(x), r, coeff, chol, lam_max, need_r=False, x_zero=True,
+            torch.empty_like(x), r, coeff, chol, lam_max, need_r=False, x_zero=True,
             Ls=Ls, interior=interior,
         )
         rz_new = self._vdot(z, r)
         num = rz_new - self._vdot(z, r_old) if flexible else rz_new
         if flexible:
             del r_old
-        p.mul_(self._safe_div(num, rz)).add_(z)
+        cg_direction(p, z, p, num, rz)
         return x, r, p, rz_new, self._pcg_rnorm(r)
 
     def pcg(self, b, coeff, chol=None, lam_max=None, x=None, *, iters: int = 50,

@@ -108,18 +108,20 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize(
-    "kw",
+    "kw,exc,match",
     [
-        dict(device_mesh=object()),
-        dict(solver="multishift"),
-        dict(checkpoint_dir="ckpt"),
-        dict(resume_from="step_0.npz"),
-        dict(save_level=1),
+        # the ordered geometry takes a SlabGroup now (the gather-sharded
+        # solver); anything else is refused
+        (dict(device_mesh=object()), TypeError, "SlabGroup"),
+        (dict(solver="multishift"), NotImplementedError, "ROADMAP"),
+        (dict(checkpoint_dir="ckpt"), NotImplementedError, "ROADMAP"),
+        (dict(resume_from="step_0.npz"), NotImplementedError, "ROADMAP"),
+        (dict(save_level=1), NotImplementedError, "ROADMAP"),
     ],
     ids=["device_mesh", "multishift", "checkpoint_dir", "resume_from", "save_level"],
 )
-def test_unported_arguments_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_arguments_raise(kw, exc, match):
+    with pytest.raises(exc, match=match):
         tcb.checkerboard_homogenization(1, dim=2, refinements=1, device="cpu", **kw)
 
 

@@ -9,8 +9,8 @@ driver's default smoother and inner loop, tolerance 1e-6, seed 29; 2
 slabs of the 32-cube box) and :429-435 (n = 1, Chebyshev, inner="pcg",
 tolerance 1e-5, seed 7; 4 slabs of the 20-cube box). sigma, and every
 step's sigma, agree within 1e-9 relative, with the same cycle counts; every
-rank returns the same sigma. The ordered geometry with a mesh still raises
-(tests/test_torch_driver_host.py)."""
+rank returns the same sigma. The ordered geometry with a mesh runs on the
+gather-sharded solver (tests/test_torch_sharding_driver.py)."""
 
 import numpy as np
 import pytest
