@@ -6,8 +6,9 @@ on it. Phases (each prints one line; any failure raises, and the script
 then exits non-zero without the final line):
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
-  2. build the CUDA kernels (K1, K2, K4-K11 but K3; one nvcc per source,
-     started together) from csrc/ into build/kernels/, warm up K3 (Triton);
+  2. build the CUDA kernels (every one but K3 and K16's Chebyshev update;
+     one nvcc per source, started together) from csrc/ into
+     build/kernels/, warm up K3 (Triton);
   3. every kernel against its plain PyTorch version on the card, at the
      main path's shapes, float32 and float64: K1-K5 and K10 at every level
      (n = 4..969, E = 196,608; K4 prolong_add bitwise equal to the dense
@@ -117,22 +118,52 @@ then exits non-zero without the final line):
      within 5e-3 (50 x tolerance, the JAX suite's bar between geometries)
      of 1.2947696447 in at most 14 PCG iterations, its seconds per
      iteration beside phase 7's; (c) torch.profiler's kernel table of one
-     PCG iteration of phase 5 and of the PCG step of one driver iteration
+     PCG iteration of phase 5 (taken after the group is destroyed: a
+     profiler session after the first one, with an NCCL group alive, lost
+     a prefix of its step) and of the PCG step of one driver iteration
      of (b), top 15 by device time, each read only when its kernels cover
      0.9 of the CUDA-event time of the same call (each profiles up to 4
      iterations, (b) from its second, until one is covered), with no
      PyTorch elementwise kernel above 20 us per launch on
-     average; then the group is destroyed; (d) the ordered driver through
+     average; (d) the ordered driver through
      the gather-sharded solver on 2 spawned ranks that share the card
      through a gloo group (NCCL refuses two ranks on one card), at one
      level below the flagship (refinements=3, 32,440,320 DOFs) in float64,
      tolerance 1e-6: the ranks' sigma bitwise equal, within 1e-8 relative
      of the single-device driver's, and every kernel of the ordered path
      launched on every rank, K12's cross-shard kernels included;
+ 16. K15 and K16 at the finest main-path shape (E = 196,608, n = 969):
+     K15's downcast (with and without the scale) and upcast, and every K16
+     variant (K1's apply, residual and masked forms; K3's first, x_zero
+     and later steps; K5 with and without the mask and the scale; K10's
+     step forms and its direction store) for bfloat16 and float16
+     directions under float32 and float64 states and float32 under
+     float64, each bitwise equal to its plain form; their times (float32
+     state, bfloat16 direction), and K1 and K2 in float64;
+ 17. (a) ``python -m homogenization_jl_tpu_torch.bench`` in a subprocess at
+     its defaults (190,513,152 DOFs): its last line parses with the
+     metric and every detail key, 6 / 8 PCG iterations to 1e-3 / 1e-4
+     within 1 (BENCH_r05.json); (b) phase 5's solve with
+     direction_dtype="bfloat16": 7 / 9 within 1 (the JAX record,
+     PERFORMANCE.md:803-806), seconds per PCG iteration beside phase 5's,
+     then three cg_exact V-cycles with bfloat16 directions (K16's dot and
+     CG forms on their path);
+ 18. mixed-precision PCG at 190,513,152 DOFs: run_mixed_pcg's pair (outer
+     float64, inner float32 Chebyshev, coarse="mg", coarse_mg_tol=5e-2)
+     on phase 5's plan, tol 1e-10, keep_best: the history, 1e-6 within 14
+     iterations (the CPU record crossed at 13, ACCURACY.md), seconds per
+     iteration between CUDA events after two warm-up iterations, setup
+     seconds, peak memory, the returned x's float64 residual recomputed
+     from scratch at most 1e-6, and one step under torch.profiler by phase
+     15c's rules; (18b) the same solve on slabs (run_slab's "mixed" job)
+     through an NCCL group of one rank at n = 16 (23,814,144 DOFs), its
+     history and x equal to the single-device leg's;
 then one JSON line with the kernels (each kernel's launches on its path:
 K4, K5 and K10 on phase 10, K8 on phase 8's ordered run, K11 on phase 13,
-K12's cross-shard kernels on phase 15d, summed over its ranks, the others
-on phase 7), and last the device JSON line.
+K12's cross-shard kernels on phase 15d, summed over its ranks, K16's apply
+and Chebyshev update on 17b's solve, its dot and CG forms on 17b's
+cg_exact cycles, K15 on phase 18, the others on phase 7), and last the
+device JSON line.
 
 Usage: python3 chip_smoke.py            (one card, full size)
        python3 chip_smoke.py --n 16     (a smaller base, for rehearsals)
@@ -225,11 +256,42 @@ KERNELS = {
         source="homogenization_jl_tpu_torch/csrc/elementwise.cu",
         replaces="homogenization_jl_tpu/ops/interfaces.py:58",
     ),
+    # K16: the half-width direction forms of K1, K3, K5 and K10
+    "direction_apply": dict(
+        route="cuda",
+        source="homogenization_jl_tpu_torch/csrc/element_apply_half.cu",
+        replaces="homogenization_jl_tpu/solver/multigrid.py:733",
+    ),
+    "direction_chebyshev": dict(
+        route="triton",
+        source="homogenization_jl_tpu_torch/ops/chebyshev.py",
+        replaces="homogenization_jl_tpu/solver/multigrid.py:743",
+    ),
+    "direction_dot": dict(
+        route="cuda",
+        source="homogenization_jl_tpu_torch/csrc/dots.cu",
+        replaces="homogenization_jl_tpu/solver/multigrid.py:833",
+    ),
+    "direction_cg": dict(
+        route="cuda",
+        source="homogenization_jl_tpu_torch/csrc/cg_smoother.cu",
+        replaces="homogenization_jl_tpu/solver/multigrid.py:839",
+    ),
+    # K15: the mixed-precision boundary
+    "mixed_boundary": dict(
+        route="cuda",
+        source="homogenization_jl_tpu_torch/csrc/mixed_boundary.cu",
+        replaces="homogenization_jl_tpu/solver/multigrid.py:1618",
+    ),
 }
 # NVIDIA's data sheet for the H100 SXM:
 # float32 outside the tensor cores, and HBM bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# float64: the tensor cores' rate (the bound of K1 in float64) and the CUDA
+# cores' (the rate K1's FMA loop runs at)
+PEAK_FP64_TC_FLOPS = 67e12
+PEAK_FP64_FLOPS = 34e12
 # the JAX driver's flagship result on the TPU (ACCURACY.md, "Flagship
 # driver"): a check on the answer, not a yardstick of speed
 FLAGSHIP_SIGMA = 1.2947696447
@@ -273,6 +335,35 @@ LIBRARY_ELEMENTWISE_MAX_US = 20.0
 PROFILE_MIN_COVERAGE = 0.9
 PROFILE_ATTEMPTS = 4
 PROFILE_MARGIN_S = 1.0
+# idle trace before the step: in profiler sessions after the process's
+# first, a profile lost a prefix of its step's kernels, as if their device
+# times fell before the trace's window (with 1 s of lead, prefixes of
+# 0.36-0.52 s of the step went missing); attempt i waits
+# PROFILE_LEAD_S * 2**i
+PROFILE_LEAD_S = 2.0
+# phase 17's bars: bench.py's 6 / 8 PCG iterations to 1e-3 / 1e-4
+# (BENCH_r05.json), and the JAX record with bfloat16 directions, 7 / 9
+# (PERFORMANCE.md:803-806), each within 1
+BENCH_ITERS = (6, 8)
+BENCH_BF16_ITERS = (7, 9)
+BENCH_TIMEOUT_S = 420
+# bench.py's detail keys (BENCH_r05.json) and the port's additions
+BENCH_DETAIL_KEYS = (
+    "dofs", "sec_per_vcycle", "base_elements", "n_local", "levels", "coarse", "smoother",
+    "dtype", "apply_precision", "smooth_precision", "device", "residual_norm", "degraded",
+    "solve_mode", "iters_to_1e3", "sec_to_1e3", "iters_to_1e4", "sec_to_1e4", "sec_per_iter",
+    "dof_per_s_solve", "fmg_start_rel_residual", "power_limit", "precision_run",
+    "sec_per_vcycle_repeats", "sec_per_vcycle_spread", "sec_per_iter_repeats",
+    "sec_per_iter_spread")
+# phase 18: run_mixed_pcg's solve at n = 32, 5 levels, tol 1e-10, keep_best;
+# the CPU record crossed 1e-6 relative at iteration 13 (ACCURACY.md), the
+# bar is 14; the returned x's recomputed float64 residual at most 1e-6
+MIXED_ITERS = 30
+MIXED_TOL = 1e-10
+MIXED_1E6_WITHIN = 14
+MIXED_RECOMPUTED_MAX = 1e-6
+# phase 18b's size: n = 16 (23,814,144 DOFs) keeps the script near 800 s
+MIXED_SLAB_N = 16
 
 
 def bound(nbytes, flops):
@@ -330,6 +421,18 @@ FLAGSHIP_SLAB_PATH = FLAGSHIP_PATH + ("slab_combine",)
 # K8 there, no cross groups; the ordered base is no lattice box, so no K6)
 FLAGSHIP_ORDERED_PATH = ("element_apply", "chebyshev_update", "coarse_gather", "gather_combine",
                          "integrals", "transfer", "masked_dot", "cg_update", "elementwise")
+# phase 17: bfloat16 directions on phase 5's path (Chebyshev: K16's apply
+# and update) and on the vcycle mode's (cg_exact: K16's dot and CG forms)
+BF16_CHEB_PATH = MAIN_PATH + ("direction_apply", "direction_chebyshev")
+BF16_CG_PATH = ("element_apply", "structured_combine", "chebyshev_update", "lattice_stencil",
+                "coarse_gather", "transfer", "masked_dot", "direction_apply", "direction_dot",
+                "direction_cg")
+# phase 18: mixed-precision PCG (float64 outer step, float32 V-cycle, K15
+# between them); 18b: the same on slabs (K11)
+MIXED_PATH = ("element_apply", "structured_combine", "chebyshev_update", "lattice_stencil",
+              "coarse_gather", "transfer", "masked_dot", "cg_update", "mixed_boundary")
+MIXED_SLAB_PATH = ("element_apply", "slab_combine", "chebyshev_update", "coarse_gather",
+                   "transfer", "masked_dot", "cg_update", "mixed_boundary")
 
 
 def check(cond, msg):
@@ -383,7 +486,8 @@ def problem(hz, n, nlevels, seed=0):
 def _bits(t):
     import torch
 
-    return t.contiguous().view(torch.int32 if t.element_size() == 4 else torch.int64)
+    return t.contiguous().view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                                8: torch.int64}[t.element_size()])
 
 
 def copies_bitwise_equal(y, plan, k):
@@ -1671,8 +1775,9 @@ def check_sharded_kernel(hz, kbuild, plan, dev, smi, t_plan):
     return timing
 
 
-def profile_step(step):
-    """torch.profiler over one call of ``step``. Returns ({"rows": [(kernel,
+def profile_step(step, lead_s=PROFILE_LEAD_S):
+    """torch.profiler over one call of ``step``, ``lead_s`` of idle trace
+    before it and PROFILE_MARGIN_S after. Returns ({"rows": [(kernel,
     device ms, launches)] by device time, "wall_ms", "event_ms": the device
     ms between two CUDA events around the call on the current stream,
     "coverage": the rows' time over event_ms}, the profile). The rows add
@@ -1685,12 +1790,10 @@ def profile_step(step):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # idle margins inside the trace around the step: a partial profile
-        # lost a prefix of its step's kernels (their device times fell
-        # before the trace's window)
+        # idle margins inside the trace around the step (PROFILE_LEAD_S)
         torch.ones(1).to("cuda")
         torch.cuda.synchronize()
-        time.sleep(PROFILE_MARGIN_S)
+        time.sleep(lead_s)
         t0 = time.perf_counter()
         start.record()
         step()
@@ -1715,10 +1818,11 @@ def profile_step(step):
 def covered_profile(step, label):
     """The first of up to PROFILE_ATTEMPTS profiles of ``step`` (one call
     each) that covers PROFILE_MIN_COVERAGE of its CUDA-event time, with the
-    coverage of every attempt; fails when none does."""
+    coverage of every attempt (attempt i with PROFILE_LEAD_S * 2**i of idle
+    trace before the step); fails when none does."""
     tried = []
-    for _ in range(PROFILE_ATTEMPTS):
-        p, prof = profile_step(step)
+    for i in range(PROFILE_ATTEMPTS):
+        p, prof = profile_step(step, PROFILE_LEAD_S * 2 ** i)
         tried.append(p["coverage"])
         if p["coverage"] >= PROFILE_MIN_COVERAGE:
             return dict(p, attempts=tried), prof
@@ -1799,7 +1903,8 @@ def flagship_ordered_sharded(kbuild, group, smi, sec_iter_phase7):
             if calls < PROFILE_FIRST_ITERATION or done or len(attempts) == PROFILE_ATTEMPTS:
                 return step(state)
             box = {}
-            attempts[calls], _ = profile_step(lambda: box.setdefault("state", step(state)))
+            attempts[calls], _ = profile_step(lambda: box.setdefault("state", step(state)),
+                                              PROFILE_LEAD_S * 2 ** len(attempts))
             return box["state"]
 
         return init, step_traced
@@ -1925,6 +2030,406 @@ def sharded_shared_card(dev, smi):
 
 
 # --------------------------------------------------------------------- #
+# --------------------------------------------------------------------- #
+# phases 16-18b: the precision surface (K15, K16, the bench entry point,
+# mixed-precision PCG)
+# --------------------------------------------------------------------- #
+K16_PAIRS = (("float32", "bfloat16"), ("float32", "float16"), ("float64", "float32"),
+             ("float64", "bfloat16"), ("float64", "float16"))
+
+
+def check_precision_kernels(outer, inner, plan, coeff64, dev):
+    """Phase 16, at the finest main-path shape (E = 196,608, n = 969): K15's
+    two entries (float64 -> float32 with and without the scale, float32 ->
+    float64) and every K16 variant (K1's apply, residual and masked forms,
+    in place too; K3's first, x_zero and later steps; K5 with and without
+    the mask and the scale; K10's step (in place, r_out, x only, x_zero),
+    its direction store from p in place and from rc alone) for bfloat16 and
+    float16 directions under float32 and float64 states and float32 under
+    float64, each bitwise equal to its plain form (K1 and K5: the
+    state-type kernel on the widened operand). Times (float32 state,
+    bfloat16 direction: the path's forms), K15's, and K1 and K2 in float64
+    (the mixed solve's outer apply and combine). Returns ({kernel: entry},
+    report)."""
+    import torch
+
+    from homogenization_jl_tpu_torch.ops import apply as k_apply
+    from homogenization_jl_tpu_torch.ops import cg as k_cg
+    from homogenization_jl_tpu_torch.ops import chebyshev as k_cheb
+    from homogenization_jl_tpu_torch.ops import dots as k_dots
+    from homogenization_jl_tpu_torch.ops import mixed as k_mixed
+    from homogenization_jl_tpu_torch.ops import structured as k_st
+
+    g = torch.Generator(device=dev).manual_seed(1616)
+    top = plan.nlevels - 1
+    E, n = plan.base.nelements, plan.n_local(top)
+    N = E * n
+    timing, report = {}, {}
+
+    def same(a, b_):
+        return torch.equal(_bits(a), _bits(b_))
+
+    # K15: the downcast at the assembled scale and the upcast
+    c = torch.randn((E, n), generator=g, device=dev, dtype=torch.float64) * 1e3
+    s = torch.rand((E, n), generator=g, device=dev, dtype=torch.float32)
+    z = torch.randn((E, n), generator=g, device=dev, dtype=torch.float32)
+    check(same(k_mixed.downcast_scale(c, s), k_mixed.downcast_scale_plain(c, s)),
+          "K15 downcast_scale differs from plain")
+    check(same(k_mixed.downcast_scale(c), k_mixed.downcast_scale_plain(c)),
+          "K15 downcast differs from plain")
+    check(same(k_mixed.upcast(z), k_mixed.upcast_plain(z)), "K15 upcast differs from plain")
+    timing["mixed_boundary"] = entry(
+        0.0, cuda_ms(lambda: k_mixed.downcast_scale(c, s), 10),
+        cuda_ms(lambda: k_mixed.downcast_scale_plain(c, s), 10), nbytes=16 * N, flops=N,
+        library_ms=cuda_ms(lambda: c.to(torch.float32), 10))
+    report["upcast"] = entry(
+        0.0, cuda_ms(lambda: k_mixed.upcast(z), 10), cuda_ms(lambda: k_mixed.upcast_plain(z), 10),
+        nbytes=12 * N, flops=0, library_ms=cuda_ms(lambda: z.to(torch.float64), 10))
+    del c, s, z
+    torch.cuda.empty_cache()
+
+    dtypes = dict(float32=torch.float32, float64=torch.float64, bfloat16=torch.bfloat16,
+                  float16=torch.float16)
+    checked = []
+    for sname, dname in K16_PAIRS:
+        sdt, ddt = dtypes[sname], dtypes[dname]
+        isz, dsz = torch.finfo(sdt).bits // 8, torch.finfo(ddt).bits // 8
+        L = (inner if sdt == torch.float32 else outer).levels[top]
+        stack, rowsum, coeff = L.stack, L.rowsum, coeff64.to(sdt)
+        P = stack.shape[0]
+
+        def rnd():
+            return torch.randn((E, n), generator=g, device=dev, dtype=sdt)
+
+        p, x, rc, dinv, b = rnd().to(ddt), rnd(), rnd(), rnd().abs(), rnd()
+        m = torch.rand((E, n), generator=g, device=dev) < 0.7
+        pw = p.to(sdt)
+        for label, kw in (("apply", {}), ("residual", dict(b=b)), ("masked", dict(mask=m)),
+                          ("masked_residual", dict(b=b, mask=m))):
+            got = k_apply.element_apply_half(p, coeff, stack, rowsum=rowsum, **kw)
+            check(same(got, k_apply.element_apply(pw, coeff, stack, rowsum=rowsum, **kw)),
+                  f"K16 apply {label} {sname}/{dname}: differs from K1 on the widened x")
+            del got
+        r = b.clone()
+        k_apply.element_apply_half(p, coeff, stack, b=r, out=r, rowsum=rowsum)
+        check(same(r, k_apply.element_apply(pw, coeff, stack, b=b, rowsum=rowsum)),
+              f"K16 apply in place {sname}/{dname}: differs")
+        del r
+        ab = torch.tensor([0.37, 1.9], dtype=sdt, device=dev)
+        for first, x_zero in ((True, True), (True, False), (False, False)):
+            xk, pk, xp, pp = x.clone(), p.clone(), x.clone(), p.clone()
+            if x_zero:
+                xk.fill_(float("nan"))
+            k_cheb.chebyshev_update_half(xk, pk, rc, dinv, ab, first=first, x_zero=x_zero)
+            k_cheb.chebyshev_update_half_plain(xp, pp, rc, dinv, ab, first, x_zero)
+            check(same(pk, pp) and same(xk, xp),
+                  f"K16 chebyshev first={first} x_zero={x_zero} {sname}/{dname}: differs")
+            del xk, pk, xp, pp
+        for kw in ({}, dict(mask=m), dict(scale=dinv), dict(mask=m, scale=dinv)):
+            got = k_dots.dot_half(p, rc, **kw)
+            check(same(got, k_dots.dot(pw, rc, **kw)) and same(got, k_dots.dot_plain(pw, rc, **kw)),
+                  f"K16 dot {sorted(kw)} {sname}/{dname}: differs")
+        num = torch.tensor(0.8, dtype=sdt, device=dev)
+        for den_v in (1.3, 0.0):
+            den = torch.tensor(den_v, dtype=sdt, device=dev)
+            for r_out, with_r, x_zero in ((False, True, False), (True, True, False),
+                                          (False, False, True)):
+                xk, xp = x.clone(), x.clone()
+                rk, rp = (rc.clone(), rc.clone()) if with_r else (None, None)
+                ok, op = (torch.empty_like(rc), torch.empty_like(rc)) if r_out else (None, None)
+                k_cg.cg_step_half(xk, rk, p, b if with_r else None, num, den, r_out=ok,
+                                  x_zero=x_zero)
+                k_cg.cg_step_half_plain(xp, rp, p, b if with_r else None, num, den, r_out=op,
+                                        x_zero=x_zero)
+                check(same(xk, xp) and all(a is None or same(a, c_) for a, c_ in
+                                           ((rk, rp), (ok, op))),
+                      f"K16 cg_step r_out={r_out} x_zero={x_zero} den={den_v} "
+                      f"{sname}/{dname}: differs")
+                del xk, xp, rk, rp, ok, op
+            for from_p in (True, False):
+                pk, pp = p.clone(), p.clone()
+                k_cg.cg_direction_half(pk, rc, pk if from_p else None, num, den)
+                k_cg.cg_direction_half_plain(pp, rc, pp if from_p else None, num, den)
+                check(same(pk, pp), f"K16 cg_direction from_p={from_p} {sname}/{dname}: differs")
+                del pk, pp
+        checked.append(f"{sname}/{dname}")
+        den = torch.tensor(1.3, dtype=sdt, device=dev)
+        if (sname, dname) == ("float32", "bfloat16"):
+            # the path's forms: the residual update r -= A load(p) in place,
+            # a later Chebyshev step, vdot(load(p), A p), x += alpha load(p)
+            r = b.clone()
+            timing["direction_apply"] = entry(
+                0.0, cuda_ms(lambda: k_apply.element_apply_half(p, coeff, stack, b=r, out=r,
+                                                                rowsum=rowsum), 3),
+                cuda_ms(lambda: k_apply.element_apply_plain(p.to(sdt), coeff, stack, b=b,
+                                                            rowsum=rowsum), 3),
+                nbytes=dsz * N + isz * (2 * N + E * P + P * n * n), flops=2 * N * n * P)
+            xk, pk = x.clone(), p.clone()
+            timing["direction_chebyshev"] = entry(
+                0.0, cuda_ms(lambda: k_cheb.chebyshev_update_half(xk, pk, rc, dinv, ab), 10),
+                cuda_ms(lambda: k_cheb.chebyshev_update_half_plain(xk, pk, rc, dinv, ab, False),
+                        10),
+                nbytes=(4 * isz + 2 * dsz) * N, flops=5 * N)
+            timing["direction_dot"] = entry(
+                0.0, cuda_ms(lambda: k_dots.dot_half(p, rc), 10),
+                cuda_ms(lambda: k_dots.dot_plain(p.to(sdt), rc), 3),
+                nbytes=(isz + dsz) * N, flops=2 * N)
+            rk = rc.clone()
+            timing["direction_cg"] = entry(
+                0.0, cuda_ms(lambda: k_cg.cg_step_half(xk, rk, p, b, num, den), 10),
+                cuda_ms(lambda: k_cg.cg_step_half_plain(xk, rk, p, b, num, den), 10),
+                nbytes=(5 * isz + dsz) * N, flops=4 * N)
+            report["direction_cg_direction_ms"] = cuda_ms(
+                lambda: k_cg.cg_direction_half(pk, rc, pk, num, den), 10)
+            del r, xk, pk, rk
+        if (sname, dname) == ("float64", "bfloat16"):
+            # K1 and K2 in float64 (the mixed solve's outer apply and
+            # combine); K1's bound by the FP64 tensor cores' rate, its
+            # FP64 CUDA-core time beside it
+            flops = 2 * N * n * P
+            xw = rnd()
+            k1 = entry(0.0, cuda_ms(lambda: k_apply.element_apply(xw, coeff, stack, b=b,
+                                                                   rowsum=rowsum), 3),
+                       None, nbytes=8 * (3 * N + E * P + P * n * n), flops=flops,
+                       library_ms=cuda_ms(lambda: torch.einsum("en,pmn,ep->em", xw, stack,
+                                                                coeff), 2))
+            k1.update(apply_ms=cuda_ms(lambda: k_apply.element_apply(xw, coeff, stack), 3),
+                      bound_ms=max(flops / PEAK_FP64_TC_FLOPS, 8 * 3 * N / PEAK_HBM_BYTES) * 1e3,
+                      bound_by="operations (FP64 tensor cores)",
+                      fp64_cuda_core_ms=flops / PEAK_FP64_FLOPS * 1e3)
+            report["element_apply_f64"] = k1
+            st = outer.levels[top].structured
+            report["structured_combine_f64"] = entry(
+                0.0, cuda_ms(lambda: k_st.combine_structured(xw, st, constrain=True), 10),
+                cuda_ms(lambda: k_st.combine_structured_plain(xw, st, constrain=True), 3),
+                nbytes=8 * 2 * N, flops=combine_adds(plan, top, E))
+            del xw
+        del p, pw, x, rc, dinv, b, m, coeff
+        torch.cuda.empty_cache()
+    report["bitwise_pairs"] = checked
+    return timing, report
+
+
+def bench_entry(smi, n):
+    """Phase 17a: ``python -m homogenization_jl_tpu_torch.bench`` in a
+    subprocess at its defaults (the BENCH_* knobs cleared; n = 32 unless a
+    rehearsal size is given): the partial and the final line parse, the
+    metric and every detail key are there, the device is this card, and at
+    n = 32 the solve takes BENCH_ITERS within 1. Returns the final line."""
+    import torch
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    if n != 32:
+        env["BENCH_N"] = str(n)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "homogenization_jl_tpu_torch.bench"], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"17: the bench exited {res.returncode}: {res.stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in res.stdout.splitlines() if ln.startswith("{")]
+    check(len(lines) == 2 and lines[0]["detail"].get("partial") is True,
+          f"17: expected a partial and a final line: {res.stdout[-2000:]}")
+    out = lines[-1]
+    d = out["detail"]
+    check(out["metric"] == "gmg_vcycle_dof_per_s_per_chip_3d_checkerboard"
+          and out["unit"] == "DOF/s" and out["value"] > 0, f"17: the line: {out}")
+    missing = [k for k in BENCH_DETAIL_KEYS if k not in d]
+    check(not missing, f"17: detail lacks {missing}")
+    check(d["device"] == torch.cuda.get_device_name(0), f"17: device {d['device']}")
+    if n == 32:
+        check(d["dofs"] == 190_513_152, f"17: {d['dofs']} DOFs")
+        for got, want, tol in ((d["iters_to_1e3"], BENCH_ITERS[0], "1e-3"),
+                               (d["iters_to_1e4"], BENCH_ITERS[1], "1e-4")):
+            check(got is not None and abs(got - want) <= 1,
+                  f"17: {got} PCG iterations to {tol}, expected {want} +- 1")
+    return dict(out, wall_s=wall)
+
+
+def bf16_directions(hz, kbuild, plan, sigma, b_np, dev, dense, sec_iter_phase5):
+    """Phase 17b: phase 5's solve with direction_dtype="bfloat16" (K16's
+    apply and Chebyshev update on its path): BENCH_BF16_ITERS within 1 at
+    n = 32, seconds per PCG iteration beside phase 5's; then three V-cycles
+    of the bench's vcycle mode (cg_exact, smooth_precision="high") with
+    bfloat16 directions (K16's dot and CG forms), the residual falling.
+    Returns (report, launches of the Chebyshev solve, launches of the
+    cycles)."""
+    import torch
+
+    b = torch.as_tensor(b_np, device=dev, dtype=torch.float32)
+    s = hz.MultigridSolver(plan, dtype=torch.float32, device=dev, smoother="chebyshev",
+                           coarse="mg", coarse_mg_tol=5e-2, direction_dtype="bfloat16", **dense)
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    x, hist = s.solve(b, sigma, 0.0, tol=1e-4, method="auto", max_cycles=30)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kbuild.LAUNCHES)
+    check(all(launches[k] > 0 for k in BF16_CHEB_PATH), f"17b: a kernel never ran: {launches}")
+    check(bool(torch.isfinite(x).all()) and hist[-1] < 1e-4, f"17b: history {hist}")
+
+    def iters_to(tol):
+        return next((i - 1 for i in range(1, len(hist)) if hist[i] < tol), None)
+
+    it3, it4 = iters_to(1e-3), iters_to(1e-4)
+    if plan.base.nelements == 196_608:
+        for got, want, tol in ((it3, BENCH_BF16_ITERS[0], "1e-3"),
+                               (it4, BENCH_BF16_ITERS[1], "1e-4")):
+            check(got is not None and abs(got - want) <= 1,
+                  f"17b: {got} PCG iterations to {tol} with bfloat16 directions, "
+                  f"expected {want} +- 1")
+    coeff = s.coefficients(sigma, 0.0)
+    setup = s.coarse_setup(sigma, 0.0)
+    lam_max = s.estimate_lambda_max(coeff)
+    state = list(s._pcg_init_impl(torch.zeros_like(b), b, coeff, setup, lam_max))
+
+    def pcg_step():
+        state[:] = s._pcg_step_impl(*state[:4], coeff, setup, lam_max, flexible=True)
+
+    sec_iter = cuda_ms(pcg_step, 5) / 1e3
+    del state, x, s, coeff, setup
+    torch.cuda.empty_cache()
+
+    s2 = hz.MultigridSolver(plan, dtype=torch.float32, device=dev, smoother="cg_exact",
+                            coarse="mg", coarse_mg_tol=5e-2, smooth_precision="high",
+                            direction_dtype="bfloat16", **dense)
+    coeff = s2.coefficients(sigma, 0.0)
+    setup = s2.coarse_setup(sigma, 0.0)
+    b_norm = float(s2.residual_norm(b))
+    kbuild.reset_launches()
+    x, _ = s2.zero_states()
+    norms = []
+    for _ in range(3):
+        x, r = s2.vcycle(x, b, coeff, setup)
+        norms.append(float(s2.residual_norm(r)) / b_norm)
+    torch.cuda.synchronize()
+    launches_cg = dict(kbuild.LAUNCHES)
+    check(all(launches_cg[k] > 0 for k in BF16_CG_PATH), f"17b: a kernel never ran: {launches_cg}")
+    check(all(math.isfinite(v) for v in norms) and norms[2] < norms[1] < norms[0],
+          f"17b: cg_exact cycles with bfloat16 directions: {norms}")
+    del x, r, s2, coeff, setup, b
+    torch.cuda.empty_cache()
+    report = dict(history=hist, iters_to_1e3=it3, iters_to_1e4=it4, solve_wall_s=wall,
+                  sec_per_pcg_iter=sec_iter, sec_per_pcg_iter_phase5=sec_iter_phase5,
+                  cg_exact_cycles_rel=norms, launches=launches, launches_cg_exact=launches_cg)
+    return report, launches, launches_cg
+
+
+def mixed_solve(kbuild, outer, inner, sigma, b_np, dev, smi):
+    """Phase 18: run_mixed_pcg's solve (outer float64 / inner float32
+    Chebyshev, coarse="mg", coarse_mg_tol=5e-2 inside) at the main-path
+    size: the setup's seconds, two warm-up iterations, then the solve to
+    MIXED_TOL with keep_best between CUDA events (seconds per iteration);
+    its history and crossings, 1e-6 within MIXED_1E6_WITHIN iterations;
+    peak memory; the float64 residual of the returned x recomputed from
+    scratch; the kernels of the solve; one step under torch.profiler
+    (phase 15c's rules). Returns the solve's launches."""
+    import torch
+
+    from homogenization_jl_tpu_torch.solver.multigrid import (
+        mixed_precision_pcg,
+        mixed_precision_setup,
+    )
+
+    b = torch.as_tensor(b_np, device=dev, dtype=torch.float64)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    setup = mixed_precision_setup(outer, inner, sigma)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    x, h2 = mixed_precision_pcg(outer, inner, b, setup=setup, iters=2, tol=0.0)
+    del x
+    kbuild.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    x, hist = mixed_precision_pcg(outer, inner, b, setup=setup, iters=MIXED_ITERS, tol=MIXED_TOL,
+                                  keep_best=True)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kbuild.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    iters = len(hist) - 1
+    sec_iter = start.elapsed_time(end) / 1e3 / iters
+    rel = [h / hist[0] for h in hist]
+    cross = {f"{t:g}": next((i for i, v in enumerate(rel) if v < t), None)
+             for t in (1e-3, 1e-4, 1e-6, 1e-9)}
+    check(all(launches[k] > 0 for k in MIXED_PATH), f"18: a kernel never ran: {launches}")
+    check(bool(torch.isfinite(x).all()), "18: non-finite x")
+    check(cross["1e-06"] is not None and cross["1e-06"] <= MIXED_1E6_WITHIN,
+          f"18: 1e-6 crossed at {cross['1e-06']} > {MIXED_1E6_WITHIN}: {rel}")
+    top = outer.nlevels - 1
+    r = outer._local_residual(x, b, setup.coeff_o, top)
+    recomputed = float(outer.residual_norm(outer.combine(r))) / hist[0]
+    del r
+    check(recomputed <= MIXED_RECOMPUTED_MAX,
+          f"18: the returned x's recomputed residual {recomputed} > {MIXED_RECOMPUTED_MAX}")
+    del x
+    torch.cuda.empty_cache()
+    # one step under torch.profiler
+    init, step = outer._mixed_pcg_programs(inner)
+    state = list(init(outer.zero_states()[0], b, setup))
+
+    def mixed_step():
+        state[:] = step(*state[:4], setup)
+
+    mixed_step()
+    prof_d, prof = covered_profile(mixed_step, "phase 18")
+    del prof, state
+    rows = prof_d["rows"]
+    lib = library_elementwise(rows)
+    worst = max((us for _, us, _ in lib), default=0.0)
+    check(worst <= LIBRARY_ELEMENTWISE_MAX_US,
+          f"18: a PyTorch elementwise kernel takes {worst} us per launch: {lib}")
+    busy = sum(rw[1] for rw in rows)
+    say(18, ok=True, dofs=int(np.prod(b_np.shape)), history=hist, rel_history=rel,
+        iterations=iters, crossings=cross, sec_per_iter=sec_iter, solve_wall_s=wall,
+        setup_s=t_setup, warmup_history=h2, max_memory_allocated=peak,
+        recomputed_rel_residual=recomputed, launches=launches,
+        profile=dict(wall_ms=prof_d["wall_ms"], event_ms=prof_d["event_ms"],
+                     coverage=prof_d["coverage"], attempts=prof_d["attempts"],
+                     device_busy_ms=busy, idle_share=1.0 - busy / prof_d["wall_ms"],
+                     top15=[(name[:90], ms, cnt) for name, ms, cnt in rows[:15]],
+                     library_elementwise=lib, max_library_elementwise_us=worst),
+        card=smi)
+    del b, setup
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mixed_slab(dev, smi, n):
+    """Phase 18b: run_slab's "mixed" job (mixed-precision PCG on slabs, K11
+    the combine) through an NCCL group of one rank, with the single-device
+    leg on the same cube-order plan (``compare``): one rank does the
+    single device's arithmetic, so the histories and x must be equal."""
+    import torch
+
+    from homogenization_jl_tpu_torch.parallel import run_slab
+    from homogenization_jl_tpu_torch.parallel.group import SlabGroup
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    group = SlabGroup.from_file(os.path.join(store, "store"), 0, 1, device=dev)
+    try:
+        t0 = time.perf_counter()
+        out = run_slab.run_mixed(group, 3, n, 5, iters=MIXED_ITERS, tol=MIXED_TOL, compare=True)
+        wall = time.perf_counter() - t0
+    finally:
+        SlabGroup.destroy()
+        shutil.rmtree(store, ignore_errors=True)
+    check(all(out["launches"][k] > 0 for k in MIXED_SLAB_PATH),
+          f"18b: a kernel never ran: {out['launches']}")
+    check(out["history"] == out["history_single"] and out["x_rel_diff"] == 0.0,
+          f"18b: the slab of one differs from the single device: {out['history']} vs "
+          f"{out['history_single']}, x {out['x_rel_diff']}")
+    h = out["history"]
+    check(h[-1] <= 1e-6 * h[0], f"18b: history {h}")
+    say("18b", ok=True, n=n, wall_s=wall, card=smi, **out)
+    torch.cuda.empty_cache()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=32, help="cubes per axis of the base")
@@ -2079,13 +2584,12 @@ def main(argv=None):
         state[:] = solver._pcg_step_impl(*state[:4], coeff, setup, lam_max, flexible=True)
 
     sec_iter = cuda_ms(pcg_step, 5) / 1e3
-    # one PCG iteration under torch.profiler (read by phase 15c)
-    pcg_profile, prof = covered_profile(pcg_step, "phase 5")
-    if args.profile:
-        os.makedirs(args.profile, exist_ok=True)
-        with open(os.path.join(args.profile, "profile_pcg_iter.txt"), "w") as f:
-            f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
-    del state, prof
+    # one PCG iteration under torch.profiler is taken after phase 15 (read by
+    # phase 15c): a profiler session after the first one in this process,
+    # while the NCCL group of phases 12-15 is alive, lost a prefix of its
+    # step's kernels on every attempt (15b covered 0.43 of its step), where
+    # 15b's profile as the process's first session, and a later session
+    # with no group alive, were covered (PERF.md §6)
     say(5, ok=True, coarse="mg", dofs=dofs, history=hist,
         iters_to_1e3=iters_to(hist, 1e-3), iters_to_1e4=iters_to(hist, 1e-4),
         solve_wall_s=t_solve, sec_per_vcycle=sec_vcycle, sec_per_pcg_iter=sec_iter,
@@ -2097,7 +2601,7 @@ def main(argv=None):
         second_solve_bitwise_equal=True, launches=launches, card=smi)
 
     # ---- phase 6: the dense Cholesky coarse solve (coarse="chol") ----------
-    del solver, coeff, setup, x
+    del x  # phase 5's solver and PCG state stay for its profile (above)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     solver_c = hz.MultigridSolver(plan, dtype=torch.float32, device=dev,
@@ -2167,12 +2671,47 @@ def main(argv=None):
         torch.cuda.empty_cache()
         driver_profiles, driver_coverage = flagship_ordered_sharded(
             kbuild, group, smi, flagship_sec_iter)
-        profiles_report(pcg_profile, driver_profiles, driver_coverage, smi)
     finally:
         SlabGroup.destroy()
         shutil.rmtree(store, ignore_errors=True)
+    # phase 5's PCG iteration under torch.profiler, the group gone (above)
+    pcg_profile, prof = covered_profile(pcg_step, "phase 5")
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
+        with open(os.path.join(args.profile, "profile_pcg_iter.txt"), "w") as f:
+            f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
+    del state, prof, pcg_step, solver, coeff, setup
+    torch.cuda.empty_cache()
+    profiles_report(pcg_profile, driver_profiles, driver_coverage, smi)
     launches_d = sharded_shared_card(dev, smi)
     say("14-15", ok=True, wall_s=time.perf_counter() - t_shard)
+
+    # ---- phases 16-18b: the precision surface -----------------------------
+    from homogenization_jl_tpu_torch.fem.local_operators import load_vector
+    from homogenization_jl_tpu_torch.mesh.grid import affine_maps
+    from homogenization_jl_tpu_torch.parallel.run_slab import mixed_pair
+
+    t_prec = time.perf_counter()
+    _, _, detJ, _ = affine_maps(base)
+    b_np = detJ[:, None] * load_vector(plan.reference.levels[4])[None, :]
+    # run_mixed_pcg's pair on phase 5's plan (its problem at n = 32)
+    outer, inner = mixed_pair(
+        plan, lambda dtype, **kw: hz.MultigridSolver(plan, dtype=dtype, device=dev, **kw))
+    coeff64 = torch.as_tensor(element_coefficients(base, sigma, 0.0), device=dev)
+    timing_p, report_p = check_precision_kernels(outer, inner, plan, coeff64, dev)
+    timing.update(timing_p)
+    del coeff64
+    kbuild.reset_launches()
+    say(16, ok=True, f32_bf16=timing_p, card=smi, **report_p)
+    bench_line = bench_entry(smi, args.n)
+    report_b, launches_b, launches_bc = bf16_directions(hz, kbuild, plan, sigma, b_np, dev, dense,
+                                                        sec_iter)
+    say(17, ok=True, bench=bench_line, bf16=report_b, card=smi)
+    launches_m = mixed_solve(kbuild, outer, inner, sigma, b_np, dev, smi)
+    del outer, inner, b_np
+    torch.cuda.empty_cache()
+    mixed_slab(dev, smi, min(MIXED_SLAB_N, args.n))
+    say("16-18", ok=True, wall_s=time.perf_counter() - t_prec)
 
     path_launches = {name: launches_f[name] for name in KERNELS}
     path_launches["gather_combine"] = launches_2d["ordered"]["gather_combine"]
@@ -2180,6 +2719,11 @@ def main(argv=None):
         path_launches[name] = launches_v[name]
     path_launches["slab_combine"] = launches_s["slab_combine"]
     path_launches["sharded_combine"] = launches_d["sharded_combine"]
+    for name in ("direction_apply", "direction_chebyshev"):
+        path_launches[name] = launches_b[name]
+    for name in ("direction_dot", "direction_cg"):
+        path_launches[name] = launches_bc[name]
+    path_launches["mixed_boundary"] = launches_m["mixed_boundary"]
     kernels = [
         dict(name=name, **meta, launches=path_launches[name], **timing[name])
         for name, meta in KERNELS.items()

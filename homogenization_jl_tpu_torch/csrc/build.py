@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-On first use the sources are compiled by ``nvcc`` for Hopper
+On first use the sources (``*.cu``, which include the shared ``*.cuh``
+headers) are compiled by ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``), one ``nvcc`` process per source
 started together, and linked into one shared library with a plain C
 interface under ``build/kernels/`` at the root of the checkout (listed in
@@ -36,6 +37,11 @@ LAUNCHES = {
     "slab_combine": 0,
     "sharded_combine": 0,
     "elementwise": 0,
+    "direction_apply": 0,
+    "direction_chebyshev": 0,
+    "direction_dot": 0,
+    "direction_cg": 0,
+    "mixed_boundary": 0,
 }
 
 _CSRC = os.path.dirname(os.path.abspath(__file__))
@@ -54,6 +60,8 @@ _SIGNATURES = {
     # dtype(0 f32, 1 f64), x, coeff, stack, b (or NULL), row sums (with b),
     # mask (or NULL), out, E, n, P, stream
     "hz_element_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # dtype, xtype (0 f32, 2 bf16, 3 f16), then as hz_element_apply
+    "hz_element_apply_half": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # dtype, x, out, mask (or NULL), E, n_local, i0, n, d, ept, type_major,
     # mode, tab, stream
     "hz_structured_combine": [_I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P],
@@ -84,10 +92,19 @@ _SIGNATURES = {
     "hz_restrict": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # dtype, a, b, mask (or NULL), scale (or NULL), blocksum, out, N, stream
     "hz_masked_dot": [_I, _P, _P, _P, _P, _P, _P, _L, _P],
+    # dtype, atype (the stored type of a), then as hz_masked_dot
+    "hz_masked_dot_half": [_I, _I, _P, _P, _P, _P, _P, _P, _L, _P],
     # dtype, x, r (or NULL), p, Ap, num, den, r_out (or NULL), x_zero, N, stream
     "hz_cg_step": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _L, _P],
     # dtype, out, rc, p, num, den, N, stream
     "hz_cg_direction": [_I, _P, _P, _P, _P, _P, _L, _P],
+    # dtype, ptype (the stored type of p), then as hz_cg_step / hz_cg_direction
+    "hz_cg_step_half": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _L, _P],
+    "hz_cg_direction_half": [_I, _I, _P, _P, _P, _P, _P, _L, _P],
+    # c (f64), s (f32, or NULL), out (f32), N, stream
+    "hz_downcast_scale": [_P, _P, _P, _L, _P],
+    # z (f32), out (f64), N, stream
+    "hz_upcast": [_P, _P, _L, _P],
     # dtype, x, mask, out, N, stream
     "hz_ew_mask": [_I, _P, _P, _P, _L, _P],
     # dtype, a, b, out, N, stream
@@ -131,7 +148,7 @@ def kernels_lib() -> ctypes.CDLL:
         return _LIB
     srcs = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
     h = hashlib.sha256()
-    for s in srcs:
+    for s in srcs + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
         with open(s, "rb") as f:
             h.update(f.read())
     so = os.path.join(BUILD_DIR, f"libhz_kernels_{h.hexdigest()[:12]}.so")

@@ -28,7 +28,7 @@ from .ops.apply import stack_rowsum
 class SolverState(NamedTuple):
     coeff: torch.Tensor  # [E, P]
     chol: object  # coarse payload: tensor, None ("cg") or MGCoarseSetup
-    lam_max: float | None  # None for the CG smoothers
+    lam_max: float | torch.Tensor | None  # [nlevels] per level; None for the CG smoothers
     b: torch.Tensor | None  # [E, n_local(finest)] local rhs
 
 
@@ -95,15 +95,22 @@ def solver_state_from_numpy(
 
     ``stacks`` and ``P_up`` overwrite the solver's level tensors in place of
     its own setup (``load_levels``); ``coeff``, the coarse payload ``chol``
-    (``coarse_setup_from_numpy``), ``lam_max`` (None passes through: the CG
-    smoothers take none) and ``b`` come back as a SolverState on the
-    solver's device and dtype."""
+    (``coarse_setup_from_numpy``), ``lam_max`` and ``b`` come back as a
+    SolverState on the solver's device and dtype. ``lam_max`` is a scalar
+    (a float), the JAX ``estimate_lambda_max_levels`` array (an [nlevels]
+    tensor, each level's bound) or None (passed through: the CG smoothers
+    take none). The solver's own options stay as constructed: its
+    ``direction_dtype`` stores the smoothers' directions of every cycle run
+    on this state, as the JAX solver's does."""
     tens = _loader(solver)
     load_levels(solver, stacks, P_up)
+    if lam_max is not None:
+        lam_max = np.asarray(lam_max, dtype=np.float64)
+        lam_max = float(lam_max) if lam_max.ndim == 0 else tens(lam_max)
     return SolverState(
         coeff=tens(coeff),
         chol=coarse_setup_from_numpy(solver, chol),
-        lam_max=None if lam_max is None else float(np.asarray(lam_max)),
+        lam_max=lam_max,
         b=None if b is None else tens(b),
     )
 

@@ -20,6 +20,13 @@ shift shrinks the products to the variation of x inside an element.
 An optional bool ``mask`` multiplies the result at the store (the mask
 constraint after the apply): the kernel's output is the unmasked output
 times the mask, bit for bit.
+
+``element_apply_half`` takes an x stored narrower than the state
+(``coeff``'s dtype): bfloat16 or float16, or float32 under a float64 state
+— the smoothers' half-width direction vectors of ``direction_dtype``
+(kernel K16, K1 on a narrower input, csrc/element_apply_half.cu). Its
+result is K1's on ``x.to(state dtype)`` bit for bit, in the state dtype;
+its plain form casts x up first.
 """
 
 from __future__ import annotations
@@ -29,7 +36,14 @@ import torch
 from ..csrc.build import LAUNCHES, launch
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
-# MAXP of csrc/element_apply.cu (3D: six conductivity pieces and the mass)
+# storage codes of a half-width operand (csrc/widen.cuh); which of them a
+# state dtype takes: any type narrower than the state's
+STORE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2, torch.float16: 3}
+NARROWER = {
+    torch.float32: (torch.bfloat16, torch.float16),
+    torch.float64: (torch.float32, torch.bfloat16, torch.float16),
+}
+# MAXP of csrc/element_apply.cuh (3D: six conductivity pieces and the mass)
 _MAX_PIECES = 8
 
 
@@ -87,43 +101,63 @@ def element_apply(x, coeff, stack, b=None, out=None, rowsum=None, mask=None):
     """
     if x.dtype not in _DTYPES:
         raise TypeError(f"element_apply: unsupported dtype {x.dtype}")
+    return _apply(x, coeff, stack, b, out, rowsum, mask, x.dtype)
+
+
+def element_apply_half(x, coeff, stack, b=None, out=None, rowsum=None, mask=None):
+    """``element_apply`` on an x stored narrower than the state dtype
+    (coeff's; ``NARROWER``): kernel K16 for CUDA tensors, the result K1's
+    on ``x.to(coeff.dtype)`` bit for bit and in coeff's dtype; the plain
+    form casts x up first (module docstring)."""
+    dt = getattr(coeff, "dtype", None)
+    if dt not in _DTYPES or x.dtype not in NARROWER[dt]:
+        raise TypeError(f"element_apply_half: x dtype {x.dtype} under a {dt} state")
+    return _apply(x, coeff, stack, b, out, rowsum, mask, dt)
+
+
+def _apply(x, coeff, stack, b, out, rowsum, mask, dt):
+    """The checks and the route of both wrappers; ``dt`` is the state
+    dtype (x's, or narrower for ``element_apply_half``)."""
     if x.dim() != 2 or stack.dim() != 3 or coeff.dim() != 2:
         raise ValueError("element_apply: expected x [E, n], coeff [E, P], stack [P, n, n]")
     E, n = x.shape
     P = stack.shape[0]
     dev = x.device
+    half = x.dtype != dt
     _check("x", x, x.dtype, dev)
-    _check("coeff", coeff, x.dtype, dev, (E, P))
-    _check("stack", stack, x.dtype, dev, (P, n, n))
+    _check("coeff", coeff, dt, dev, (E, P))
+    _check("stack", stack, dt, dev, (P, n, n))
     if b is not None:
-        _check("b", b, x.dtype, dev, (E, n))
+        _check("b", b, dt, dev, (E, n))
         if P > _MAX_PIECES:
             raise ValueError(f"element_apply: the residual form takes at most {_MAX_PIECES} pieces")
         if rowsum is None:
             rowsum = stack_rowsum(stack)
-        _check("rowsum", rowsum, x.dtype, dev, (P, n))
+        _check("rowsum", rowsum, dt, dev, (P, n))
     if out is not None:
-        _check("out", out, x.dtype, dev, (E, n))
+        _check("out", out, dt, dev, (E, n))
         if out.data_ptr() == x.data_ptr():
             raise ValueError("element_apply: out must not alias x")
     if mask is not None:
         _check("mask", mask, torch.bool, dev, (E, n))
     if dev.type == "cpu":
-        y = element_apply_plain(x, coeff, stack, b, rowsum)
+        y = element_apply_plain(x.to(dt) if half else x, coeff, stack, b, rowsum)
         if mask is not None:
             y = y * mask
         return y if out is None else out.copy_(y)
     if dev.type != "cuda":
         raise ValueError(f"element_apply: unsupported device {dev}")
     if out is None:
-        out = torch.empty_like(x)
-    LAUNCHES["element_apply"] += 1
-    launch(
-        "hz_element_apply", _DTYPES[x.dtype], x.data_ptr(), coeff.data_ptr(),
-        stack.data_ptr(), None if b is None else b.data_ptr(),
-        None if b is None else rowsum.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(), E, n, P,
-    )
+        out = torch.empty((E, n), dtype=dt, device=dev)
+    tail = (coeff.data_ptr(), stack.data_ptr(), None if b is None else b.data_ptr(),
+            None if b is None else rowsum.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(), E, n, P)
+    if half:
+        LAUNCHES["direction_apply"] += 1
+        launch("hz_element_apply_half", _DTYPES[dt], STORE_CODES[x.dtype], x.data_ptr(), *tail)
+    else:
+        LAUNCHES["element_apply"] += 1
+        launch("hz_element_apply", _DTYPES[dt], x.data_ptr(), *tail)
     return out
 
 

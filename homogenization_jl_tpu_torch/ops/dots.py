@@ -17,6 +17,12 @@ and the CG smoothers' alpha and beta rely on. The plain form (CPU tensors)
 takes the same steps in the same order, so the CPU tests hold the kernel's
 order too; on the card the two agree bit for bit (up to the sign of a zero).
 K9 (ops/integrals.py) sums its rows in this order as well.
+
+``dot_half(a, b, ...)`` takes an ``a`` stored narrower than the state (b's
+dtype; ops/apply.py::NARROWER): the half-width direction of
+``_smooth_cg_exact``'s ``vdot(load(p), A p)`` (kernel K16, K5 widening a
+on load, csrc/dots.cu). It is ``dot(a.to(b.dtype), b, ...)`` bit for bit;
+its plain form casts a up first.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 
 from ..csrc.build import LAUNCHES, launch
+from .apply import NARROWER, STORE_CODES
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 # the kernels' fixed reduction grid (csrc/dots.cu, csrc/integrals.cu)
@@ -105,22 +112,43 @@ def dot(a, b, mask=None, scale=None):
         raise TypeError(f"dot: unsupported operand {getattr(a, 'dtype', type(a))}")
     _check("a", a, a)
     _check("b", b, a)
+    return _dot(a, b, mask, scale)
+
+
+def dot_half(a, b, mask=None, scale=None):
+    """``dot`` with ``a`` stored narrower than b's dtype (module
+    docstring); the result in b's dtype."""
+    if not isinstance(b, torch.Tensor) or b.dtype not in _DTYPES:
+        raise TypeError(f"dot_half: unsupported operand {getattr(b, 'dtype', type(b))}")
+    if not isinstance(a, torch.Tensor) or a.dtype not in NARROWER[b.dtype]:
+        raise TypeError(f"dot_half: a dtype {getattr(a, 'dtype', type(a))} under {b.dtype}")
+    _check("b", b, b)
+    _check("a", a, b, a.dtype)
+    return _dot(a, b, mask, scale)
+
+
+def _dot(a, b, mask, scale):
+    """The checks of mask and scale against b, and the route of both
+    wrappers (a and b checked by the caller)."""
     if mask is not None:
-        _check("mask", mask, a, torch.bool)
+        _check("mask", mask, b, torch.bool)
     if scale is not None:
-        _check("scale", scale, a)
-    dev = a.device
+        _check("scale", scale, b)
+    dev, dt = b.device, b.dtype
+    half = a.dtype != dt
     if dev.type == "cpu":
-        return dot_plain(a, b, mask, scale)
+        return dot_plain(a.to(dt) if half else a, b, mask, scale)
     if dev.type != "cuda":
         raise ValueError(f"dot: unsupported device {dev}")
-    blocksum = torch.empty(RED_BLOCKS, dtype=a.dtype, device=dev)
-    out = torch.empty((), dtype=a.dtype, device=dev)
-    LAUNCHES["masked_dot"] += 1
-    launch(
-        "hz_masked_dot", _DTYPES[a.dtype], a.data_ptr(), b.data_ptr(),
-        None if mask is None else mask.data_ptr(),
-        None if scale is None else scale.data_ptr(),
-        blocksum.data_ptr(), out.data_ptr(), a.numel(),
-    )
+    blocksum = torch.empty(RED_BLOCKS, dtype=dt, device=dev)
+    out = torch.empty((), dtype=dt, device=dev)
+    tail = (a.data_ptr(), b.data_ptr(), None if mask is None else mask.data_ptr(),
+            None if scale is None else scale.data_ptr(), blocksum.data_ptr(), out.data_ptr(),
+            a.numel())
+    if half:
+        LAUNCHES["direction_dot"] += 1
+        launch("hz_masked_dot_half", _DTYPES[dt], STORE_CODES[a.dtype], *tail)
+    else:
+        LAUNCHES["masked_dot"] += 1
+        launch("hz_masked_dot", _DTYPES[dt], *tail)
     return out

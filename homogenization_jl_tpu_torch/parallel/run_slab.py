@@ -27,8 +27,15 @@ two ranks on one card), runs ``job`` on each (``worker``) and returns
 their outputs in rank order; the spawned ranks import no JAX. The job kinds:
 "run" (this module's slab run), "driver" (the lattice driver through the
 slab solver), "sharded" (the gather-sharded solver of parallel/sharding.py
-on the JAX suite's problem, ``run_sharded``) and "ordered_driver" (the
-ordered driver through it).
+on the JAX suite's problem, ``run_sharded``), "ordered_driver" (the
+ordered driver through it) and "mixed" (mixed-precision PCG on slabs,
+``run_mixed``: the float64 Krylov loop around the float32 V-cycle of
+run_mixed_pcg.py, the JAX script's ``MIXED_SLAB=S``).
+
+On cards the mixed-precision run is
+
+    torchrun --nproc-per-node=S -m homogenization_jl_tpu_torch.parallel.run_slab \\
+        --kind mixed [--n 32] [--levels 5] [--iters 30] [--tol 1e-10] [--compare]
 """
 
 from __future__ import annotations
@@ -230,8 +237,81 @@ def run_ordered_driver(group: SlabGroup, **kwargs) -> dict:
                 cycles_per_step=trace.cycles_per_step, residuals=trace.residuals)
 
 
+def mixed_pair(plan, make):
+    """run_mixed_pcg.py's solver pair on ``plan`` through ``make(dtype,
+    **options)``: the inner float32 Chebyshev V-cycle (``coarse_mg_tol=5e-2``,
+    ``smooth_precision="high"``) and the outer float64 Chebyshev solver;
+    the dense coarse factor while the base has at most 8000 interior
+    nodes, else ``coarse="mg"``. Returns (outer, inner)."""
+    coarse = "chol" if len(plan.interior_base_nodes) <= 8000 else "mg"
+    inner = make(torch.float32, smoother="chebyshev", coarse=coarse,
+                 smooth_precision="high", coarse_mg_tol=5e-2)
+    outer = make(torch.float64, smoother="chebyshev", coarse=coarse)
+    return outer, inner
+
+
+def run_mixed(group: SlabGroup, dim: int = 3, n: int = 8, nlevels: int = 3, *,
+              iters: int = 30, tol: float = 1e-10, keep_best: bool = True, sigma=None,
+              compare: bool = False, keep_states: bool = False) -> dict:
+    """One rank of mixed-precision PCG on slabs: run_mixed_pcg.py's pair
+    (``mixed_pair``) of ``SlabShardedMultigridSolver`` on ``group`` over a
+    cube-major ``hypercube(dim, n)`` plan, ``sigma`` the element
+    conductivities (default: the checkerboard of ``problem``), the
+    ``load_vector`` rhs. Returns the
+    residual history, the seconds of the setup and of the solve, the rank's
+    kernel launches of the solve, its rows of x with ``keep_states``, and
+    with ``compare`` (rank 0) the single-device solve of the same problem:
+    its history and its x's largest difference from the joined slab x,
+    relative to the largest |x| (the slab x is gathered to rank 0)."""
+    from ..solver.multigrid import mixed_precision_pcg, mixed_precision_setup
+
+    dev = group.device
+    plan, sig, b_np, _, _ = problem(dim, n, nlevels)
+    sigma = sig if sigma is None else np.asarray(sigma)
+
+    outer, inner = mixed_pair(
+        plan, lambda dtype, **kw: SlabShardedMultigridSolver(plan, group, dtype=dtype, **kw))
+    out = dict(rank=group.rank, slabs=group.size, dofs=plan.base.nelements * plan.n_local(nlevels - 1),
+               coarse=outer.coarse_kind)
+    b = outer.put(b_np)
+    _sync(dev)
+    t0 = time.perf_counter()
+    setup = mixed_precision_setup(outer, inner, sigma)
+    _sync(dev)
+    out["setup_s"] = time.perf_counter() - t0
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    x, hist = mixed_precision_pcg(outer, inner, b, setup=setup, iters=iters, tol=tol,
+                                  keep_best=keep_best)
+    _sync(dev)
+    out.update(history=hist, solve_s=time.perf_counter() - t0,
+               launches={k: v - before[k] for k, v in LAUNCHES.items()})
+    if keep_states:
+        out["x"] = x.cpu().numpy()
+    parts = None
+    if compare:
+        # the whole x on rank 0 (every rank joins the gather)
+        parts = [torch.empty_like(x) for _ in range(group.size)] if group.size > 1 else [x]
+        if group.size > 1:
+            torch.distributed.all_gather(parts, x)
+    del outer, inner, setup, x
+    if compare and group.rank == 0:
+        x_slab = torch.cat(parts).cpu().numpy()
+        del parts
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        o1, i1 = mixed_pair(
+            plan, lambda dtype, **kw: MultigridSolver(plan, dtype=dtype, device=dev, **kw))
+        x1, h1 = mixed_precision_pcg(o1, i1, torch.as_tensor(b_np, device=dev), sigma,
+                                     iters=iters, tol=tol, keep_best=keep_best)
+        x1 = x1.cpu().numpy()
+        out.update(history_single=h1,
+                   x_rel_diff=float(np.abs(x_slab - x1).max() / np.abs(x1).max()))
+    return out
+
+
 JOBS = {"run": run, "driver": run_driver, "sharded": run_sharded,
-        "ordered_driver": run_ordered_driver}
+        "ordered_driver": run_ordered_driver, "mixed": run_mixed}
 
 
 def worker(rank: int, size: int, init_file: str, out_dir: str, job: dict) -> None:
@@ -286,10 +366,14 @@ def spawn_ranks(size: int, job: dict, timeout: float = 300.0) -> list:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="slab-sharded V-cycles (one process per card)")
+    ap.add_argument("--kind", choices=("run", "mixed"), default="run",
+                    help="run: V-cycles (run); mixed: mixed-precision PCG (run_mixed)")
     ap.add_argument("--n", type=int, default=32, help="cubes per axis")
     ap.add_argument("--levels", type=int, default=5)
     ap.add_argument("--cycles", type=int, default=3)
     ap.add_argument("--smoother", default="cg")
+    ap.add_argument("--iters", type=int, default=30, help="mixed: PCG iterations at most")
+    ap.add_argument("--tol", type=float, default=1e-10, help="mixed: relative tolerance")
     ap.add_argument("--compare", action="store_true",
                     help="also run the single-device solver on rank 0")
     ap.add_argument("--device", default=None,
@@ -297,8 +381,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
     group = SlabGroup.from_env(device=args.device)
     try:
-        out = run(group, args.n, args.levels, args.cycles, smoother=args.smoother,
-                  compare=args.compare)
+        if args.kind == "mixed":
+            out = run_mixed(group, 3, args.n, args.levels, iters=args.iters, tol=args.tol,
+                            compare=args.compare)
+        else:
+            out = run(group, args.n, args.levels, args.cycles, smoother=args.smoother,
+                      compare=args.compare)
     finally:
         SlabGroup.destroy()
     if out["rank"] == 0:

@@ -37,8 +37,13 @@ The host tables are the JAX module's (``ShardedLevelTables``,
 
 The surface is the JAX class's (sharding.py:225-243). What the single-device
 solver takes beyond it raises ValueError: ``smoother="cg_exact"``,
-``cycle="W"``, any other option, and per-call ``Ls=`` / ``interior=``. The
-mixed-precision programs are not ported (ROADMAP.md item 7).
+``cycle="W"``, any other option, and per-call ``Ls=`` / ``interior=``;
+``direction_dtype`` is inherited from the single-device solver (the
+Chebyshev smoothers' half-width directions, K16, run on the rank's rows
+unchanged). It has no mixed-precision form: the JAX class has none (only
+the JAX slab solver has mixed-precision programs), so
+``mixed_precision_setup`` / ``mixed_precision_pcg`` raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -54,6 +59,12 @@ from ..ops.plan import GridPlan
 from ..ops.sharded import build_cross_tables, sharded_combine
 from ..solver.multigrid import MultigridSolver
 from .group import SlabGroup
+
+NO_MIXED_PRECISION = (
+    "the gather-sharded solver has no mixed-precision form: the JAX package's "
+    "ShardedMultigridSolver has none either (only its slab-sharded solver has "
+    "mixed-precision programs); use SlabShardedMultigridSolver"
+)
 
 
 # ---------------------------------------------------------------------------
@@ -315,6 +326,7 @@ class ShardedMultigridSolver(MultigridSolver):
         coarse_mg_dense_limit: int = 4000,
         apply_precision=None,
         cycle: str = "V",
+        direction_dtype=None,
         **beyond,
     ):
         if not isinstance(group, SlabGroup):
@@ -342,6 +354,7 @@ class ShardedMultigridSolver(MultigridSolver):
             cheb_ratio=cheb_ratio, coarse_mg_tol=coarse_mg_tol,
             coarse_mg_maxiter=coarse_mg_maxiter, coarse_prec_cycles=coarse_prec_cycles,
             coarse_prec_smooth=coarse_prec_smooth, coarse_mg_dense_limit=coarse_mg_dense_limit,
+            direction_dtype=direction_dtype,
         )
         # a rank's rows are no plane window of the lattice: the level-0
         # operator goes through distribute, K1 and the summed segment sum
@@ -382,12 +395,16 @@ class ShardedMultigridSolver(MultigridSolver):
         return self._cross[self.nlevels - 1 if k is None else k].n_slots
 
     def mixed_precision_setup(self, *args, **kwargs):
-        """Not ported yet (ROADMAP.md item 7)."""
-        raise NotImplementedError(
-            "mixed precision is not ported yet, on one device or sharded (ROADMAP.md item 7)"
-        )
+        """No mixed-precision form: the JAX package has none for this solver
+        (only its slab-sharded solver has mixed-precision programs)."""
+        raise NotImplementedError(NO_MIXED_PRECISION)
 
     mixed_precision_pcg = mixed_precision_setup
+
+    def _mixed_pcg_programs(self, inner):
+        """``solver/multigrid.py::mixed_precision_pcg`` on this solver: no
+        such form (``mixed_precision_setup``)."""
+        raise NotImplementedError(NO_MIXED_PRECISION)
 
     # -- public state helpers ----------------------------------------------- #
     def put(self, a):

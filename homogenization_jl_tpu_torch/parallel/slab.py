@@ -24,9 +24,16 @@ before they reach the device (``rows_of``). ``put``, ``zero_states``,
 ``coefficients``, ``combine`` and ``constrain`` take or return the rank's
 rows; ``interop.slab_rows`` / ``join_slabs`` cut and join global arrays.
 
+Mixed-precision PCG (solver/multigrid.py::mixed_precision_pcg) takes two
+slab solvers on one group, as the JAX class's ``_mixed_pcg_programs``
+(JAX parallel/slab.py:343-383): the same init and step run through this
+class's primitives, so the float64 Krylov state stays sharded, the
+multiplicity-rescaled downcast (K15) follows the halo-extended combine
+(K11), and every dot sums over the ranks.
+
 Requirements (asserted as in JAX): a ``hypercube(order="cube")`` base, a
 slab count dividing the cube count n, W = n / S planes per slab at least
-the orbit radius ``pad``. The mixed-precision programs are not ported yet.
+the orbit radius ``pad``.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ from ..ops.structured import (
     detect_structured,
     slab_halo_rows,
 )
-from ..solver.multigrid import MultigridSolver
+from ..solver.multigrid import MultigridSolver, _mixed_pcg_impls, _require
 from .group import SlabGroup
 
 
@@ -121,13 +128,14 @@ class SlabShardedMultigridSolver(MultigridSolver):
             return self._slab_combine(x, k, constrain=True)
         return self._slab_combine(x, k, mask=bm)
 
-    def mixed_precision_setup(self, *args, **kwargs):
-        """Not ported yet (JAX parallel/slab.py:343-383)."""
-        raise NotImplementedError(
-            "mixed precision is not ported yet, on one device or on slabs (ROADMAP.md)"
-        )
-
-    mixed_precision_pcg = mixed_precision_setup
+    def _mixed_pcg_programs(self, inner):
+        """The mixed-precision PCG's init and step on slabs (the
+        single-device impls through this class's primitives), after the
+        JAX class's checks of the pair."""
+        _require(isinstance(inner, SlabShardedMultigridSolver),
+                 "the slab outer needs a slab inner (same plan, same mesh)")
+        _require(inner.group is self.group, "solvers must share one device mesh")
+        return _mixed_pcg_impls(self, inner)
 
     # -- public state helpers ----------------------------------------------- #
     def put(self, a):

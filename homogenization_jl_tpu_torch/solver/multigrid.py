@@ -30,7 +30,17 @@ V-cycles and W-cycles (``cycle=``), the coarse solves (``coarse=``):
 the FMG initializer, V-cycle-preconditioned CG (flexible beta for the
 tolerance-stopped coarse solves), its stepwise form ``pcg_stepper`` and the
 one-call ``solve`` driver (``method="auto"`` = FMG start + PCG for the
-Chebyshev smoothers, FMG start + V-cycles for the CG ones).
+Chebyshev smoothers, FMG start + V-cycles for the CG ones), and
+mixed-precision PCG (``mixed_precision_setup`` / ``mixed_precision_pcg``:
+a float64 Krylov loop around a float32 Chebyshev V-cycle).
+
+Precision surface, as the JAX class's: ``direction_dtype`` stores the
+Chebyshev and ``cg_exact`` smoothers' direction vectors narrower than the
+state (bfloat16, float16, or float32 under float64) while their updates
+run in the state dtype; ``lam_max`` is a scalar or an [nlevels] tensor
+(``estimate_lambda_max_levels``: each level's smoother on its own
+spectrum); ``estimate_lambda_max`` takes ``method="lanczos"`` (default) or
+``"power"``, each with its own safety margin.
 
 Per-call Dirichlet masks, as the JAX package's ``Ls=``/``interior=``
 arguments: ``Ls`` is a list of per-level bool boundary masks ([E, n_k],
@@ -63,7 +73,13 @@ Every device kernel on this path is a hand kernel on CUDA tensors:
   * K6 ``lattice_*`` (ops/stencil.py, CUDA C++): the level-0 operator of the
     global-space coarse solves;
   * K7 ``segment_sum`` / ``gather_scale`` (ops/interfaces.py, CUDA C++): the
-    local/global transfers of every coarse solve.
+    local/global transfers of every coarse solve;
+  * K16, the half-width direction forms of K1, K3, K5 and K10
+    (``element_apply_half``, ``chebyshev_update_half``, ``dot_half``,
+    ``cg_step_half`` / ``cg_direction_half``): the smoothers under
+    ``direction_dtype``;
+  * K15 ``downcast_scale`` / ``upcast`` (ops/mixed.py, CUDA C++): the
+    float64/float32 boundary of mixed-precision PCG.
 The direct coarse solves are ``torch.cholesky_solve`` and a ``torch.mv``
 with the inverse — the JAX package leaves the same to ``cho_solve`` and XLA.
 
@@ -77,8 +93,7 @@ zeroed: the first smoothing update writes them (``x_zero``), as XLA folds
 per iteration (``host_syncs`` counts the reads).
 
 Not ported yet (raise on construction): the flat combine of meshes without
-the contiguous layout; ``direction_dtype`` and mixed precision are not
-taken.
+the contiguous layout.
 
 The solver's tensors live on ``device``: the card (``"cuda"``) unless the
 caller asks for the CPU; without a CUDA device the default raises.
@@ -105,10 +120,10 @@ import torch
 from ..fem.assembly import assemble_operator
 from ..fem.local_operators import build_level_operators, element_coefficients
 from ..mesh.reference import prolongation_dense
-from ..ops.apply import element_apply, stack_rowsum
-from ..ops.cg import cg_direction, cg_step, safe_div
-from ..ops.chebyshev import chebyshev_update
-from ..ops.dots import dot
+from ..ops.apply import NARROWER, element_apply, element_apply_half, stack_rowsum
+from ..ops.cg import cg_direction, cg_direction_half, cg_step, cg_step_half, safe_div
+from ..ops.chebyshev import chebyshev_update, chebyshev_update_half
+from ..ops.dots import dot, dot_half
 from ..ops.elementwise import (
     diagonal as diagonal_sum,
     div_nz,
@@ -116,6 +131,7 @@ from ..ops.elementwise import (
     lanczos_update,
     mul,
 )
+from ..ops.mixed import downcast_scale, upcast
 from ..ops.interfaces import (
     apply_mask,
     build_gather_tables,
@@ -150,9 +166,32 @@ CHEBYSHEV_SMOOTHERS = ("chebyshev", "chebyshev4")
 SMOOTHERS = ("cg", "cg_exact") + CHEBYSHEV_SMOOTHERS
 COARSE_SOLVES = ("chol", "inv", "cg", "mg")
 _PRECISIONS = (None, "default", "high", "highest")
-# safety margin on the Lanczos lambda_max estimate: underestimating lets
-# the Chebyshev polynomial amplify the top modes (the JAX package's value)
-_LAM_SAFETY = 1.1
+# safety margins on the lambda_max estimate per method: underestimating
+# lets the Chebyshev polynomial amplify the top modes; Lanczos Ritz values
+# converge faster on the clustered top spectrum than the power iteration,
+# so a smaller margin suffices (the JAX package's values)
+_LAM_SAFETY = {"power": 1.15, "lanczos": 1.1}
+# direction_dtype's names, as jnp.dtype takes them
+_DIRECTION_NAMES = {
+    "bfloat16": torch.bfloat16, "float16": torch.float16, "half": torch.float16,
+    "float32": torch.float32, "single": torch.float32, "float64": torch.float64,
+    "double": torch.float64,
+}
+
+
+def direction_dtype_of(direction_dtype, dtype):
+    """The torch dtype of a ``direction_dtype`` argument (None, a torch
+    dtype or its name) under a state of ``dtype``: None, the state's own, or
+    a narrower one; a wider one raises."""
+    if direction_dtype is None:
+        return None
+    dd = _DIRECTION_NAMES.get(direction_dtype, direction_dtype) \
+        if isinstance(direction_dtype, str) else direction_dtype
+    if dd not in _DIRECTION_NAMES.values():
+        raise ValueError(f"direction_dtype {direction_dtype!r} not in {sorted(_DIRECTION_NAMES)}")
+    if dd != dtype and dd not in NARROWER[dtype]:
+        raise ValueError(f"direction_dtype {dd} is wider than the state's {dtype}")
+    return dd
 
 
 def resolve_device(device=None) -> torch.device:
@@ -205,7 +244,7 @@ class _Cycle:
     bs: list
     coeff: torch.Tensor
     chol: object
-    lam_max: float | None
+    lam_max: float | tuple | None  # a tuple: one per level
     top: int
     Ls: list | None
     interior: torch.Tensor | None
@@ -223,7 +262,9 @@ class MultigridSolver:
     class. Precision knobs (``apply/smooth/restrict/krylov_precision``) are
     accepted for signature parity: "high" and "highest" (and None) all run
     full FP32 on the CUDA cores in this port; TF32 / 3xTF32 tensor-core
-    choices are later work.
+    choices are later work. ``direction_dtype`` (None, torch.bfloat16,
+    torch.float16, torch.float32 under float64, or their names) stores the
+    smoothers' direction vectors narrower, as the JAX class does.
     """
 
     # the element rows this solver holds, None for all of them, and the
@@ -253,6 +294,7 @@ class MultigridSolver:
         coarse_mg_dense_limit: int = 4000,
         constraint: str = "auto",
         smooth_precision=None,
+        direction_dtype=None,
         cycle: str = "V",
         restrict_precision=None,
         krylov_precision=None,
@@ -272,6 +314,13 @@ class MultigridSolver:
                 raise ValueError(f"precision {p!r} not in {_PRECISIONS}")
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype {dtype} not supported")
+        # storage dtype of the smoothers' direction vectors between steps
+        # (e.g. bfloat16: half their bytes); the updates run in the state
+        # dtype. cg_exact recomputes its entry residual at the state dtype
+        # each smooth, so the rounding perturbs the V-cycle instead of
+        # accumulating. None (or the state dtype) stores them as the state.
+        self.direction_dtype = direction_dtype_of(direction_dtype, dtype)
+        self._dd = None if self.direction_dtype in (None, dtype) else self.direction_dtype
         self.plan = plan
         self.dtype = dtype
         self.device = resolve_device(device)
@@ -569,17 +618,21 @@ class MultigridSolver:
 
     def _vdot(self, a, b, mask=None, scale=None):
         """Dot of two element-leading states over the duplicated layout,
-        the mask and scale fused (kernel K5)."""
-        return self._sum_partial(dot(a, b, mask=mask, scale=scale))
+        the mask and scale fused (kernel K5; K16 when ``a`` is a half-width
+        direction)."""
+        vd = dot if a.dtype == b.dtype else dot_half
+        return self._sum_partial(vd(a, b, mask=mask, scale=scale))
 
     # num / den, but 0 when den == 0 (converged-exactly guard)
     _safe_div = staticmethod(safe_div)
 
     def _apply_op(self, x, coeff, k, b=None, out=None, mask=None):
         """A x (with ``b``: b - A x), times the bool ``mask`` at K1's store
-        when one is given."""
+        when one is given; an x narrower than coeff (a half-width
+        direction) goes through K16's apply, its result in coeff's dtype."""
         L = self.levels[k]
-        return element_apply(x, coeff, L.stack, b=b, out=out, rowsum=L.rowsum, mask=mask)
+        apply = element_apply if x.dtype == coeff.dtype else element_apply_half
+        return apply(x, coeff, L.stack, b=b, out=out, rowsum=L.rowsum, mask=mask)
 
     def _apply_constrained(self, x, coeff, k, Ls=None, b=None):
         """constrain(A x), with ``b`` constrain(b - A x): the mask multiply
@@ -710,13 +763,20 @@ class MultigridSolver:
         T = np.diag(a) + np.diag(b_, 1) + np.diag(b_, -1)
         return float(np.linalg.eigvalsh(T)[-1])
 
-    def estimate_lambda_max(self, coeff, k=None, iters: int = 30, seed: int = 0):
+    def estimate_lambda_max(self, coeff, k=None, iters: int = 30, seed: int = 0,
+                            method: str = "lanczos"):
         """Estimate the largest eigenvalue of D^{-1} A on the constrained,
-        interface-consistent subspace, times a 1.1 safety margin. Lanczos
-        in the D inner product on the first-copy subspace (the JAX
-        package's default method; its power iteration is not ported); the
-        start vector is ``default_rng(seed).standard_normal`` as in the JAX
-        package, so both see the same numbers."""
+        interface-consistent subspace at level k (default: finest), times
+        the method's safety margin (``_LAM_SAFETY``). ``method="lanczos"``
+        (the default): Lanczos in the D inner product on the first-copy
+        subspace, the top eigenvalue of its tridiagonal taken on the host;
+        ``"power"``: the power iteration, the Rayleigh quotient of its last
+        step. The start vector is ``default_rng(seed).standard_normal`` as
+        in the JAX package, so both see the same numbers. The state-sized
+        updates run on K18, the dots on K5; the scalars stay on the device
+        until the end."""
+        if method not in _LAM_SAFETY:
+            raise ValueError(f"method={method!r} not in {tuple(_LAM_SAFETY)}")
         k = self.nlevels - 1 if k is None else k
         rng = np.random.default_rng(seed)
         v = torch.as_tensor(
@@ -730,6 +790,15 @@ class MultigridSolver:
 
         def matvec(u):
             return mul(dinv, self._combine(self._apply_constrained(u, coeff, k), k))
+
+        if method == "power":
+            lam = torch.zeros((), dtype=v.dtype, device=v.device)
+            for _ in range(iters):
+                y = matvec(v)
+                # vdot(v * w, y) / vdot(v * w, v), the mask fused (K5)
+                lam = self._vdot(v, y, mask=w) / self._vdot(v, v, mask=w)
+                v = div_nz(y, torch.sqrt(self._vdot(y, y, mask=w)), out=y)
+            return float(lam) * _LAM_SAFETY[method]
 
         def ddot(a, b_):
             # vdot(a * w, d * b) with the mask and the scale fused (K5)
@@ -753,7 +822,19 @@ class MultigridSolver:
         lam = self._lanczos_top(
             torch.stack(alphas).cpu().numpy(), torch.stack(betas).cpu().numpy()
         )
-        return lam * _LAM_SAFETY
+        return lam * _LAM_SAFETY[method]
+
+    def estimate_lambda_max_levels(self, coeff, iters: int = 30, seed: int = 0):
+        """Per-level lam_max: an [nlevels] tensor of the state dtype on the
+        solver's device, ``estimate_lambda_max`` at every level. Anywhere a
+        scalar ``lam_max`` is taken (vcycle, fmg, pcg, solve), such a tensor
+        makes each level's Chebyshev smoother target its own D^{-1}A
+        spectrum instead of the finest level's."""
+        return torch.tensor(
+            [self.estimate_lambda_max(coeff, k, iters=iters, seed=seed)
+             for k in range(self.nlevels)],
+            dtype=self.dtype, device=self.device,
+        )
 
     # ------------------------------------------------------------------ #
     # smoothers, coarse solve, cycles
@@ -762,7 +843,9 @@ class MultigridSolver:
         """The solver's smoother at level k: updates x in place and returns
         (x, r) — for "cg" the combined residual, for the others the LOCAL
         residual (None when ``need_r`` is False). ``x_zero``: x is taken as
-        zero and its values are never read (the first update writes it)."""
+        zero and its values are never read (the first update writes it).
+        ``lam_max``: a float, or a per-level tuple (``_check_setup``) whose
+        level-k entry this level's Chebyshev smoother takes."""
         if x_zero and steps < 1:
             x.zero_()
         kw = dict(k=k, steps=steps, need_r=need_r, x_zero=x_zero, Ls=Ls)
@@ -770,6 +853,8 @@ class MultigridSolver:
             return self._smooth_cg(x, b, coeff, **kw)
         if self.smoother == "cg_exact":
             return self._smooth_cg_exact(x, b, coeff, **kw)
+        if isinstance(lam_max, tuple):
+            lam_max = lam_max[k]
         return self._smooth_chebyshev(x, b, coeff, lam_max, **kw)
 
     def _smooth_cg(self, x, b, coeff, *, k, steps, need_r=True, x_zero=False, Ls=None):
@@ -809,13 +894,18 @@ class MultigridSolver:
         are skipped (see the JAX ``_combine_constrained``). Updates x in
         place; returns (x, r_loc), r_loc None when ``need_r`` is False (the
         last step then skips its r update). ``x_zero``: x is zero (unread:
-        the first step writes it), so the entry residual is b."""
+        the first step writes it), so the entry residual is b. Under
+        ``direction_dtype`` the direction is stored narrower (K16: p =
+        store(rc + beta load(p)), x += alpha load(p), the apply and the dot
+        on load(p); ``_smooth_cg_exact_half``)."""
         w = self.levels[k].first_copy_mask
         bm = self._bmask(k, Ls)
         if bm is None:
             r_loc = b.clone() if x_zero else self._apply_op(x, coeff, k, b=b)
         else:
             r_loc = apply_mask(b, bm) if x_zero else self._apply_op(x, coeff, k, b=b, mask=bm)
+        if self._dd is not None:
+            return self._smooth_cg_exact_half(x, r_loc, coeff, k, steps, need_r, x_zero, Ls)
         p = self._combine_constrained(r_loc, k, Ls)
         rs = self._vdot(p, p, mask=w)
         for i in range(steps):
@@ -830,6 +920,34 @@ class MultigridSolver:
                 # p = rc + beta p, written over rc
                 cg_direction(rc, rc, p, rs_new, rs)
                 p, rs = rc, rs_new
+                del rc
+        return x, (r_loc if need_r else None)
+
+    def _smooth_cg_exact_half(self, x, r_loc, coeff, k, steps, need_r, x_zero, Ls):
+        """``_smooth_cg_exact``'s steps from its entry residual ``r_loc``
+        with the direction stored in ``direction_dtype`` (the JAX
+        store/load, :822-841): p = store(rc) first (K16's direction store
+        without a p), then per step the apply, the dot and x += alpha p on
+        load(p) (K16's apply, dot and step), and p = store(rc + beta
+        load(p)) in place."""
+        w = self.levels[k].first_copy_mask
+        bm = self._bmask(k, Ls)
+        rc = self._combine_constrained(r_loc, k, Ls)
+        rs = self._vdot(rc, rc, mask=w)
+        p = torch.empty(rc.shape, dtype=self._dd, device=rc.device)
+        cg_direction_half(p, rc, None, rs, rs)
+        del rc
+        for i in range(steps):
+            last = i + 1 == steps
+            Ap = self._apply_op(p, coeff, k, mask=bm)
+            cg_step_half(x, None if (last and not need_r) else r_loc, p, Ap, rs,
+                         self._vdot(p, Ap), x_zero=x_zero and i == 0)
+            del Ap
+            if not last:
+                rc = self._combine_constrained(r_loc, k, Ls)
+                rs_new = self._vdot(rc, rc, mask=w)
+                cg_direction_half(p, rc, p, rs_new, rs)
+                rs = rs_new
                 del rc
         return x, (r_loc if need_r else None)
 
@@ -850,7 +968,10 @@ class MultigridSolver:
         entry residual is constrained and each update subtracts the
         constrained A p, as the JAX smoother does; the structured
         constraint skips both (dead boundary rows, see the JAX
-        ``_combine_constrained``)."""
+        ``_combine_constrained``).
+        Under ``direction_dtype`` p is stored narrower (K16: K3 stores the
+        rounded p and adds it to x, K1 applies it widened), as the JAX
+        ``store``/``load``: x += load(p) adds the ROUNDED direction."""
         dinv = self._dinv_all(coeff)[k]
         ab = self._cheb_coeffs(lam_max, fourth=self.smoother == "chebyshev4")
         bm = self._bmask(k, Ls)
@@ -863,16 +984,20 @@ class MultigridSolver:
             r_loc = b.clone() if x_zero else self._apply_op(x, coeff, k, b=b)
         else:
             r_loc = apply_mask(b, bm) if x_zero else self._apply_op(x, coeff, k, b=b, mask=bm)
-        p = torch.empty_like(x)
+        if self._dd is None:
+            p, update = torch.empty_like(x), chebyshev_update
+        else:
+            p = torch.empty(x.shape, dtype=self._dd, device=x.device)
+            update = chebyshev_update_half
 
         def update_residual():
             self._apply_op(p, coeff, k, b=r_loc, out=r_loc, mask=bm)
 
-        chebyshev_update(x, p, self._combine_constrained(r_loc, k, Ls), dinv, ab[0], first=True,
-                         x_zero=x_zero)
+        update(x, p, self._combine_constrained(r_loc, k, Ls), dinv, ab[0], first=True,
+               x_zero=x_zero)
         for j in range(2, steps + 1):
             update_residual()
-            chebyshev_update(x, p, self._combine_constrained(r_loc, k, Ls), dinv, ab[j - 1])
+            update(x, p, self._combine_constrained(r_loc, k, Ls), dinv, ab[j - 1])
         if not need_r:
             return x, None
         update_residual()
@@ -1094,14 +1219,22 @@ class MultigridSolver:
 
     def _check_setup(self, chol, lam_max):
         """Validate the coarse payload and lam_max; returns lam_max as a
-        float (None for the CG smoothers, which do not read it)."""
+        float, or as a tuple of nlevels floats for a per-level lam_max (an
+        [nlevels] tensor or array, ``estimate_lambda_max_levels``; read on
+        the host once); None for the CG smoothers, which do not read it."""
         if chol is None and self.coarse_kind != "cg":
             raise ValueError("pass coarse_setup(sigma, lam) as chol")
         if self.smoother not in CHEBYSHEV_SMOOTHERS:
             return None
         if lam_max is None:
             raise ValueError("pass lam_max=estimate_lambda_max(coeff)")
-        return float(lam_max)
+        a = lam_max.detach().cpu().numpy() if isinstance(lam_max, torch.Tensor) \
+            else np.asarray(lam_max)
+        if a.ndim == 0:
+            return float(a)
+        if a.shape != (self.nlevels,):
+            raise ValueError(f"lam_max: shape {a.shape}, expected () or ({self.nlevels},)")
+        return tuple(float(v) for v in a)
 
     def _pcg_rnorm(self, r):
         """Exact first-copy residual norm from a local-form residual."""
@@ -1256,6 +1389,12 @@ class MultigridSolver:
         r = b if x is None else self._apply_op(x, coeff, top, b=b)
         return self.residual_norm(self._combine_constrained(r, top, self._check_Ls(Ls)))
 
+    def _mixed_pcg_programs(self, inner):
+        """(init, step) of ``mixed_precision_pcg`` with this solver as the
+        outer one; the slab solver checks its pair first, the gather-sharded
+        one raises."""
+        return _mixed_pcg_impls(self, inner)
+
     def combine(self, x, k=None):
         """Interface combine at level k (default: finest)."""
         k = self.nlevels - 1 if k is None else k
@@ -1326,4 +1465,191 @@ def solve_driver(
             if verbose:
                 print(f"cycle {len(history) - 1}: rel residual "
                       f"{history[-1]:.3e}", flush=True)
+    return x, history
+
+
+# --------------------------------------------------------------------- #
+# mixed-precision PCG: a float64 Krylov loop around a float32 V-cycle
+# --------------------------------------------------------------------- #
+def _require(cond, msg):
+    """The JAX package's asserts, kept as AssertionError with its messages
+    (and not skipped under ``python -O``)."""
+    if not cond:
+        raise AssertionError(msg)
+
+
+@dataclasses.dataclass
+class MixedSetup:
+    """The per-coefficient state of ``mixed_precision_pcg``
+    (``mixed_precision_setup``); the level tensors are the solvers' own."""
+
+    inv_mult: torch.Tensor  # [E, n] 1/multiplicity, in the inner dtype
+    coeff_o: torch.Tensor  # outer apply coefficients
+    coeff_i: torch.Tensor  # inner apply coefficients
+    chol_i: object  # the inner coarse payload
+    lam_max_i: float  # the inner Chebyshev bound, rounded to the inner dtype
+
+
+def mixed_precision_setup(outer: MultigridSolver, inner: MultigridSolver, sigma_el,
+                          lam: float = 0.0) -> MixedSetup:
+    """Precompute ``mixed_precision_pcg``'s per-coefficient state (both
+    solvers' coefficients, the inner coarse setup, the inner lam_max
+    estimate, the combine multiplicities) once, so that repeated calls — a
+    warm-up and a timed run, or several right-hand sides on one field —
+    skip it. Works for a matched pair of single-device solvers or of
+    slab-sharded solvers on one group (everything here goes through the
+    solvers' public, sharding-aware entry points).
+
+    The multiplicity table is stored in the INNER dtype: it scales the
+    already-combined (assembled-scale) residual at the downcast, so its
+    float32 rounding only perturbs the preconditioner's input (the flexible
+    beta absorbs it), and a float64 table would cost another state vector
+    (1.52 GB at 190M DOFs). It is 1 / combine(ones), the quotient on K18
+    and the cast on K15."""
+    _require(type(outer) is type(inner),
+             "outer and inner must be the same solver kind (both single-device "
+             "or both slab-sharded)")
+    outer._mixed_pcg_programs(inner)  # the solver kind's own checks
+    coeff_o = outer.coefficients(sigma_el, lam)
+    coeff_i = inner.coefficients(sigma_el, lam)
+    chol_i = inner.coarse_setup(sigma_el, lam)
+    lam_max_i = float(torch.tensor(inner.estimate_lambda_max(coeff_i), dtype=inner.dtype))
+    ones = torch.ones((outer.n_rows, outer.plan.n_local(outer.nlevels - 1)),
+                      dtype=outer.dtype, device=outer.device)
+    inv_mult = downcast_scale(inv_positive(outer.combine(ones)))
+    return MixedSetup(inv_mult=inv_mult, coeff_o=coeff_o, coeff_i=coeff_i, chol_i=chol_i,
+                      lam_max_i=lam_max_i)
+
+
+def _mixed_pcg_impls(outer: MultigridSolver, inner: MultigridSolver):
+    """The (init, step) bodies of ``mixed_precision_pcg``, written against
+    the solvers' overridable primitives (``_combine``, ``_vdot``,
+    ``_apply_op``), so the slab solver runs them unchanged: its combine is
+    the halo-extended one (K11), its dots sum over the ranks. Both take
+    and return the state (x, r, p, rz, rn) and a ``MixedSetup``; ``step``
+    updates x and p in place."""
+    top = outer.nlevels - 1
+
+    def precond(r, su):
+        # re-express at the assembled scale BEFORE the downcast: the
+        # combine(r) entries are assembled-scale sums, so the cast right
+        # after it is safe, and the 1/multiplicity rescale runs at inner
+        # precision (K15 after whichever combine the outer solver uses)
+        rs = downcast_scale(outer._combine(r, top), su.inv_mult)
+        z, _ = inner._vcycle_impl(
+            torch.empty_like(rs), rs, su.coeff_i, su.chol_i, su.lam_max_i,
+            need_r=False, x_zero=True,
+        )
+        return upcast(z)
+
+    def init(x, b, su):
+        r = outer._local_residual(x, b, su.coeff_o, top)
+        z = precond(r, su)
+        rz = outer._vdot(z, r)
+        return x, r, z, rz, outer._pcg_rnorm(r)
+
+    def step(x, r, p, rz, su):
+        # exact dots without combines: p and z consistent, Ap and r local
+        # (see _pcg_step_impl for the identity); the new residual goes to a
+        # new buffer (K10's r_out), the old one stays for the flexible beta
+        Ap = outer._apply_constrained(p, su.coeff_o, top)
+        r_new = torch.empty_like(r)
+        cg_step(x, r, p, Ap, rz, outer._vdot(p, Ap), r_out=r_new)
+        del Ap
+        z = precond(r_new, su)
+        rz_new = outer._vdot(z, r_new)
+        num = rz_new - outer._vdot(z, r)  # flexible beta
+        del r
+        cg_direction(p, z, p, num, rz)
+        return x, r_new, p, rz_new, outer._pcg_rnorm(r_new)
+
+    return init, step
+
+
+def mixed_precision_pcg(
+    outer: MultigridSolver,
+    inner: MultigridSolver,
+    b,
+    sigma_el=None,
+    lam: float = 0.0,
+    *,
+    x=None,
+    iters: int = 200,
+    tol: float = 1e-12,
+    setup: MixedSetup | None = None,
+    keep_best: bool = True,
+    divergence_stop: int = 3,
+):
+    """Iterative-refinement PCG: a high-precision Krylov loop around a
+    low-precision V-cycle preconditioner (JAX multigrid.py:1604-1774, the
+    same semantics, guards and messages).
+
+    ``outer`` holds the Krylov state (x, r, p) and computes the fine-level
+    operator apply and every dot at its dtype (float64); ``inner`` is a
+    Chebyshev-smoothed solver on the SAME plan whose V-cycle runs at its
+    own dtype (float32). Each iteration combines the float64 residual,
+    casts it down at the assembled scale (``combine(r) * 1/multiplicity``,
+    K15: the raw local-form residual keeps entries of the size of b even at
+    convergence, and casting it would floor the iteration near 1e-7), runs
+    one float32 V-cycle and casts the correction up (K15). The beta is
+    flexible (Polak-Ribiere): the casts and a tolerance-stopped coarse
+    solve make the preconditioner slightly nonlinear.
+
+    ``b`` is the float64 local (duplicated-contribution) rhs; ``x`` a start
+    (not modified; default zero). Returns ``(x, history)``, history = exact
+    first-copy residual norms, entry 0 the initial one; stops when
+    ``history[-1] <= tol * history[0]``.
+
+    Past its floor the flexible recurrence diverges rather than stagnates.
+    ``keep_best`` (default on): the iterate is copied into one buffer
+    allocated up front whenever it sets a new minimum (a device-to-device
+    copy inside the loop, as the JAX form's ``jnp.copy``), and after
+    ``divergence_stop`` non-improving iterations in a row the loop stops
+    and returns that best iterate. As in the JAX form, when no iterate ever
+    improved on the initial residual (no copy was taken) the LAST iterate
+    is returned, not the start.
+
+    ``setup=mixed_precision_setup(...)`` skips the per-coefficient
+    precompute (``sigma_el`` is then unused). Slab-sharded: pass two
+    ``SlabShardedMultigridSolver`` on one group; the Krylov state stays
+    sharded, the downcast runs on the halo-extended combine, every dot sums
+    over the ranks."""
+    _require(outer.plan is inner.plan, "solvers must share one GridPlan")
+    _require(type(outer) is type(inner),
+             "outer and inner must be the same solver kind (both single-device "
+             "or both slab-sharded)")
+    _require(getattr(outer, "group", None) is getattr(inner, "group", None),
+             "slab solvers must share one SlabGroup")
+    _require(inner.smoother in CHEBYSHEV_SMOOTHERS,
+             "the inner V-cycle must be a linear SPD preconditioner "
+             "(smoother='chebyshev'); cg smoothers are nonlinear — measured "
+             "divergent under outer CG (tests/test_pcg.py)")
+    _require(outer.dtype.itemsize > inner.dtype.itemsize,
+             "outer must run at higher precision than inner")
+    init, step = outer._mixed_pcg_programs(inner)
+    if setup is None:
+        _require(sigma_el is not None, "pass sigma_el or setup=")
+        setup = mixed_precision_setup(outer, inner, sigma_el, lam)
+
+    x = outer.zero_states()[0] if x is None else x.clone()
+    x, r, p, rz, rn = init(x, b, setup)
+    history = [float(rn)]
+    best_rn, worse = history[0], 0
+    # the snapshot buffer; None until the first improving iterate
+    x_buf = torch.empty_like(x) if keep_best else None
+    x_best = None
+    for _ in range(iters):
+        x, r, p, rz, rn = step(x, r, p, rz, setup)
+        history.append(float(rn))
+        if tol and history[-1] <= tol * history[0]:
+            break
+        if keep_best:
+            if history[-1] < best_rn:
+                best_rn, x_best, worse = history[-1], x_buf.copy_(x), 0
+            else:
+                worse += 1
+                if worse >= divergence_stop:
+                    break
+    if keep_best and x_best is not None and best_rn < history[-1]:
+        x = x_best
     return x, history

@@ -148,7 +148,7 @@ def test_sharded_solver_checks_its_arguments(world_of_one):
     with pytest.raises(ValueError, match="interior"):
         s.vcycle(x, b, s.coefficients(np.ones((plan.base.nelements, 2)), 0.0), None,
                  lam_max=1.0, interior=torch.ones(plan.base.nnodes, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="no mixed-precision form"):
         s.mixed_precision_pcg()
     with pytest.raises(ValueError, match="without rows"):  # 10 rows in blocks of 2 on 8 ranks
         shard_slice(10, 0, 8)

@@ -167,8 +167,15 @@ def test_slab_solver_checks_its_arguments(world_of_one):
         SlabShardedMultigridSolver(build_grid_plan(hypercube(2, 4, order="type"), 2,
                                                    slot_tables=False), world_of_one)
     s = SlabShardedMultigridSolver(plan, world_of_one, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.mixed_precision_pcg()
+    # mixed precision pairs a slab outer with a slab inner only (JAX's
+    # messages; tests/test_torch_mixed_slab.py runs the pair)
+    from homogenization_jl_tpu_torch.solver.multigrid import mixed_precision_pcg
+
+    single = MultigridSolver(plan, dtype=torch.float32, device="cpu", smoother="chebyshev")
+    with pytest.raises(AssertionError, match="same solver kind"):
+        mixed_precision_pcg(s, single, s.zero_states()[1], np.ones((plan.base.nelements, 2)))
+    with pytest.raises(AssertionError, match="slab inner"):
+        s._mixed_pcg_programs(single)
 
 
 def test_torchrun_entry_point_on_one_cpu_rank(monkeypatch, capsys):
