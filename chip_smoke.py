@@ -6,8 +6,8 @@ on it. Phases (each prints one line; any failure raises, and the script
 then exits non-zero without the final line):
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
-  2. build the CUDA kernels (every one but K3 and K16's Chebyshev update;
-     one nvcc per source, started together) from csrc/ into
+  2. build the CUDA kernels (every one but the Triton ones: K3, K16's
+     Chebyshev update and K17; one nvcc per source, started together) from csrc/ into
      build/kernels/, warm up K3 (Triton);
   3. every kernel against its plain PyTorch version on the card, at the
      main path's shapes, float32 and float64: K1-K5 and K10 at every level
@@ -45,7 +45,8 @@ then exits non-zero without the final line):
      kernel's launch count over that solve, the coarse-PCG iterations per
      coarse solve, the host syncs of a solve, and a second solve whose
      history and solution must be bitwise equal to the first;
-  6. the same problem with coarse="chol" (the dense Cholesky coarse solve);
+  6. the same problem at n = 16 (23,814,144 DOFs) with coarse="chol" (the
+     dense Cholesky coarse solve);
   7. the flagship driver at full size, as scripts/run_flagship.py calls it:
      checkerboard_homogenization(2, dim=3, refinements=4, geometry=
      "lattice", float32, tolerance=1e-4, seed=7, coarse="mg", smoother=
@@ -87,7 +88,8 @@ then exits non-zero without the final line):
      S = 8 shard shape against its plain form;
  12. parallel/run_slab.py through an NCCL group of one rank (a FileStore in
      a temporary directory), at scripts/run_slab_big.py's configuration on
-     phase 11's plan: float32, Chebyshev, coarse="chol", 3 V-cycles and
+     the cube-order base at n = 16: float32, Chebyshev, coarse="chol", 3
+     V-cycles and
      the integral, and the single-device leg on the same plan: with one
      rank both legs do the same arithmetic, so the residual histories and
      the integral must be equal (with more ranks: integral within 5e-4 and
@@ -111,7 +113,8 @@ then exits non-zero without the final line):
      comparisons' launches, which are not the path's (15d has those);
  15. the gather-sharded solver through the group of phase 12: (a) 3 PCG
      iterations of ShardedMultigridSolver and of MultigridSolver on the
-     ordered 3D plan from the same rhs (float32, Chebyshev, the coarse
+     ordered 3D base one level below the flagship (4 levels, 32,440,320
+     DOFs) from the same rhs (float32, Chebyshev, the coarse
      kind the ordered driver picks), the residual histories equal; (b) the
      flagship call of phase 7 with geometry="ordered" and device_mesh= the
      group (190,513,152 DOFs, one outer step; coarse_mg_tol=5e-2): sigma
@@ -127,8 +130,8 @@ then exits non-zero without the final line):
      PyTorch elementwise kernel above 20 us per launch on
      average; (d) the ordered driver through
      the gather-sharded solver on 2 spawned ranks that share the card
-     through a gloo group (NCCL refuses two ranks on one card), at one
-     level below the flagship (refinements=3, 32,440,320 DOFs) in float64,
+     through a gloo group (NCCL refuses two ranks on one card), two
+     levels below the flagship (refinements=2, 6,881,280 DOFs) in float64,
      tolerance 1e-6: the ranks' sigma bitwise equal, within 1e-8 relative
      of the single-device driver's, and every kernel of the ordered path
      launched on every rank, K12's cross-shard kernels included;
@@ -156,14 +159,45 @@ then exits non-zero without the final line):
      seconds, peak memory, the returned x's float64 residual recomputed
      from scratch at most 1e-6, and one step under torch.profiler by phase
      15c's rules; (18b) the same solve on slabs (run_slab's "mixed" job)
-     through an NCCL group of one rank at n = 16 (23,814,144 DOFs), its
+     through an NCCL group of one rank at n = 8 (2,976,768 DOFs), its
      history and x equal to the single-device leg's;
+ 19. K13, K14 and K17 against their plain forms, float32 and float64 (K17
+     float32), at the shapes of phases 20 and 21: K13 on [3, 48000, 969]
+     at k == 0 and k > 0 with a D == 0 guard, bitwise; K14a (the Jacobi CG
+     step of the mass solves) on [48000, 969], bitwise, two launches equal;
+     K14b (K9's DOT_M mode) within phase 3b's K9 bars, repeatable; K14c's
+     one-pass combination (m = 120 basis vectors, K + 1 = 3 rows) and
+     two-pass accumulation, bitwise; K17a / K17b on the 32^3 field of
+     phase 21 within 1e-6 / 4e-6 relative; the kernel, plain and library
+     times (float64; K17 float32) and bounds; and K1's mass apply (the
+     one-piece stack [M], coefficient detJ, masked) at [48000, 969]
+     float64 against its plain form, timed;
+ 20. BASELINE config 4: checkerboard_homogenization(1, dim=3,
+     refinements=4) on ordered_hypercube(3, 10) (48,000 tets, 46,512,000
+     DOFs), float64, the field generate_conductivity(3, 20,
+     default_rng(7)): (a) solver="multishift" with 120 Lanczos vectors
+     (sigma, apply counts, setup and Lanczos seconds, peak memory); (b)
+     homogenization_multishift(two_pass=True), sigma within 1e-10 of (a);
+     (c) the per-step driver (shrink=False, inner="pcg", chebyshev,
+     tolerance 1e-8): (a) within 1e-2 of it, or else (a) again with 188
+     vectors (as many as the card holds with 10e9 bytes to spare) within
+     1e-2; (d) shifted_family_solve (shifts 1, 1/2, 1/4, 150 iterations,
+     K13) one level down (7,920,000 DOFs) within 1e-8 of per-shift CG (tol
+     1e-12); (e) one Lanczos step of (a) under torch.profiler by phase
+     15c's rules (coverage, no PyTorch elementwise kernel above 20 us per
+     launch): the kernels' shares, the idle share and the host reads;
+ 21. the st1 contrast rescue (ACCURACY.md:153-159): st1_multigrid(32,
+     dim=3, refinements=4, alpha=100, seed=3, max_cycles=40, coarse="mg",
+     float32, method="pcg", chebyshev, coarse_mg_tol=5e-2) on the JAX draw
+     of seed 3 (190,513,152 DOFs): contrast within 0.1% of 60,794, the
+     residual 1.1e-3 within 12 PCG iterations and 3.4e-5 within 16; the
+     history, seconds per PCG iteration (CUDA events), setup times, peak;
 then one JSON line with the kernels (each kernel's launches on its path:
 K4, K5 and K10 on phase 10, K8 on phase 8's ordered run, K11 on phase 13,
 K12's cross-shard kernels on phase 15d, summed over its ranks, K16's apply
 and Chebyshev update on 17b's solve, its dot and CG forms on 17b's
-cg_exact cycles, K15 on phase 18, the others on phase 7), and last the
-device JSON line.
+cg_exact cycles, K15 on phase 18, K13 on 20d, K14 on 20a, K17 on 21, the
+others on phase 7), and last the device JSON line.
 
 Usage: python3 chip_smoke.py            (one card, full size)
        python3 chip_smoke.py --n 16     (a smaller base, for rehearsals)
@@ -179,6 +213,7 @@ import argparse
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -283,6 +318,40 @@ KERNELS = {
         source="homogenization_jl_tpu_torch/csrc/mixed_boundary.cu",
         replaces="homogenization_jl_tpu/solver/multigrid.py:1618",
     ),
+    # K13: multishift CG's per-shift update
+    "multishift_update": dict(
+        route="cuda",
+        source="homogenization_jl_tpu_torch/csrc/multishift.cu",
+        replaces="homogenization_jl_tpu/solver/cg.py:90",
+    ),
+    # K14: the multishift recurrence's Jacobi CG step (a), M-inner product
+    # (b, a mode of K9) and basis passes (c)
+    "jacobi_cg": dict(
+        route="cuda",
+        source="homogenization_jl_tpu_torch/csrc/recurrence.cu",
+        replaces="homogenization_jl_tpu/models/multishift.py:174",
+    ),
+    "mass_dot": dict(
+        route="cuda",
+        source="homogenization_jl_tpu_torch/csrc/integrals.cu",
+        replaces="homogenization_jl_tpu/models/multishift.py:152",
+    ),
+    "basis_combine": dict(
+        route="cuda",
+        source="homogenization_jl_tpu_torch/csrc/recurrence.cu",
+        replaces="homogenization_jl_tpu/models/multishift.py:245",
+    ),
+    # K17: the st1 field's spectral filter and exp(alpha |f|)
+    "spectral_filter": dict(
+        route="triton",
+        source="homogenization_jl_tpu_torch/utils/fft_field.py",
+        replaces="homogenization_jl_tpu/utils/fft_field.py:44",
+    ),
+    "exp_abs": dict(
+        route="triton",
+        source="homogenization_jl_tpu_torch/utils/fft_field.py",
+        replaces="homogenization_jl_tpu/utils/fft_field.py:46",
+    ),
 }
 # NVIDIA's data sheet for the H100 SXM:
 # float32 outside the tensor cores, and HBM bandwidth
@@ -362,8 +431,51 @@ MIXED_ITERS = 30
 MIXED_TOL = 1e-10
 MIXED_1E6_WITHIN = 14
 MIXED_RECOMPUTED_MAX = 1e-6
-# phase 18b's size: n = 16 (23,814,144 DOFs) keeps the script near 800 s
-MIXED_SLAB_N = 16
+# depths cut to keep the script near 1,000 s with phases 19-21 (PERF.md
+# section 4): phase 6's chol solve, phase 12's run_slab legs and phase 18b's
+# slab of one at n = 16 / 16 / 8 (23,814,144 / 23,814,144 / 2,976,768
+# DOFs); phase 15d one level down (SHARED_CARD_CALL)
+CHOL_N = 16
+SLAB_RUN_N = 16
+MIXED_SLAB_N = 8
+# and phase 15a one level below the flagship (4 levels, 32,440,320 DOFs)
+SHARDED_PCG_LEVELS = 4
+# phases 19-20: BASELINE config 4 (BASELINE.json configs[3]): the 3D
+# checkerboard at n = 1 (R0 = 10: ordered_hypercube(3, 10), 48,000 tets),
+# refinements = 4 (n_local 969, 46,512,000 DOFs), float64, the multishift
+# recurrence with 120 Lanczos vectors (44.6 GB of basis), the field of
+# scripts/run_multishift_compare.py (default_rng(7))
+CONFIG4 = dict(n=1, dim=3, refinements=4)
+CONFIG4_STATE = (48_000, 969)
+CONFIG4_SEED = 7
+CONFIG4_LANCZOS = 120
+# (a) against the per-step driver (c): at most 1e-2 relative; past it, (a)
+# again with as many vectors as the card holds with CONFIG4_MARGIN bytes to
+# spare, held to the same bar: a vector is 0.372e9 bytes and the rest of
+# (a)'s peak 4.74e9, so 188 vectors peak at 74.7e9 of the card's 85.0e9
+# bytes (PERF.md: 120 vectors 6.4e-2, 160 2.1e-2, 200 2.6e-3 at a peak of
+# 79.2e9); the run fails with the numbers when less than its peak is free
+CONFIG4_GAP = 1e-2
+CONFIG4_LANCZOS_MORE = 188
+CONFIG4_MARGIN = 10e9
+# (e) one Lanczos step of (a) under torch.profiler by phase 15c's rules: a
+# run of CONFIG4_PROFILE_VECTORS vectors (every step does the same work),
+# the window from one Lanczos update to the next
+CONFIG4_PROFILE_VECTORS = 6
+# (b) two-pass against one-pass
+CONFIG4_TWO_PASS_TOL = 1e-10
+# (d) K13 on its path: shifted_family_solve one level down (refinements =
+# 3, 7,920,000 DOFs) against per-shift CG (tol 1e-12), ACCURACY.md:19's bar
+SHIFTED = dict(refinements=3, shifts=(1.0, 0.5, 0.25), iters=150)
+SHIFTED_TOL = 1e-8
+# phase 21: the st1 contrast rescue (ACCURACY.md:153-159), scripts/
+# run_st1.py's call with ST1_METHOD=pcg, 32 4 100.0 40, on the JAX draw
+# of seed 3: contrast 60,794 within 0.1%, the residual 1.1e-3 within 12
+# PCG iterations and 3.4e-5 within 16 (the TPU: 10 and 14 with bf16x3
+# smoothing; every knob of the port runs full float32)
+ST1 = dict(n=32, dim=3, refinements=4, alpha=100.0, seed=3, max_cycles=40, coarse="mg")
+ST1_CONTRAST = 60_794.0
+ST1_MARKS = ((1.1e-3, 12), (3.4e-5, 16))
 
 
 def bound(nbytes, flops):
@@ -433,6 +545,16 @@ MIXED_PATH = ("element_apply", "structured_combine", "chebyshev_update", "lattic
               "coarse_gather", "transfer", "masked_dot", "cg_update", "mixed_boundary")
 MIXED_SLAB_PATH = ("element_apply", "slab_combine", "chebyshev_update", "coarse_gather",
                    "transfer", "masked_dot", "cg_update", "mixed_boundary")
+# phase 20: the multishift recurrence on the ordered base (the gather
+# combine K8; the mass solves' K1, K5, K14a, K10; K14b, K14c; K9 for
+# sigma), and (d) multishift CG (K13) with its per-shift CG references
+CONFIG4_PATH = ("element_apply", "gather_combine", "masked_dot", "cg_update", "elementwise",
+                "integrals", "jacobi_cg", "mass_dot", "basis_combine")
+SHIFTED_PATH = ("element_apply", "gather_combine", "masked_dot", "elementwise",
+                "multishift_update")
+# phase 21: st1 (phase 5's solver kinds on the cube-order base, K17 for the
+# field)
+ST1_PATH = MAIN_PATH + ("spectral_filter", "exp_abs")
 
 
 def check(cond, msg):
@@ -1620,15 +1742,13 @@ def flagship_slab(kbuild, group, smi, sec_iter_phase7):
 # phases 14-15: the gather-sharded path
 # --------------------------------------------------------------------- #
 def ordered_flagship_problem(hz):
-    """The ordered flagship's base (ordered_hypercube(3, 16)), plan (5
-    levels), conductivity (seed 7) and step-0 rhs, as the ordered driver
-    builds them."""
+    """The ordered flagship's plan (ordered_hypercube(3, 16), 5 levels) and
+    conductivity (seed 7), as the ordered driver builds them."""
     from homogenization_jl_tpu_torch.models.checkerboard import (
         compute_boundary_layer,
         compute_box_radius,
         conductivity_per_element,
         generate_conductivity,
-        initial_rhs,
         ordered_hypercube,
     )
 
@@ -1638,8 +1758,7 @@ def ordered_flagship_problem(hz):
     plan = hz.build_grid_plan(mesh, FLAGSHIP["refinements"] + 1, slot_tables=False)
     field = generate_conductivity(3, 2 * R, np.random.default_rng(7))
     sigma = conductivity_per_element(mesh, field, np.full(3, float(R)))
-    b = initial_rhs(plan, sigma, np.ones(3) / np.sqrt(3), dtype=np.float32)
-    return plan, sigma, b
+    return plan, sigma
 
 
 def shard_cut(x, S):
@@ -1801,8 +1920,20 @@ def profile_step(step, lead_s=PROFILE_LEAD_S):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         time.sleep(PROFILE_MARGIN_S)
-    rows = []
+    return profile_table(prof, wall, start, end), prof
+
+
+def profile_table(prof, wall_s, start, end):
+    """The table of a finished profile: {"rows": [(kernel, device ms,
+    launches)] by device time, "wall_ms", "event_ms" (between the CUDA
+    events ``start`` and ``end``), "coverage": the rows' time over
+    event_ms, "host_reads": the device scalars read on the host}."""
+    import torch
+
+    rows, reads = [], 0
     for ev in prof.key_averages():
+        if ev.key == "aten::_local_scalar_dense":
+            reads += ev.count
         # device-side events only (kernels, copies): the CPU-side ops that
         # launched them carry the same device time again
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -1811,8 +1942,8 @@ def profile_step(step, lead_s=PROFILE_LEAD_S):
             rows.append((ev.key, ev.self_device_time_total / 1e3, ev.count))
     rows.sort(key=lambda r: -r[1])
     event_ms = start.elapsed_time(end)
-    return dict(rows=rows, wall_ms=wall * 1e3, event_ms=event_ms,
-                coverage=sum(r[1] for r in rows) / event_ms), prof
+    return dict(rows=rows, wall_ms=wall_s * 1e3, event_ms=event_ms,
+                coverage=sum(r[1] for r in rows) / event_ms, host_reads=reads)
 
 
 def covered_profile(step, label):
@@ -1838,17 +1969,20 @@ def library_elementwise(rows):
             if "elementwise_kernel" in name]
 
 
-def sharded_pcg_compare(hz, kbuild, group, plan, sigma, b_np, dev, smi):
+def sharded_pcg_compare(hz, kbuild, group, plan_full, sigma, dev, smi):
     """Phase 15a: 3 PCG iterations from zero of the gather-sharded solver
-    (a world of one) and of MultigridSolver on the ordered 3D plan, the
-    solver the ordered driver builds for its first step (float32,
-    Chebyshev, the coarse kind it picks, coarse_mg_tol=5e-2): equal
-    lambda_max and residual histories."""
+    (a world of one) and of MultigridSolver on the ordered 3D base one
+    level below the flagship (SHARDED_PCG_LEVELS), the solver the ordered
+    driver builds for its first step (float32, Chebyshev, the coarse kind
+    it picks, coarse_mg_tol=5e-2): equal lambda_max and residual
+    histories."""
     import torch
 
-    from homogenization_jl_tpu_torch.models.checkerboard import _make_solver
+    from homogenization_jl_tpu_torch.models.checkerboard import _make_solver, initial_rhs
 
     t0 = time.perf_counter()
+    plan = hz.build_grid_plan(plan_full.base, SHARDED_PCG_LEVELS, slot_tables=False)
+    b_np = initial_rhs(plan, sigma, np.ones(3) / np.sqrt(3), dtype=np.float32)
     out = {}
     for label, grp in (("single", None), ("sharded", group)):
         sol = _make_solver(plan, torch.float32, dev, 3, "mg", 8_000, "chebyshev",
@@ -1869,7 +2003,8 @@ def sharded_pcg_compare(hz, kbuild, group, plan, sigma, b_np, dev, smi):
           f"15a: sharded {s['lam_max']} {s['history']} vs single {m['lam_max']} {m['history']}")
     check(all(math.isfinite(h) for h in s["history"]) and s["history"][-1] < s["history"][0],
           f"15a: history {s['history']}")
-    say("15a", ok=True, coarse=s["kind"], lam_max=s["lam_max"], history=s["history"],
+    say("15a", ok=True, dofs=int(b_np.size), coarse=s["kind"], lam_max=s["lam_max"],
+        history=s["history"],
         single_history=m["history"], launches=s["launches"], wall_s=time.perf_counter() - t0,
         card=smi)
 
@@ -1985,7 +2120,7 @@ def profiles_report(pcg_profile, driver_profiles, driver_coverage, smi):
 # single-device driver: the run in which K12's cross-shard kernels serve
 # the path (a world of one has no cross groups)
 SHARED_CARD_RANKS = 2
-SHARED_CARD_CALL = dict(n=2, dim=3, refinements=3, tolerance=1e-6, seed=7, coarse="mg",
+SHARED_CARD_CALL = dict(n=2, dim=3, refinements=2, tolerance=1e-6, seed=7, coarse="mg",
                         smoother="chebyshev", inner="pcg", solver_opts=dict(coarse_mg_tol=5e-2))
 SHARED_CARD_SIGMA_TOL = 1e-8
 
@@ -2430,6 +2565,458 @@ def mixed_slab(dev, smi, n):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------- #
+# phases 19-21: the multishift recurrence and st1 (K13, K14, K17)
+# --------------------------------------------------------------------- #
+def check_multishift_kernels(dev):
+    """Phase 19: K13, K14a/b/c and K17 against their plain forms at the
+    shapes of phases 20 and 21, float32 and float64 (K17: float32). Returns
+    ({kernel: entry} at float64 (K17 float32), report)."""
+    import torch
+
+    from homogenization_jl_tpu_torch.ops import integrals as k_int
+    from homogenization_jl_tpu_torch.ops import multishift as k_ms
+    from homogenization_jl_tpu_torch.ops import recurrence as k_rec
+    from homogenization_jl_tpu_torch.ops.apply import element_apply, element_apply_plain
+    from homogenization_jl_tpu_torch.utils import fft_field as k_ff
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    E, n = CONFIG4_STATE
+    N = E * n
+    ns, m, K = 3, CONFIG4_LANCZOS, 3
+    timing, report = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        f64 = dtype == torch.float64
+        es = 8 if f64 else 4
+        tag = str(dtype)[6:]
+
+        def rand(*shape):
+            return torch.randn(shape, generator=g, dtype=dtype, device=dev)
+
+        # K13: k == 0, k > 0 and a D == 0 guard, bitwise
+        shifts = torch.tensor([1.0, 0.5, 0.25], dtype=dtype, device=dev)
+        v, W, xs = rand(E, n), rand(ns, E, n), rand(ns, E, n)
+        tc, tp = rand(), rand()
+        for case in ("first", "later", "D-zero"):
+            D = rand(ns) + 2
+            if case == "D-zero":
+                D[1] = 0
+            y = rand(ns)
+            Wk, xk, Wp, xp = W.clone(), xs.clone(), W.clone(), xs.clone()
+            got = k_ms.multishift_step(v, Wk, xk, shifts, tc, tp, D, y, case == "first")
+            ref = k_ms.multishift_step_plain(v, Wp, xp, shifts, tc, tp, D, y, case == "first")
+            for a, b in zip(got + (Wk, xk), ref + (Wp, xp)):
+                check(torch.equal(_bits(a), _bits(b)), f"K13 {case} {dtype}: differs from plain")
+            del Wp, xp
+        if f64:
+            timing["multishift_update"] = entry(
+                0.0, cuda_ms(lambda: k_ms.multishift_step(v, Wk, xk, shifts, tc, tp, D, y, False), 5),
+                cuda_ms(lambda: k_ms.multishift_step_plain(v, Wk, xk, shifts, tc, tp, D, y, False), 3),
+                nbytes=(1 + 4 * ns) * N * es, flops=4 * ns * N)
+        del v, W, xs, Wk, xk
+        torch.cuda.empty_cache()
+
+        # K14a: bitwise, two launches equal, the dots K5's
+        x, r, p, Ap = rand(E, n), rand(E, n), rand(E, n), rand(E, n)
+        d = rand(E, n).abs() + 0.5
+        w = torch.rand((E, n), generator=g, device=dev) < 0.7
+        num, den = rand(), rand()
+        outs = []
+        for _ in range(2):
+            xk, rk = x.clone(), r.clone()
+            outs.append((xk, rk) + k_rec.jacobi_cg_step(xk, rk, p, Ap, d, w, num, den))
+        xp, rp = x.clone(), r.clone()
+        ref = (xp, rp) + k_rec.jacobi_cg_step_plain(xp, rp, p, Ap, d, w, num, den)
+        for a, b, c in zip(outs[0], outs[1], ref):
+            check(torch.equal(_bits(a), _bits(b)), f"K14a {dtype}: two launches differ")
+            check(torch.equal(_bits(a), _bits(c)), f"K14a {dtype}: differs from plain")
+        if f64:
+            xk, rk = outs[0][0], outs[0][1]
+            timing["jacobi_cg"] = entry(
+                0.0, cuda_ms(lambda: k_rec.jacobi_cg_step(xk, rk, p, Ap, d, w, num, den), 5),
+                cuda_ms(lambda: k_rec.jacobi_cg_step_plain(xp, rp, p, Ap, d, w, num, den), 3),
+                nbytes=(8 * es + 1) * N, flops=9 * N)
+        del x, r, p, Ap, d, w, outs, ref, xp, rp, xk, rk
+        torch.cuda.empty_cache()
+
+        # K14b: K9's DOT_M mode within phase 3b's K9 bars, repeatable
+        mass = rand(n, n)
+        mass = ((mass + mass.T) * 0.5).contiguous()
+        u, vv, detJ = rand(E, n), rand(E, n), rand(E).abs() + 0.5
+        got = k_int.dot_M(u, vv, mass, detJ)
+        again = k_int.dot_M(u, vv, mass, detJ)
+        ref = k_int.sigma_integral_plain(k_int.DOT_M, vv, mass, u, detJ, None)
+        scale = float(k_int.sigma_integral_plain(k_int.DOT_M, vv.abs(), mass.abs(), u.abs(), detJ,
+                                                 None))
+        err = abs(float(got) - float(ref)) / scale
+        check(torch.equal(_bits(got), _bits(again)), f"K14b {dtype}: two launches differ")
+        check(err <= (1e-12 if f64 else 1e-5), f"K14b {dtype}: rel err {err}")
+        report[f"K14b_{tag}_rel_err"] = err
+        if f64:
+            timing["mass_dot"] = entry(
+                abs(float(got) - float(ref)), cuda_ms(lambda: k_int.dot_M(u, vv, mass, detJ), 5),
+                cuda_ms(lambda: k_int.sigma_integral_plain(k_int.DOT_M, vv, mass, u, detJ, None), 3),
+                nbytes=es * (2 * N + n * n + E), flops=2 * E * n * n + 3 * N,
+                library_ms=cuda_ms(lambda: torch.einsum("e,em,mn,en->", detJ, u, mass, vv), 3))
+        del u, vv, detJ, mass
+        torch.cuda.empty_cache()
+
+        if f64:
+            # K1's mass apply of the mass solves: the one-piece stack [M],
+            # coefficient detJ, the boundary mask at the store
+            mass = rand(n, n)
+            mass = ((mass + mass.T) * 0.5).contiguous()
+            u, detJ = rand(E, n), rand(E, 1).abs() + 0.5
+            bm = torch.rand((E, n), generator=g, device=dev) < 0.9
+            got = element_apply(u, detJ, mass[None], mask=bm)
+            ref = element_apply_plain(u, detJ, mass[None]) * bm
+            err = float((got - ref).abs().max())
+            check(err <= 1e-12 * float(ref.abs().max()), f"K1 mass apply: abs err {err}")
+            report["K1_mass_apply_float64"] = entry(
+                err, cuda_ms(lambda: element_apply(u, detJ, mass[None], mask=bm), 5),
+                cuda_ms(lambda: element_apply_plain(u, detJ, mass[None]) * bm, 3),
+                nbytes=es * (2 * N + n * n + E) + N, flops=2 * E * n * n + 2 * N)
+            # cuBLAS's GEMM of the same product alone (no detJ, no mask)
+            report["K1_mass_apply_float64"]["gemm_ms"] = cuda_ms(lambda: torch.mm(u, mass), 3)
+            del u, detJ, bm, mass, got, ref
+            torch.cuda.empty_cache()
+
+        # K14c: one-pass with m = 120, K + 1 = 3; the two-pass accumulation
+        V, Y = rand(m, E, n), rand(K, m)
+        out = k_rec.basis_combine(V, Y)
+        ref = k_rec.basis_combine_plain(V, Y)
+        check(torch.equal(_bits(out), _bits(ref)), f"K14c combine {dtype}: differs from plain")
+        del ref
+        sums = torch.empty_like(out)
+        Yt = Y.T.contiguous()
+        for j in range(m):
+            k_rec.basis_accumulate(sums, V[j], Yt[j], first=j == 0)
+        check(torch.equal(_bits(sums), _bits(out)), f"K14c accumulate {dtype}: differs from combine")
+        acc = k_rec.basis_accumulate_plain
+        sums_p = sums.clone()
+        k_rec.basis_accumulate(sums, V[1], Yt[1])
+        acc(sums_p, V[1], Yt[1], False)
+        check(torch.equal(_bits(sums), _bits(sums_p)), f"K14c accumulate {dtype}: differs from plain")
+        del sums_p
+        report[f"K14c_accumulate_{tag}_ms"] = cuda_ms(
+            lambda: k_rec.basis_accumulate(sums, V[1], Yt[1]), 10)
+        if f64:
+            timing["basis_combine"] = entry(
+                0.0, cuda_ms(lambda: k_rec.basis_combine(V, Y), 3),
+                cuda_ms(lambda: k_rec.basis_combine_plain(V, Y), 1),
+                nbytes=(m + K) * N * es, flops=2 * m * K * N,
+                library_ms=cuda_ms(lambda: torch.matmul(Y, V.view(m, -1)), 3))
+        del V, Y, out, sums, Yt
+        torch.cuda.empty_cache()
+
+    # K17 at 32^3 on the JAX draw of phase 21
+    shape = (32, 32, 32)
+    noise = torch.as_tensor(k_ff.pinned_noise(3, shape), device=dev)
+    F = torch.fft.rfftn(noise).contiguous()
+    fk = k_ff.spectral_filter(F, shape, 1.5)
+    fp = k_ff.spectral_filter_plain(F, shape, 1.5)
+    err_a = float((fk - fp).abs().max()) / float(fp.abs().max())
+    check(err_a <= 1e-6, f"K17a: rel err {err_a}")
+    f = torch.fft.irfftn(fp, s=shape).contiguous()
+    ek, ep = k_ff.exp_abs(f, ST1["alpha"]), k_ff.exp_abs_plain(f, ST1["alpha"])
+    err_b = float((ek / ep - 1).abs().max())
+    check(err_b <= 4e-6, f"K17b: rel err {err_b}")
+    report.update(K17a_rel_err=err_a, K17b_rel_err=err_b)
+    timing["spectral_filter"] = entry(
+        float((fk - fp).abs().max()), cuda_ms(lambda: k_ff.spectral_filter(F, shape, 1.5), 20),
+        cuda_ms(lambda: k_ff.spectral_filter_plain(F, shape, 1.5), 20),
+        nbytes=2 * 8 * F.numel(), flops=12 * F.numel())
+    timing["exp_abs"] = entry(
+        float((ek - ep).abs().max()), cuda_ms(lambda: k_ff.exp_abs(f, ST1["alpha"]), 20),
+        cuda_ms(lambda: k_ff.exp_abs_plain(f, ST1["alpha"]), 20),
+        nbytes=2 * 4 * f.numel(), flops=3 * f.numel())
+    return timing, report
+
+
+def config4_field():
+    from homogenization_jl_tpu_torch.models.checkerboard import (
+        compute_boundary_layer,
+        compute_box_radius,
+        generate_conductivity,
+    )
+
+    n, dim = CONFIG4["n"], CONFIG4["dim"]
+    R0 = compute_box_radius(0, n) + compute_boundary_layer(1.0, n)
+    return R0, generate_conductivity(dim, 2 * R0, np.random.default_rng(CONFIG4_SEED))
+
+
+def config4(kbuild, dev, smi):
+    """Phase 20: BASELINE config 4 on the card. Returns (launches of (a),
+    launches of (d))."""
+    import torch
+
+    from homogenization_jl_tpu_torch.models.checkerboard import checkerboard_homogenization
+    from homogenization_jl_tpu_torch.models.multishift import homogenization_multishift
+
+    R0, field = config4_field()
+    f64 = torch.float64
+    out = {}
+
+    def run(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kbuild.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        rec = dict(wall_s=time.perf_counter() - t0, max_memory_allocated=torch.cuda.max_memory_allocated())
+        return res, rec, dict(kbuild.LAUNCHES)
+
+    def multishift(m, two_pass=False):
+        if two_pass:
+            return homogenization_multishift(
+                **CONFIG4, lanczos_iters=m, cond_field=field, dtype=f64, two_pass=True,
+                return_stats=True, device=dev)
+        return checkerboard_homogenization(
+            **CONFIG4, solver="multishift", lanczos_iters=m, dtype=f64, cond_field=field,
+            return_trace=True, device=dev)
+
+    def stats_rec(sigma, st, rec):
+        return dict(sigma=sigma, sigma_steps=st["sigma_steps"], lanczos_iters=st["lanczos_iters"],
+                    A_applies=st["A_applies"], M_applies=st["M_applies"],
+                    setup_s=st["setup_seconds"], lanczos_s=st["lanczos_seconds"], **rec)
+
+    (sig_a, st_a), rec, launches_a = run(lambda: multishift(CONFIG4_LANCZOS))
+    check(all(launches_a[k] > 0 for k in CONFIG4_PATH), f"config 4 (a): a kernel never ran: {launches_a}")
+    check(math.isfinite(sig_a), f"config 4 (a): sigma {sig_a}")
+    out["a"] = stats_rec(sig_a, st_a, rec)
+    out["a"]["launches"] = launches_a
+    say("20a", ok=True, **out["a"], card=smi)
+
+    (sig_b, st_b), rec, _ = run(lambda: multishift(CONFIG4_LANCZOS, two_pass=True))
+    rel_b = abs(sig_b - sig_a) / abs(sig_a)
+    check(rel_b <= CONFIG4_TWO_PASS_TOL, f"config 4 (b): two-pass sigma {sig_b} vs {sig_a}")
+    check(st_b["lanczos_iters"] == st_a["lanczos_iters"], "config 4 (b): Lanczos counts differ")
+    out["b"] = dict(stats_rec(sig_b, st_b, rec), rel_diff_vs_one_pass=rel_b)
+    say("20b", ok=True, **out["b"], card=smi)
+
+    (sig_c, tr_c), rec, _ = run(lambda: checkerboard_homogenization(
+        **CONFIG4, cond_field=field, dtype=f64, tolerance=1e-8, shrink=False, inner="pcg",
+        smoother="chebyshev", coarse="mg", return_trace=True, device=dev))
+    gap = abs(sig_a - sig_c) / abs(sig_c)
+    iters = [t for step in tr_c.iteration_seconds for t in step]
+    out["c"] = dict(sigma=sig_c, sigma_steps=tr_c.sigma_steps, cycles_per_step=tr_c.cycles_per_step,
+                    residuals=tr_c.residuals, host_init_s=tr_c.init_seconds,
+                    step_setup_s=tr_c.setup_seconds, sec_per_iteration_mean=sum(iters) / len(iters),
+                    gap_a_vs_c=gap, **rec)
+    say("20c", ok=True, **out["c"], card=smi)
+    if gap > CONFIG4_GAP:
+        # the estimator's own limit at this size: more vectors, the same bar
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(dev)
+        vec = CONFIG4_STATE[0] * CONFIG4_STATE[1] * 8
+        need = out["a"]["max_memory_allocated"] + (CONFIG4_LANCZOS_MORE - CONFIG4_LANCZOS) * vec
+        check(need + CONFIG4_MARGIN <= total and need <= free,
+              f"config 4 (c+): {CONFIG4_LANCZOS_MORE} vectors need {need} bytes: "
+              f"{free} free of {total}, margin {CONFIG4_MARGIN}")
+        (sig_a2, st_a2), rec, _ = run(lambda: multishift(CONFIG4_LANCZOS_MORE))
+        gap2 = abs(sig_a2 - sig_c) / abs(sig_c)
+        out["a_more"] = dict(stats_rec(sig_a2, st_a2, rec), gap_vs_c=gap2, free_before=free,
+                             need=need)
+        say("20c+", gap_first=gap, **out["a_more"], card=smi)
+        check(gap2 <= CONFIG4_GAP,
+              f"config 4: {CONFIG4_LANCZOS} vectors gap {gap}, {CONFIG4_LANCZOS_MORE} gap {gap2}")
+
+    # (d) K13 on its path, one level down
+    from homogenization_jl_tpu_torch.models.checkerboard import (
+        conductivity_per_element,
+        ordered_hypercube,
+    )
+    from homogenization_jl_tpu_torch.models.multishift import (
+        shift_solutions_gap,
+        shifted_family_solve,
+    )
+    from homogenization_jl_tpu_torch.ops.plan import build_grid_plan
+    from homogenization_jl_tpu_torch.solver.multigrid import MultigridSolver
+
+    dim = CONFIG4["dim"]
+    base = ordered_hypercube(dim, R0)[0]
+    sigma_el = conductivity_per_element(base, field, np.full(dim, float(R0)))
+    levels = SHIFTED["refinements"] + 1
+    plan = build_grid_plan(base, levels, slot_tables=False)
+    solver = MultigridSolver(plan, dtype=f64, device=dev, coarse="cg")
+    coeff = solver.coefficients(sigma_el, 0.0)
+    k = levels - 1
+    b = torch.as_tensor(np.random.default_rng(CONFIG4_SEED).standard_normal(
+        (base.nelements, plan.n_local(k)))).to(dev)
+    (xs, res), rec, launches_d = run(lambda: shifted_family_solve(
+        solver, coeff, b, SHIFTED["shifts"], iters=SHIFTED["iters"]))
+    check(all(launches_d[kk] > 0 for kk in SHIFTED_PATH), f"config 4 (d): a kernel never ran: {launches_d}")
+    check(launches_d["multishift_update"] in (0, SHIFTED["iters"]) if dev.type == "cpu" else
+          launches_d["multishift_update"] == SHIFTED["iters"], "config 4 (d): K13 launches")
+    t0 = time.perf_counter()
+    worst = shift_solutions_gap(solver, coeff, b, SHIFTED["shifts"], xs, k,
+                                maxiter=2 * SHIFTED["iters"])
+    check(worst <= SHIFTED_TOL, f"config 4 (d): multishift vs per-shift CG {worst}")
+    out["d"] = dict(dofs=int(b.numel()), worst_rel_diff=worst, resnorms=res.tolist(),
+                    reference_cg_s=time.perf_counter() - t0, **rec, launches=launches_d)
+    say("20d", ok=True, **out["d"], card=smi)
+    del xs, res, b, coeff, solver, plan
+    torch.cuda.empty_cache()
+    lanczos_step_profile(dev, field, out["a"], smi)
+    return launches_a, launches_d
+
+
+def kernel_function(name):
+    """A profile row's kernel function without its return type, namespace
+    and template arguments (element_apply_kernel, vectorized_elementwise_
+    kernel, ...; a copy's kind: DtoH, HtoD)."""
+    m = re.search(r"(\w+)\s*[<(]", name.replace("(anonymous namespace)::", ""))
+    return m.group(1) if m else name
+
+
+def lanczos_step_profile(dev, field, rec_a, smi):
+    """Phase 20e: one Lanczos step of (a) under torch.profiler, by phase
+    15c's rules: the first window (of up to PROFILE_ATTEMPTS, from one
+    Lanczos update to the next in a run of CONFIG4_PROFILE_VECTORS vectors,
+    attempt i after PROFILE_LEAD_S * 2**i of idle trace) that covers
+    PROFILE_MIN_COVERAGE of its CUDA-event time, and no PyTorch elementwise
+    kernel above LIBRARY_ELEMENTWISE_MAX_US per launch. Reports each kernel
+    function's share of the step's device time, the idle share and the
+    host reads."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from homogenization_jl_tpu_torch.models import multishift as ms_model
+    from homogenization_jl_tpu_torch.models.multishift import homogenization_multishift
+
+    update = ms_model.lanczos_update
+    attempts, win = [], {}
+
+    def traced_update(*args, **kwargs):
+        out = update(*args, **kwargs)
+        if "prof" in win:  # close the window: one Lanczos step
+            win["end"].record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - win["t0"]
+            time.sleep(PROFILE_MARGIN_S)
+            prof = win.pop("prof")
+            prof.stop()
+            attempts.append(profile_table(prof, wall, win["start"], win["end"]))
+            del prof
+        covered = any(a["coverage"] >= PROFILE_MIN_COVERAGE for a in attempts)
+        if win.get("updates", 0) >= 1 and not covered and len(attempts) < PROFILE_ATTEMPTS:
+            torch.cuda.synchronize()
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.start()
+            torch.ones(1).to("cuda")
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_LEAD_S * 2 ** len(attempts))
+            win.update(prof=prof, start=torch.cuda.Event(enable_timing=True),
+                       end=torch.cuda.Event(enable_timing=True), t0=time.perf_counter())
+            win["start"].record()
+        win["updates"] = win.get("updates", 0) + 1
+        return out
+
+    ms_model.lanczos_update = traced_update
+    try:
+        _, st = homogenization_multishift(
+            **CONFIG4, lanczos_iters=CONFIG4_PROFILE_VECTORS, cond_field=field,
+            dtype=torch.float64, return_stats=True, device=dev)
+    finally:
+        ms_model.lanczos_update = update
+        if "prof" in win:
+            win.pop("prof").stop()
+    covered = [a for a in attempts if a["coverage"] >= PROFILE_MIN_COVERAGE]
+    check(covered, f"20e: no profile covers {PROFILE_MIN_COVERAGE} of the Lanczos step: "
+          f"{[a['coverage'] for a in attempts]}")
+    p = covered[0]
+    lib = library_elementwise(p["rows"])
+    worst = max((us for _, us, _ in lib), default=0.0)
+    check(worst <= LIBRARY_ELEMENTWISE_MAX_US,
+          f"20e: a PyTorch elementwise kernel takes {worst} us per launch: {lib}")
+    busy = sum(r[1] for r in p["rows"])
+    funcs = {}
+    for name, ms, count in p["rows"]:
+        f = funcs.setdefault(kernel_function(name), [0.0, 0])
+        f[0] += ms
+        f[1] += count
+    shares = sorted(((k, ms, cnt, ms / p["event_ms"]) for k, (ms, cnt) in funcs.items()),
+                    key=lambda r: -r[1])
+    steps = st["lanczos_iters"]
+    say("20e", ok=True, vectors=CONFIG4_PROFILE_VECTORS, step_wall_ms=p["wall_ms"],
+        step_event_ms=p["event_ms"], device_busy_ms=busy, coverage=p["coverage"],
+        idle_share=1.0 - busy / p["wall_ms"], host_reads=p["host_reads"],
+        attempts=[a["coverage"] for a in attempts],
+        mass_cg_iterations_per_step=(st["M_applies"] - steps - 1) / (steps + 1),
+        a_lanczos_ms_per_step=rec_a["lanczos_s"] * 1e3 / rec_a["lanczos_iters"],
+        kernels=shares, top15=[(name[:90], ms, cnt) for name, ms, cnt in p["rows"][:15]],
+        library_elementwise=lib, max_library_elementwise_us=worst, card=smi)
+
+
+def st1_rescue(kbuild, dev, smi):
+    """Phase 21: the st1 contrast rescue at 190,513,152 DOFs on the TPU
+    record's field. Returns the launches of the run."""
+    import torch
+
+    from homogenization_jl_tpu_torch.models.st1 import st1_multigrid
+    from homogenization_jl_tpu_torch.utils.fft_field import pinned_noise
+
+    noise = pinned_noise(ST1["seed"], (ST1["n"],) * ST1["dim"])
+    check(noise is not None, "st1: the pinned noise is missing")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kbuild.reset_launches()
+    timings = {}
+    t0 = time.perf_counter()
+    hist, x, solver, sigma_el = st1_multigrid(
+        **ST1, dtype=torch.float32, method="pcg",
+        solver_opts=dict(smoother="chebyshev", coarse_mg_tol=5e-2), noise=noise, device=dev,
+        timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kbuild.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(launches[k] > 0 for k in ST1_PATH), f"st1: a kernel never ran: {launches}")
+    contrast = float(sigma_el.max() / sigma_el.min())
+    check(abs(contrast / ST1_CONTRAST - 1) <= 1e-3, f"st1: contrast {contrast}")
+    check(bool(torch.isfinite(x).all()), "st1: non-finite solution")
+    marks = {}
+    for level, within in ST1_MARKS:
+        it = next((i for i, h in enumerate(hist) if h <= level), None)
+        check(it is not None and it <= within, f"st1: residual {level} at iteration {it} > {within}")
+        marks[str(level)] = it
+    # seconds per PCG iteration between the solve's CUDA events (the host
+    # reads one residual per iteration, as the JAX loop does)
+    sec_iter = timings["solve_events_s"] / (len(hist) - 1)
+    top = ST1["refinements"]
+    dofs = solver.plan.base.nelements * solver.plan.n_local(top)
+    say(21, ok=True, dofs=dofs, contrast=contrast, history=hist, iterations_to=marks,
+        wall_s=wall, timings=timings, sec_per_pcg_iter=sec_iter, max_memory_allocated=peak,
+        launches=launches, card=smi)
+    return launches
+
+
+def slice_phases(kbuild, dev, smi):
+    """Phases 19-21. Returns ({kernel: entry}, {kernel: launches on its
+    path}) of K13, K14 and K17."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    timing, report = check_multishift_kernels(dev)
+    kbuild.reset_launches()  # comparison launches do not count
+    say(19, ok=True, f64=timing, report=report, card=smi)
+    launches_a, launches_d = config4(kbuild, dev, smi)
+    torch.cuda.empty_cache()
+    launches_s = st1_rescue(kbuild, dev, smi)
+    torch.cuda.empty_cache()
+    launches = dict(multishift_update=launches_d["multishift_update"],
+                    jacobi_cg=launches_a["jacobi_cg"], mass_dot=launches_a["mass_dot"],
+                    basis_combine=launches_a["basis_combine"],
+                    spectral_filter=launches_s["spectral_filter"],
+                    exp_abs=launches_s["exp_abs"])
+    say("19-21", ok=True, wall_s=time.perf_counter() - t0)
+    return timing, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=32, help="cubes per axis of the base")
@@ -2535,9 +3122,10 @@ def main(argv=None):
     def iters_to(hist, tol):
         return next((i - 1 for i in range(1, len(hist)) if hist[i] < tol), None)
 
-    def check_solve(label, x, hist, launches, path):
+    def check_solve(label, x, hist, launches, path, rhs=None):
+        rhs = b if rhs is None else rhs
         check(all(launches[k] > 0 for k in path), f"{label}: a kernel never ran: {launches}")
-        check(x.shape == b.shape and bool(torch.isfinite(x).all()), f"{label}: non-finite solution")
+        check(x.shape == rhs.shape and bool(torch.isfinite(x).all()), f"{label}: non-finite solution")
         check(hist[-1] < 1e-4, f"{label}: relative residual {hist[-1]} >= 1e-4")
         check(len(hist) - 2 <= 20, f"{label}: {len(hist) - 2} PCG iterations > 20")
 
@@ -2603,25 +3191,28 @@ def main(argv=None):
     # ---- phase 6: the dense Cholesky coarse solve (coarse="chol") ----------
     del x  # phase 5's solver and PCG state stay for its profile (above)
     torch.cuda.empty_cache()
+    n_chol = min(CHOL_N, args.n)
+    _, sigma_c, plan_c, b_np_c = problem(hz, n_chol, 5, seed=0)
+    b_c = torch.as_tensor(b_np_c, device=dev, dtype=torch.float32)
     t0 = time.perf_counter()
-    solver_c = hz.MultigridSolver(plan, dtype=torch.float32, device=dev,
+    solver_c = hz.MultigridSolver(plan_c, dtype=torch.float32, device=dev,
                                   smoother="chebyshev", coarse="chol")
     t_setup_c = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kbuild.reset_launches()
     t0 = time.perf_counter()
-    xc, hist_c = solve_main(solver_c)
+    xc, hist_c = solver_c.solve(b_c, sigma_c, 0.0, tol=1e-4, method="auto", max_cycles=30)
     torch.cuda.synchronize()
     t_solve_c = time.perf_counter() - t0
     launches_c = dict(kbuild.LAUNCHES)
     check_solve("coarse=chol", xc, hist_c, launches_c,
-                [k for k in MAIN_PATH if k != "lattice_stencil"])
-    say(6, ok=True, coarse="chol", n=args.n, history=hist_c,
+                [k for k in MAIN_PATH if k != "lattice_stencil"], rhs=b_c)
+    say(6, ok=True, coarse="chol", n=n_chol, history=hist_c,
         iters_to_1e3=iters_to(hist_c, 1e-3), iters_to_1e4=iters_to(hist_c, 1e-4),
         solve_wall_s=t_solve_c, host_solver_s=t_setup_c,
         max_memory_allocated=torch.cuda.max_memory_allocated(), launches=dict(kbuild.LAUNCHES))
-    del solver_c, xc
+    del solver_c, xc, b_c, plan_c
     torch.cuda.empty_cache()
 
     # ---- phase 7: the flagship driver at full size ------------------------
@@ -2653,8 +3244,9 @@ def main(argv=None):
     store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
     group = SlabGroup.from_file(os.path.join(store, "store"), 0, 1, device=dev)
     try:
-        slab_run(run_slab, group, prob_c, args.n, smi)
         del prob_c
+        n_slab = min(SLAB_RUN_N, args.n)
+        slab_run(run_slab, group, run_slab.problem(3, n_slab, 5), n_slab, smi)
         torch.cuda.empty_cache()
         launches_s = flagship_slab(kbuild, group, smi, flagship_sec_iter)
         say("11-13", ok=True, wall_s=time.perf_counter() - t_slab)
@@ -2663,11 +3255,11 @@ def main(argv=None):
         t_shard = time.perf_counter()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        plan_o, sigma_o, b_o = ordered_flagship_problem(hz)
+        plan_o, sigma_o = ordered_flagship_problem(hz)
         t_plan_o = time.perf_counter() - t0
         timing["sharded_combine"] = check_sharded_kernel(hz, kbuild, plan_o, dev, smi, t_plan_o)
-        sharded_pcg_compare(hz, kbuild, group, plan_o, sigma_o, b_o, dev, smi)
-        del plan_o, sigma_o, b_o
+        sharded_pcg_compare(hz, kbuild, group, plan_o, sigma_o, dev, smi)
+        del plan_o, sigma_o
         torch.cuda.empty_cache()
         driver_profiles, driver_coverage = flagship_ordered_sharded(
             kbuild, group, smi, flagship_sec_iter)
@@ -2713,6 +3305,10 @@ def main(argv=None):
     mixed_slab(dev, smi, min(MIXED_SLAB_N, args.n))
     say("16-18", ok=True, wall_s=time.perf_counter() - t_prec)
 
+    # ---- phases 19-21: the multishift recurrence and st1 -------------------
+    timing_slice, launches_slice = slice_phases(kbuild, dev, smi)
+    timing.update(timing_slice)
+
     path_launches = {name: launches_f[name] for name in KERNELS}
     path_launches["gather_combine"] = launches_2d["ordered"]["gather_combine"]
     for name in ("transfer", "masked_dot", "cg_update"):
@@ -2724,6 +3320,7 @@ def main(argv=None):
     for name in ("direction_dot", "direction_cg"):
         path_launches[name] = launches_bc[name]
     path_launches["mixed_boundary"] = launches_m["mixed_boundary"]
+    path_launches.update(launches_slice)
     kernels = [
         dict(name=name, **meta, launches=path_launches[name], **timing[name])
         for name, meta in KERNELS.items()

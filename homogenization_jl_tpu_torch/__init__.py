@@ -17,8 +17,13 @@ Layer map (host precompute in NumPy, device compute in PyTorch):
              the state-sized elementwise passes (K18, CUDA, elementwise)
   csrc/    — the CUDA sources and their nvcc build
   solver/  — multigrid (structured, chebyshev; coarse chol / inv / cg / mg
-             with the aux hierarchy of coarse.py; FMG + PCG)
-  models/  — checkerboard conductivity fields
+             with the aux hierarchy of coarse.py; FMG + PCG); CG and
+             multishift CG (cg.py; per-shift update K13, CUDA, ops/multishift)
+  models/  — checkerboard conductivity fields and the homogenization
+             driver; the multishift recurrence (Jacobi CG step, M-inner
+             product, basis passes: K14, CUDA, ops/recurrence and K9);
+             the st1 field solve
+  utils/   — st1 spectral fields (the FFTs and K17, Triton)
   parallel/ — the sharded solvers over torch.distributed (SlabGroup;
              SlabShardedMultigridSolver, slab combine K11, CUDA;
              ShardedMultigridSolver, gather-sharded combine K12)
@@ -31,6 +36,8 @@ from .ops.plan import build_grid_plan
 from .parallel.group import SlabGroup
 from .parallel.sharding import ShardedMultigridSolver
 from .parallel.slab import SlabShardedMultigridSolver
+from .models.st1 import st1_multigrid
+from .solver.cg import multishift_cg
 from .solver.multigrid import MultigridSolver
 
 __all__ = [
@@ -44,6 +51,8 @@ __all__ = [
     "SlabGroup",
     "ShardedMultigridSolver",
     "SlabShardedMultigridSolver",
+    "multishift_cg",
+    "st1_multigrid",
 ]
 
 __version__ = "0.1.0"

@@ -10,7 +10,8 @@ hash of the sources, so an edited source is never served a stale build.
 Nothing here includes PyTorch's headers: a build takes seconds, not minutes.
 
 ``LAUNCHES`` counts the launches of every hand kernel of the package (the
-CUDA ones and the Triton ``chebyshev_update``). A wrapper adds one exactly
+CUDA ones and the Triton ones: ``chebyshev_update`` and K17's
+``spectral_filter`` and ``exp_abs``). A wrapper adds one exactly
 where it launches its kernel; the plain CPU path never counts.
 """
 
@@ -42,6 +43,12 @@ LAUNCHES = {
     "direction_dot": 0,
     "direction_cg": 0,
     "mixed_boundary": 0,
+    "multishift_update": 0,
+    "jacobi_cg": 0,
+    "mass_dot": 0,
+    "basis_combine": 0,
+    "spectral_filter": 0,
+    "exp_abs": 0,
 }
 
 _CSRC = os.path.dirname(os.path.abspath(__file__))
@@ -121,6 +128,16 @@ _SIGNATURES = {
     "hz_cross_partial": [_I, _P, _P, _P, _P, _L, _P],
     # dtype, out, total, idx (int64), grp (int64), mask (or NULL), n_slots, stream
     "hz_cross_scatter": [_I, _P, _P, _P, _P, _P, _L, _P],
+    # dtype, v, W, xs, shifts, t_curr, t_prev, D_prev, y_prev, D_curr,
+    # y_curr, coef, n_shifts, N, first, stream
+    "hz_multishift_step": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _P],
+    # dtype, x, r, p, Ap, d, w (or NULL), num, den, z, blocksum, rz, rs, N,
+    # stream
+    "hz_jacobi_cg_step": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _P],
+    # dtype, V, Y, ldy, out, m, K, N, stream
+    "hz_basis_combine": [_I, _P, _P, _I, _P, _I, _I, _L, _P],
+    # dtype, v, c, ldc, sums, K, N, first, stream
+    "hz_basis_accumulate": [_I, _P, _P, _I, _P, _I, _L, _I, _P],
 }
 
 

@@ -15,6 +15,12 @@
 //   mode 1, first_term (quirk):  s = detJ * (sum_i x_i (Mx)_i + sum_i x_i b0_i)
 //   mode 2, first_term:          s = sum_i x_i b0_i + detJ * sum_i x_i (Mx)_i
 //   mode 3, area:                s = detJ          (scale = sum of M)
+//   mode 4, dot_M:               s = detJ * sum_i w_i (Mx)_i
+//
+// Mode 4 is the M-inner product of the multishift recurrence (kernel K14b,
+// homogenization_jl_tpu/models/multishift.py:152-155: dot_M(u, v) =
+// sum_e detJ_e u_e . (M v_e), with x = v and w = u), unmasked (mask NULL)
+// and with scale 1; the mass apply's output is never written.
 //
 // Bound on the H100: operations. At the flagship's finest level (E =
 // 196,608, n = 969) the mass product is 2 E n^2 = 3.7e11 FLOP, 5.5 ms at
@@ -160,7 +166,7 @@ integrals_rows_kernel(const T* __restrict__ x, const T* __restrict__ M,
         if (m >= n) continue;
         const long long o = e * n + m;
         const T xo = x[o];
-        const T u = mode == 0 ? xo + w[o] : xo;
+        const T u = mode == 0 ? xo + w[o] : (mode == 4 ? w[o] : xo);
         sa += u * acc[i][j];
         if (with_b) sb += xo * w[o];
       }
@@ -212,7 +218,7 @@ integrals_reduce_kernel(const T* __restrict__ partA, const T* __restrict__ partB
     if (mode == 1 || mode == 2)
       for (int t = 0; t < ntile; ++t) b += partB[e * ntile + t];
     T v;
-    if (mode == 0)
+    if (mode == 0 || mode == 4)
       v = detJ[e] * a;
     else if (mode == 1)
       v = detJ[e] * (a + b);
@@ -220,7 +226,7 @@ integrals_reduce_kernel(const T* __restrict__ partA, const T* __restrict__ partB
       v = b + detJ[e] * a;
     else
       v = detJ[e];
-    s += v * mask[e];
+    s += mask == nullptr ? v : v * mask[e];
   }
   sh[threadIdx.x] = s;
   block_tree(sh);
@@ -290,7 +296,8 @@ int launch_integrals(int mode, const void* x, const void* M, const void* w,
 }  // namespace
 
 // dtype: 0 = float32, 1 = float64; mode as above. x, M, w and partA/partB
-// may be NULL where the mode does not read them (area reads none of them).
+// may be NULL where the mode does not read them (area reads none of them);
+// mask may be NULL (every row counts once).
 // ntile = ceil(n / BN) of the tile shape the dtype and n select (checked);
 // partA/partB hold [E, ntile], blocksum [RED_BLOCKS], out one value.
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for a wrong ntile.

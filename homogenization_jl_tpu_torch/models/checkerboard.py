@@ -41,9 +41,12 @@ every rank of the group, each integral summed over the ranks:
     shrink the state is joined across the ranks, sliced to the new prefix,
     masked and cut to the new partition, as the JAX driver does on the host.
 
+``solver="multishift"`` runs models/multishift.py::
+homogenization_multishift (the one-Lanczos-pass estimator, fixed domain);
+``return_trace`` then returns its stats dict.
+
 Not ported yet (``NotImplementedError``, ROADMAP.md queue 1):
-``solver="multishift"`` (item 9), ``checkpoint_dir`` / ``resume_from`` and
-``save_level`` (item 11, utils/).
+``checkpoint_dir`` / ``resume_from`` and ``save_level`` (item 11, utils/).
 """
 
 from __future__ import annotations
@@ -331,8 +334,10 @@ def checkerboard_homogenization(
     a plan and solver per step) or "lattice" (one box, shrink by masks).
     ``inner``: "vcycle" (plain V-cycles until the sigma increment
     stabilizes) or "pcg" (V-cycle-preconditioned CG steps under the same
-    stopping rule; requires a Chebyshev smoother). ``lanczos_iters`` belongs
-    to ``solver="multishift"`` and is accepted for signature parity.
+    stopping rule; requires a Chebyshev smoother). ``solver``: "vcycle" or
+    "multishift" (one generalized-Lanczos pass of ``lanczos_iters`` steps
+    serving every recurrence step, the fixed-domain variant; with
+    ``return_trace`` the stats dict takes the trace's place).
     ``device_mesh``: a ``SlabGroup``: every rank calls the driver, and the
     tensors live on the group's device (the slab-sharded solver for
     "lattice", the gather-sharded one for "ordered").
@@ -353,13 +358,14 @@ def checkerboard_homogenization(
         if device is not None and torch.device(device) != device_mesh.device:
             raise ValueError("device= must be the device_mesh's device")
         device = device_mesh.device
-    if solver == "multishift":
-        raise NotImplementedError(
-            "solver='multishift' is not ported yet (ROADMAP.md queue 1 item 9)"
-        )
-    if solver != "vcycle":
-        raise ValueError(f"solver={solver!r}")
+    # validate before any dispatch so a bad or ignored ``inner`` never runs
+    # silently (multishift has no inner solve: only the default is valid)
     if inner == "pcg":
+        if solver == "multishift":
+            raise ValueError(
+                "inner='pcg' does not apply to solver='multishift' (no inner "
+                "V-cycle there); drop one of the two"
+            )
         if smoother not in CHEBYSHEV_SMOOTHERS:
             raise ValueError(
                 "inner='pcg' needs a linear SPD preconditioner: pass "
@@ -367,6 +373,21 @@ def checkerboard_homogenization(
             )
     elif inner != "vcycle":
         raise ValueError(f"inner={inner!r}")
+    if solver == "multishift":
+        if device_mesh is not None:
+            raise ValueError("solver='multishift' runs on one device (no device_mesh)")
+        from .multishift import homogenization_multishift
+
+        # return_trace maps to the multishift stats dict (A / M apply
+        # counts, Lanczos iterations, sigma_steps), the closest analog of
+        # HomogenizationTrace for the one-pass solver
+        return homogenization_multishift(
+            n, dim=dim, refinements=refinements, lanczos_iters=lanczos_iters, xi=xi,
+            cond_field=cond_field, seed=seed, dtype=dtype, return_stats=return_trace,
+            device=device,
+        )
+    if solver != "vcycle":
+        raise ValueError(f"solver={solver!r}")
     device = resolve_device(device)
     kw = dict(
         n=n, dim=dim, refinements=refinements, smoothing_steps=smoothing_steps,

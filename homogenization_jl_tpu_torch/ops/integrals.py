@@ -14,7 +14,10 @@ masked sum over element rows:
   * ``next_rhs(x, lam)``     = lam detJ_e (M x)[e], kernel K1 with the
     one-piece stack [M] and the coefficient lam * detJ.
 
-``sigma_integral`` computes the first three: kernel K9
+``sigma_integral`` computes the first three, and ``dot_M(u, v)`` =
+sum_e detJ_e u_e . (M v_e), the M-inner product of the multishift
+recurrence (homogenization_jl_tpu/models/multishift.py:152-155; kernel
+K14b: K9's mode DOT_M, unmasked, the mass apply never written): kernel K9
 (csrc/integrals.cu) for CUDA tensors, the plain form for CPU tensors. The
 plain form is the JAX expression with the sum over elements taken in the
 kernel's fixed order (RED_BLOCKS blocks of RED_THREADS strided partials
@@ -42,7 +45,7 @@ from .dots import RED_BLOCKS, fixed_order_sum
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 
-TERMS, FIRST_QUIRK, FIRST, AREA = 0, 1, 2, 3
+TERMS, FIRST_QUIRK, FIRST, AREA, DOT_M = 0, 1, 2, 3, 4
 
 
 def _tile_count(dtype, n: int) -> int:
@@ -57,13 +60,14 @@ def sigma_integral_plain(mode, x, mass, w, detJ, mask, scale=1.0):
         s = detJ
     else:
         Mx = torch.matmul(x, mass.T)
-        a = ((x + w if mode == TERMS else x) * Mx).sum(dim=1)
-        if mode == TERMS:
+        u = x + w if mode == TERMS else (w if mode == DOT_M else x)
+        a = (u * Mx).sum(dim=1)
+        if mode in (TERMS, DOT_M):
             s = detJ * a
         else:
             b = (x * w).sum(dim=1)
             s = detJ * (a + b) if mode == FIRST_QUIRK else b + detJ * a
-    return scale * fixed_order_sum(s * mask)
+    return scale * fixed_order_sum(s if mask is None else s * mask)
 
 
 def _check(name, t, dtype, device, shape):
@@ -79,18 +83,20 @@ def _check(name, t, dtype, device, shape):
 
 def sigma_integral(mode, x, mass, w, detJ, mask, scale=1.0):
     """One of the driver's integrals as a 0-d tensor: ``mode`` TERMS (w =
-    v_prev), FIRST_QUIRK / FIRST (w = b0) or AREA (x, mass, w unused: pass
-    None). x, w: [E, n]; mass: [n, n] symmetric; detJ, mask: [E]; one dtype
+    v_prev), FIRST_QUIRK / FIRST (w = b0), AREA (x, mass, w unused: pass
+    None) or DOT_M (sum_e detJ_e w_e . (M x_e)). x, w: [E, n]; mass: [n, n]
+    symmetric; detJ, mask: [E] (mask None: every row counts); one dtype
     (float32/float64) and device. Kernel K9 for CUDA tensors, the plain form
     for CPU tensors."""
-    if mode not in (TERMS, FIRST_QUIRK, FIRST, AREA):
+    if mode not in (TERMS, FIRST_QUIRK, FIRST, AREA, DOT_M):
         raise ValueError(f"sigma_integral: unknown mode {mode}")
     dtype, dev = detJ.dtype, detJ.device
     if dtype not in _DTYPES:
         raise TypeError(f"sigma_integral: unsupported dtype {dtype}")
     E = detJ.shape[0]
     _check("detJ", detJ, dtype, dev, (E,))
-    _check("mask", mask, dtype, dev, (E,))
+    if mask is not None:
+        _check("mask", mask, dtype, dev, (E,))
     n = 0
     if mode != AREA:
         n = x.shape[1] if x.dim() == 2 else -1
@@ -112,13 +118,20 @@ def sigma_integral(mode, x, mass, w, detJ, mask, scale=1.0):
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    LAUNCHES["integrals"] += 1
+    LAUNCHES["mass_dot" if mode == DOT_M else "integrals"] += 1
     launch(
         "hz_integrals", _DTYPES[dtype], mode, ptr(x), ptr(mass), ptr(w), detJ.data_ptr(),
-        mask.data_ptr(), ptr(part_a), ptr(part_b), blocksum.data_ptr(), out.data_ptr(),
+        ptr(mask), ptr(part_a), ptr(part_b), blocksum.data_ptr(), out.data_ptr(),
         E, n, ntile, float(scale),
     )
     return out
+
+
+def dot_M(u, v, mass, detJ):
+    """sum_e detJ_e u_e . (M v_e) as a 0-d tensor (kernel K14b: K9's mode
+    DOT_M for CUDA tensors, the plain form for CPU tensors). u, v: [E, n];
+    mass: [n, n] symmetric; detJ: [E]."""
+    return sigma_integral(DOT_M, v, mass, u, detJ, None)
 
 
 def integrals_fns(mass, detJ, reference_quirk: bool | None = None, group=None):

@@ -113,7 +113,10 @@ def test_entry_points_default_to_the_card():
         # the ordered geometry takes a SlabGroup now (the gather-sharded
         # solver); anything else is refused
         (dict(device_mesh=object()), TypeError, "SlabGroup"),
-        (dict(solver="multishift"), NotImplementedError, "ROADMAP"),
+        # solver="multishift" runs (models/multishift.py); what it still
+        # refuses is an inner solve, as the JAX driver does
+        (dict(solver="multishift", inner="pcg", smoother="chebyshev"), ValueError,
+         "multishift"),
         (dict(checkpoint_dir="ckpt"), NotImplementedError, "ROADMAP"),
         (dict(resume_from="step_0.npz"), NotImplementedError, "ROADMAP"),
         (dict(save_level=1), NotImplementedError, "ROADMAP"),
