@@ -11,6 +11,7 @@ then exits non-zero without the final line):
      build/kernels/, warm up K3 (Triton);
   3. every kernel against its plain PyTorch version on the card, at the
      main path's shapes, float32 and float64: K1-K5 and K10 at every level
+     (K1 over each level's row table of nonzeros, ops/apply.py)
      (n = 4..969, E = 196,608; K4 prolong_add bitwise equal to the dense
      product, K5 bitwise equal on two launches and to its plain form, K10
      bitwise equal to its plain form, den == 0 included); K6 on the 33^3
@@ -23,7 +24,8 @@ then exits non-zero without the final line):
      step and normalization, the Jacobi inverse, the diagonal), K10's r_out
      and x_zero forms, K3's x_zero form and K1's mask store (apply and
      residual forms) bitwise equal to their plain forms, with times and
-     bounds; K1's library time (one einsum of the same function);
+     bounds (K1's and K9's operations: their nonzero work); K1's library
+     time (one einsum of the same function);
  3b. the driver's kernels against their plain versions, float32 and
      float64: K9 (sigma integrals, all forms, both reference_quirk
      branches) at E = 196,608, n = 969, bitwise equal on two launches; K8
@@ -124,7 +126,8 @@ then exits non-zero without the final line):
      PCG iteration of phase 5 (taken after the group is destroyed: a
      profiler session after the first one, with an NCCL group alive, lost
      a prefix of its step) and of the PCG step of one driver iteration
-     of (b), top 15 by device time, each read only when its kernels cover
+     of (b), top 15 by device time, each read only when its kernels, with
+     the device's waits on the host (the idle a faster step shows), cover
      0.9 of the CUDA-event time of the same call (each profiles up to 4
      iterations, (b) from its second, until one is covered), with no
      PyTorch elementwise kernel above 20 us per launch on
@@ -165,13 +168,15 @@ then exits non-zero without the final line):
      float32), at the shapes of phases 20 and 21: K13 on [3, 48000, 969]
      at k == 0 and k > 0 with a D == 0 guard, bitwise; K14a (the Jacobi CG
      step of the mass solves) on [48000, 969], bitwise, two launches equal;
-     K14b (K9's DOT_M mode) within phase 3b's K9 bars, repeatable; K14c's
+     K14b (K9's DOT_M mode, on config 4's finest mass matrix) within phase
+     3b's K9 bars, repeatable; K14c's
      one-pass combination (m = 120 basis vectors, K + 1 = 3 rows) and
      two-pass accumulation, bitwise; K17a / K17b on the 32^3 field of
      phase 21 within 1e-6 / 4e-6 relative; the kernel, plain and library
      times (float64; K17 float32) and bounds; and K1's mass apply (the
      one-piece stack [M], coefficient detJ, masked) at [48000, 969]
-     float64 against its plain form, timed;
+     float64 against its plain form, timed beside cuBLAS's dense GEMM and
+     cuSPARSE's CSR product of the same M;
  20. BASELINE config 4: checkerboard_homogenization(1, dim=3,
      refinements=4) on ordered_hypercube(3, 10) (48,000 tets, 46,512,000
      DOFs), float64, the field generate_conductivity(3, 20,
@@ -357,10 +362,6 @@ KERNELS = {
 # float32 outside the tensor cores, and HBM bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-# float64: the tensor cores' rate (the bound of K1 in float64) and the CUDA
-# cores' (the rate K1's FMA loop runs at)
-PEAK_FP64_TC_FLOPS = 67e12
-PEAK_FP64_FLOPS = 34e12
 # the JAX driver's flagship result on the TPU (ACCURACY.md, "Flagship
 # driver"): a check on the answer, not a yardstick of speed
 FLAGSHIP_SIGMA = 1.2947696447
@@ -397,9 +398,10 @@ ORDERED_SIGMA_TOL = 5e-3
 # vectors (the global-space coarse loops' take 2-5 us); a state-sized pass
 # at the finest two levels takes 80-450 us
 LIBRARY_ELEMENTWISE_MAX_US = 20.0
-# a profile is read only when its kernels cover this share of the CUDA-event
-# time of the same call (torch.profiler has missed half of a step's kernels
-# on the H100); phases 5 and 15b profile up to PROFILE_ATTEMPTS iterations
+# a profile is read only when its kernels, with the device's waits on the
+# host, cover this share of the CUDA-event time of the same call
+# (torch.profiler has missed half of a step's kernels on the H100;
+# profile_table); phases 5 and 15b profile up to PROFILE_ATTEMPTS iterations
 # for one
 PROFILE_MIN_COVERAGE = 0.9
 PROFILE_ATTEMPTS = 4
@@ -481,7 +483,8 @@ ST1_MARKS = ((1.1e-3, 12), (3.4e-5, 16))
 def bound(nbytes, flops):
     """The least time the card could take: the larger of the bytes a
     function must move over the HBM rate and its operations over the FP32
-    rate."""
+    rate (67 TFLOP/s, also the card's float64 peak, with the tensor
+    cores)."""
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
@@ -492,6 +495,30 @@ def entry(max_abs_err, ms, plain_ms, nbytes, flops, library_ms=None):
     """One kernel's measured numbers and its bound."""
     return dict(max_abs_err=float(max_abs_err), ms=ms, plain_ms=plain_ms,
                 **bound(nbytes, flops), library_ms=library_ms)
+
+
+def table_bytes(tab):
+    """Bytes of a stack's row table (ops/apply.py::StackTable), which K1
+    and K9 read in place of the dense stack."""
+    return sum(t.numel() * t.element_size() for t in (tab.cols, tab.vals, tab.counts))
+
+
+def apply_flops(E, tab):
+    """K1's nonzero work: a multiply-add per element for every nonzero of
+    every slice (a sparse product's bound counts the work its data needs;
+    the dense [P, n, n] product is 77 times as much at n = 969)."""
+    return 2 * E * tab.slice_nnz
+
+
+def csr_mm_ms(mass, u, reps):
+    """cuSPARSE's time for the one-piece product M u_e of every element, one
+    torch.sparse.mm of the CSR mass matrix with u^T (the sparse yardstick
+    of K1's mass apply and K9's mass product)."""
+    import torch
+
+    csr = mass.to_sparse_csr()
+    ut = u.t().contiguous()
+    return cuda_ms(lambda: torch.sparse.mm(csr, ut), reps)
 
 
 def combine_adds(plan, k, E, rows=slice(None)):
@@ -658,12 +685,14 @@ def check_kernels(solver, plan, coeff64, dev):
             n = plan.n_local(k)
             L = solver.levels[k]
             stack = L.stack.to(dtype)
+            tab = L.table if f32 else k_apply.stack_table(stack)
             x = torch.randn((E, n), generator=g, device=dev, dtype=dtype)
             b = torch.randn((E, n), generator=g, device=dev, dtype=dtype)
 
-            # K1: relative norm error (a 7n-term sum in another order)
+            # K1: relative norm error (a sum over the row's nonzeros in
+            # another order)
             ref = k_apply.element_apply_plain(x, coeff, stack, b=b)
-            got = k_apply.element_apply(x, coeff, stack, b=b)
+            got = k_apply.element_apply(x, coeff, stack, b=b, table=tab)
             rel = float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
             tol = 1e-5 if f32 else 1e-12
             check(rel <= tol, f"K1 level {k} {dtype}: rel err {rel} > {tol}")
@@ -672,19 +701,19 @@ def check_kernels(solver, plan, coeff64, dev):
                 P = stack.shape[0]
                 timing["element_apply"] = entry(
                     (got - ref).abs().max(),
-                    cuda_ms(lambda: k_apply.element_apply(x, coeff, stack, b=b), 3),
+                    cuda_ms(lambda: k_apply.element_apply(x, coeff, stack, b=b, table=tab), 5),
                     cuda_ms(lambda: k_apply.element_apply_plain(x, coeff, stack, b=b), 3),
-                    nbytes=4 * (3 * E * n + E * P + P * n * n), flops=2 * E * n * n * P,
+                    nbytes=4 * (3 * E * n + E * P) + table_bytes(tab), flops=apply_flops(E, tab),
                 )
                 # the plain apply A x (the smoothers' direction applies), and
-                # how dense the stack K1 multiplies is: nonzero columns per
-                # row of the union of its P slices
+                # how sparse the stack is: nonzero columns per row of the
+                # union of its P slices, the widest row, each slice's own
                 report["element_apply_f32_ms"] = dict(
                     residual=timing["element_apply"]["ms"],
-                    apply=cuda_ms(lambda: k_apply.element_apply(x, coeff, stack), 3),
-                    stack_nonzeros_per_row=float((stack != 0).any(0).sum(1).double().mean()),
-                    n=n)
-            del ref, got
+                    apply=cuda_ms(lambda: k_apply.element_apply(x, coeff, stack, table=tab), 5),
+                    stack_nonzeros_per_row=tab.nnz / n, widest_row=tab.width,
+                    union_nnz=tab.nnz, slice_nnz=tab.slice_nnz, n=n)
+            del ref, got, tab
 
             # K2: all three modes, <= 1e-6 vs plain, copies bitwise equal
             st = L.structured
@@ -910,6 +939,7 @@ def check_driver_kernels(hz, solver, plan, dev):
         compute_box_radius,
         ordered_hypercube,
     )
+    from homogenization_jl_tpu_torch.ops import apply as k_apply
     from homogenization_jl_tpu_torch.ops import integrals as k_int
     from homogenization_jl_tpu_torch.ops import interfaces as k_if
     from homogenization_jl_tpu_torch.ops import structured as k_st
@@ -935,11 +965,12 @@ def check_driver_kernels(hz, solver, plan, dev):
 
         x, w, detJ, mask = t(x_np), t(w_np), t(detJ_np), t(mask_np)
         mass = solver.levels[top].stack[-1].to(dtype).contiguous()
-        errs = {}
+        tab = k_apply.stack_table(mass[None])
+        errs, times = {}, {}
         for label, mode in modes.items():
             args = (None, None, None) if mode == k_int.AREA else (x, mass, w)
-            got = k_int.sigma_integral(mode, *args, detJ, mask)
-            again = k_int.sigma_integral(mode, *args, detJ, mask)
+            got = k_int.sigma_integral(mode, *args, detJ, mask, table=tab)
+            again = k_int.sigma_integral(mode, *args, detJ, mask, table=tab)
             ref = k_int.sigma_integral_plain(mode, *args, detJ, mask)
             absargs = (None, None, None) if mode == k_int.AREA else (x.abs(), mass.abs(), w.abs())
             scale = float(k_int.sigma_integral_plain(mode, *absargs, detJ, mask))
@@ -947,19 +978,25 @@ def check_driver_kernels(hz, solver, plan, dev):
             err = abs(float(got) - float(ref)) / scale
             check(err <= tol, f"K9 {label} {dtype}: rel err {err} > {tol}")
             errs[label] = err
+            times[label] = cuda_ms(lambda: k_int.sigma_integral(mode, *args, detJ, mask, table=tab),
+                                   10)
             if f32 and label == "terms":
                 u = x + w
                 dm = detJ * mask
                 timing["integrals"] = entry(
                     abs(float(got) - float(ref)),
-                    cuda_ms(lambda: k_int.sigma_integral(mode, x, mass, w, detJ, mask), 5),
+                    cuda_ms(lambda: k_int.sigma_integral(mode, x, mass, w, detJ, mask, table=tab),
+                            10),
                     cuda_ms(lambda: k_int.sigma_integral_plain(mode, x, mass, w, detJ, mask), 3),
-                    nbytes=4 * (2 * E * n + n * n + 2 * E), flops=2 * E * n * n + 4 * E * n,
+                    nbytes=4 * (2 * E * n + 2 * E) + table_bytes(tab),
+                    flops=apply_flops(E, tab) + 4 * E * n,
                     library_ms=cuda_ms(lambda: torch.einsum("e,em,mn,en->", dm, u, mass, x), 3),
                 )
+                timing["integrals"]["csr_mm_ms"] = csr_mm_ms(mass, x, 3)
                 del u, dm
         report[f"K9_{str(dtype)[6:]}"] = errs
-        del x, w, detJ, mask, ref, got, again
+        report[f"K9_{str(dtype)[6:]}_ms"] = times
+        del x, w, detJ, mask, ref, got, again, tab
     torch.cuda.empty_cache()
 
     # masked K2 fold at the finest main-path level
@@ -1241,22 +1278,24 @@ def check_new_forms(solver, plan, coeff64, dev):
 
         # K1's mask store: the unmasked output times the mask, bit for bit
         stack, rowsum = L.stack.to(dtype), L.rowsum.to(dtype)
+        tab = L.table if f32 else k_apply.stack_table(stack)
         b = rnd()
         for label, kw in (("apply", {}), ("residual", dict(b=b))):
-            want = k_apply.element_apply(u, c, stack, rowsum=rowsum, **kw) * m
-            got = k_apply.element_apply(u, c, stack, rowsum=rowsum, mask=m, **kw)
+            want = k_apply.element_apply(u, c, stack, rowsum=rowsum, table=tab, **kw) * m
+            got = k_apply.element_apply(u, c, stack, rowsum=rowsum, mask=m, table=tab, **kw)
             check(torch.equal(_bits(got), _bits(want)), f"K1 mask store {label} {name}: differs")
             del got, want
         r = b.clone()
-        k_apply.element_apply(u, c, stack, b=r, out=r, rowsum=rowsum, mask=m)
-        want = k_apply.element_apply(u, c, stack, b=b, rowsum=rowsum) * m
+        k_apply.element_apply(u, c, stack, b=r, out=r, rowsum=rowsum, mask=m, table=tab)
+        want = k_apply.element_apply(u, c, stack, b=b, rowsum=rowsum, table=tab) * m
         check(torch.equal(_bits(r), _bits(want)), f"K1 mask store in place {name}: differs")
         del r, want
         if f32:
             timing["element_apply_masked"] = entry(
-                0.0, cuda_ms(lambda: k_apply.element_apply(u, c, stack, b=b, rowsum=rowsum, mask=m), 3),
+                0.0, cuda_ms(lambda: k_apply.element_apply(u, c, stack, b=b, rowsum=rowsum, mask=m,
+                                                           table=tab), 5),
                 cuda_ms(lambda: k_apply.element_apply_plain(u, c, stack, b=b, rowsum=rowsum) * m, 3),
-                nbytes=4 * (3 * N + E * P + P * n * n) + N, flops=2 * N * n * P)
+                nbytes=4 * (3 * N + E * P) + N + table_bytes(tab), flops=apply_flops(E, tab))
             # K1's library yardstick: one einsum of sum_p c[e, p] S_p x[e],
             # operands in the order that contracts x with the stack first (a
             # batched GEMM into [E, P, n], then the sum over the pieces):
@@ -1264,7 +1303,7 @@ def check_new_forms(solver, plan, coeff64, dev):
             # the stack first would be an [E, P, n, n] intermediate
             timing["element_apply_library_ms"] = cuda_ms(
                 lambda: torch.einsum("en,pmn,ep->em", u, stack, c), 3)
-        del u, b, m, c, stack, rowsum
+        del u, b, m, c, stack, rowsum, tab
         torch.cuda.empty_cache()
     return timing
 
@@ -1432,7 +1471,7 @@ def residual_shift_control(solver, x, b, sigma):
 
     top = solver.nlevels - 1
     coeff = solver.coefficients(sigma, 0.0)
-    stack = solver.levels[top].stack
+    stack, tab = solver.levels[top].stack, solver.levels[top].table
     w = solver.levels[top].first_copy_mask
     ref = solver._combine_constrained(k_apply.element_apply_plain(
         x.double(), coeff.double(), stack.double(), b=b.double()).float(), top)
@@ -1442,14 +1481,17 @@ def residual_shift_control(solver, x, b, sigma):
         d = (solver._combine_constrained(r, top).double() - ref.double()) * w
         return float(torch.linalg.vector_norm(d)) / b_norm
 
-    out = dict(fresh_residual_err_shifted=err(k_apply.element_apply(x, coeff, stack, b=b)),
-               fresh_residual_err_unshifted=err(b - k_apply.element_apply(x, coeff, stack)))
+    shifted = k_apply.element_apply(x, coeff, stack, b=b, table=tab)
+    unshifted = b - k_apply.element_apply(x, coeff, stack, table=tab)
+    out = dict(fresh_residual_err_shifted=err(shifted), fresh_residual_err_unshifted=err(unshifted))
+    del shifted, unshifted
     del ref
 
     def unshifted_op(x_, coeff_, k, b=None, out=None, mask=None):
+        L = solver.levels[k]
         if b is None:
-            return k_apply.element_apply(x_, coeff_, solver.levels[k].stack, out=out, mask=mask)
-        y = b - k_apply.element_apply(x_, coeff_, solver.levels[k].stack)
+            return k_apply.element_apply(x_, coeff_, L.stack, out=out, mask=mask, table=L.table)
+        y = b - k_apply.element_apply(x_, coeff_, L.stack, table=L.table)
         if mask is not None:
             y = y * mask
         return y if out is None else out.copy_(y)
@@ -1896,12 +1938,8 @@ def check_sharded_kernel(hz, kbuild, plan, dev, smi, t_plan):
 
 def profile_step(step, lead_s=PROFILE_LEAD_S):
     """torch.profiler over one call of ``step``, ``lead_s`` of idle trace
-    before it and PROFILE_MARGIN_S after. Returns ({"rows": [(kernel,
-    device ms, launches)] by device time, "wall_ms", "event_ms": the device
-    ms between two CUDA events around the call on the current stream,
-    "coverage": the rows' time over event_ms}, the profile). The rows add
-    up to event_ms less the idle gaps: a coverage far below 1 means the
-    profile missed kernels, and such a table proves nothing about them."""
+    before it and PROFILE_MARGIN_S after. Returns (``profile_table``'s
+    dict, the profile)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1923,11 +1961,61 @@ def profile_step(step, lead_s=PROFILE_LEAD_S):
     return profile_table(prof, wall, start, end), prof
 
 
+def device_timeline(prof):
+    """The step's device time from the profile's trace: {"busy_ms": the
+    union of its kernels and copies, "host_wait_ms": the device's idle gaps
+    that end with a kernel or copy whose launch call had not returned when
+    the device went idle (the device waiting on the host), "lost_launches":
+    the step's launch calls (kernels, copies) whose device record the trace
+    lacks}. The step is what follows the lead (the trace's longest gap)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    launches = {}
+    device = []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        corr = e.get("args", {}).get("correlation")
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and corr is not None:
+            if any(k in e["name"] for k in ("LaunchKernel", "Memcpy", "Memset")):
+                launches[corr] = (e["ts"], e["ts"] + e["dur"])
+        elif e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device.append((e["ts"], e["ts"] + e["dur"], corr))
+    device.sort()
+    after = float("-inf")
+    if len(device) > 1:
+        lead = max(range(1, len(device)), key=lambda i: device[i][0] - device[i - 1][1])
+        after = max(t1 for _, t1, _ in device[:lead])
+        device = device[lead:]
+    recorded = {corr for _, _, corr in device}
+    lost = sum(1 for corr, (t0, _) in launches.items() if t0 > after and corr not in recorded)
+    busy = wait = 0.0
+    reach = device[0][0] if device else 0.0
+    for t0, t1, corr in device:
+        if t0 > reach and launches.get(corr, (0.0, -1.0))[1] >= reach:
+            wait += t0 - reach
+        busy += max(0.0, t1 - max(t0, reach))
+        reach = max(reach, t1)
+    return dict(busy_ms=busy / 1e3, host_wait_ms=wait / 1e3, lost_launches=lost)
+
+
 def profile_table(prof, wall_s, start, end):
     """The table of a finished profile: {"rows": [(kernel, device ms,
     launches)] by device time, "wall_ms", "event_ms" (between the CUDA
-    events ``start`` and ``end``), "coverage": the rows' time over
-    event_ms, "host_reads": the device scalars read on the host}."""
+    events ``start`` and ``end``), "busy_ms", "host_wait_ms" and
+    "lost_launches" (``device_timeline``), "coverage": busy_ms, with
+    host_wait_ms when no launch lost its record, over event_ms, and
+    "host_reads": the device scalars read on the host}. The coverage falls
+    short of 1 by the gaps between back-to-back kernels; far below it, the
+    profile lost kernels (a prefix of the step, PERF.md), and its table
+    proves nothing about them. The device's waits on the host count as
+    covered: they are idle time, not lost kernels (``host_wait_ms`` says how
+    much)."""
     import torch
 
     rows, reads = [], 0
@@ -1942,8 +2030,11 @@ def profile_table(prof, wall_s, start, end):
             rows.append((ev.key, ev.self_device_time_total / 1e3, ev.count))
     rows.sort(key=lambda r: -r[1])
     event_ms = start.elapsed_time(end)
-    return dict(rows=rows, wall_ms=wall_s * 1e3, event_ms=event_ms,
-                coverage=sum(r[1] for r in rows) / event_ms, host_reads=reads)
+    line = device_timeline(prof)
+    # waits on the host count only in a trace that lost no launch's record
+    covered = line["busy_ms"] + (line["host_wait_ms"] if line["lost_launches"] == 0 else 0.0)
+    return dict(rows=rows, wall_ms=wall_s * 1e3, event_ms=event_ms, **line,
+                coverage=covered / event_ms, host_reads=reads)
 
 
 def covered_profile(step, label):
@@ -2090,8 +2181,9 @@ def profiles_report(pcg_profile, driver_profiles, driver_coverage, smi):
     """Phase 15c: the kernel tables, top 15 by device time, and no PyTorch
     elementwise kernel above LIBRARY_ELEMENTWISE_MAX_US per launch on
     average. The gate reads only tables that cover PROFILE_MIN_COVERAGE of
-    their call's CUDA-event time (below 1 by the idle gaps; far below it,
-    the profile missed kernels); ``driver_coverage``: every 15b attempt's."""
+    their call's CUDA-event time (``profile_table``: kernels and the
+    device's waits on the host; far below 1, the profile missed kernels);
+    ``driver_coverage``: every 15b attempt's."""
     out = {}
     tables = [("phase5_pcg_iteration", pcg_profile)] + [
         (f"phase15b_driver_iteration{i}_pcg_step", p) for i, p in driver_profiles.items()]
@@ -2107,6 +2199,8 @@ def profiles_report(pcg_profile, driver_profiles, driver_coverage, smi):
               f"15c {label}: a PyTorch elementwise kernel takes {worst} us per launch: {lib}")
         out[label] = dict(wall_ms=p["wall_ms"], event_ms=p["event_ms"], device_busy_ms=busy,
                           coverage=p["coverage"], idle_share=1.0 - busy / p["wall_ms"],
+                          host_wait_share=p["host_wait_ms"] / p["event_ms"],
+                          lost_launches=p["lost_launches"],
                           top15=[(name[:90], ms, count) for name, ms, count in rows[:15]],
                           library_elementwise=lib)
     say("15c", ok=True, max_library_elementwise_us=LIBRARY_ELEMENTWISE_MAX_US,
@@ -2230,7 +2324,7 @@ def check_precision_kernels(outer, inner, plan, coeff64, dev):
         sdt, ddt = dtypes[sname], dtypes[dname]
         isz, dsz = torch.finfo(sdt).bits // 8, torch.finfo(ddt).bits // 8
         L = (inner if sdt == torch.float32 else outer).levels[top]
-        stack, rowsum, coeff = L.stack, L.rowsum, coeff64.to(sdt)
+        stack, rowsum, tab, coeff = L.stack, L.rowsum, L.table, coeff64.to(sdt)
         P = stack.shape[0]
 
         def rnd():
@@ -2241,13 +2335,14 @@ def check_precision_kernels(outer, inner, plan, coeff64, dev):
         pw = p.to(sdt)
         for label, kw in (("apply", {}), ("residual", dict(b=b)), ("masked", dict(mask=m)),
                           ("masked_residual", dict(b=b, mask=m))):
-            got = k_apply.element_apply_half(p, coeff, stack, rowsum=rowsum, **kw)
-            check(same(got, k_apply.element_apply(pw, coeff, stack, rowsum=rowsum, **kw)),
+            got = k_apply.element_apply_half(p, coeff, stack, rowsum=rowsum, table=tab, **kw)
+            want = k_apply.element_apply(pw, coeff, stack, rowsum=rowsum, table=tab, **kw)
+            check(same(got, want),
                   f"K16 apply {label} {sname}/{dname}: differs from K1 on the widened x")
-            del got
+            del got, want
         r = b.clone()
-        k_apply.element_apply_half(p, coeff, stack, b=r, out=r, rowsum=rowsum)
-        check(same(r, k_apply.element_apply(pw, coeff, stack, b=b, rowsum=rowsum)),
+        k_apply.element_apply_half(p, coeff, stack, b=r, out=r, rowsum=rowsum, table=tab)
+        check(same(r, k_apply.element_apply(pw, coeff, stack, b=b, rowsum=rowsum, table=tab)),
               f"K16 apply in place {sname}/{dname}: differs")
         del r
         ab = torch.tensor([0.37, 1.9], dtype=sdt, device=dev)
@@ -2295,10 +2390,11 @@ def check_precision_kernels(outer, inner, plan, coeff64, dev):
             r = b.clone()
             timing["direction_apply"] = entry(
                 0.0, cuda_ms(lambda: k_apply.element_apply_half(p, coeff, stack, b=r, out=r,
-                                                                rowsum=rowsum), 3),
+                                                                rowsum=rowsum, table=tab), 5),
                 cuda_ms(lambda: k_apply.element_apply_plain(p.to(sdt), coeff, stack, b=b,
                                                             rowsum=rowsum), 3),
-                nbytes=dsz * N + isz * (2 * N + E * P + P * n * n), flops=2 * N * n * P)
+                nbytes=dsz * N + isz * (2 * N + E * P) + table_bytes(tab),
+                flops=apply_flops(E, tab))
             xk, pk = x.clone(), p.clone()
             timing["direction_chebyshev"] = entry(
                 0.0, cuda_ms(lambda: k_cheb.chebyshev_update_half(xk, pk, rc, dinv, ab), 10),
@@ -2319,19 +2415,17 @@ def check_precision_kernels(outer, inner, plan, coeff64, dev):
             del r, xk, pk, rk
         if (sname, dname) == ("float64", "bfloat16"):
             # K1 and K2 in float64 (the mixed solve's outer apply and
-            # combine); K1's bound by the FP64 tensor cores' rate, its
-            # FP64 CUDA-core time beside it
-            flops = 2 * N * n * P
+            # combine); K1's bound by its bytes (its nonzero work over the
+            # FP64 peak, 67 TFLOP/s, is less)
             xw = rnd()
             k1 = entry(0.0, cuda_ms(lambda: k_apply.element_apply(xw, coeff, stack, b=b,
-                                                                   rowsum=rowsum), 3),
-                       None, nbytes=8 * (3 * N + E * P + P * n * n), flops=flops,
+                                                                   rowsum=rowsum, table=tab), 5),
+                       None, nbytes=8 * (3 * N + E * P) + table_bytes(tab),
+                       flops=apply_flops(E, tab),
                        library_ms=cuda_ms(lambda: torch.einsum("en,pmn,ep->em", xw, stack,
                                                                 coeff), 2))
-            k1.update(apply_ms=cuda_ms(lambda: k_apply.element_apply(xw, coeff, stack), 3),
-                      bound_ms=max(flops / PEAK_FP64_TC_FLOPS, 8 * 3 * N / PEAK_HBM_BYTES) * 1e3,
-                      bound_by="operations (FP64 tensor cores)",
-                      fp64_cuda_core_ms=flops / PEAK_FP64_FLOPS * 1e3)
+            k1.update(apply_ms=cuda_ms(lambda: k_apply.element_apply(xw, coeff, stack, table=tab),
+                                       5))
             report["element_apply_f64"] = k1
             st = outer.levels[top].structured
             report["structured_combine_f64"] = entry(
@@ -2574,14 +2668,24 @@ def check_multishift_kernels(dev):
     ({kernel: entry} at float64 (K17 float32), report)."""
     import torch
 
+    from homogenization_jl_tpu_torch.fem.local_operators import build_level_operators
+    from homogenization_jl_tpu_torch.mesh.reference import refined_reference
     from homogenization_jl_tpu_torch.ops import integrals as k_int
     from homogenization_jl_tpu_torch.ops import multishift as k_ms
     from homogenization_jl_tpu_torch.ops import recurrence as k_rec
-    from homogenization_jl_tpu_torch.ops.apply import element_apply, element_apply_plain
+    from homogenization_jl_tpu_torch.ops.apply import (
+        element_apply,
+        element_apply_plain,
+        stack_table,
+    )
     from homogenization_jl_tpu_torch.utils import fft_field as k_ff
 
     g = torch.Generator(device=dev).manual_seed(19)
     E, n = CONFIG4_STATE
+    # config 4's finest mass matrix (refinements = 4, n_local 969): the
+    # kernels' work follows its nonzeros
+    mass64 = build_level_operators(refined_reference(3, CONFIG4["refinements"] + 1))[-1].stack[-1]
+    check(mass64.shape == (n, n), f"phase 19: mass matrix {mass64.shape}, expected {(n, n)}")
     N = E * n
     ns, m, K = 3, CONFIG4_LANCZOS, 3
     timing, report = {}, {}
@@ -2640,11 +2744,11 @@ def check_multishift_kernels(dev):
         torch.cuda.empty_cache()
 
         # K14b: K9's DOT_M mode within phase 3b's K9 bars, repeatable
-        mass = rand(n, n)
-        mass = ((mass + mass.T) * 0.5).contiguous()
+        mass = torch.as_tensor(mass64, device=dev).to(dtype).contiguous()
+        tab = stack_table(mass[None])
         u, vv, detJ = rand(E, n), rand(E, n), rand(E).abs() + 0.5
-        got = k_int.dot_M(u, vv, mass, detJ)
-        again = k_int.dot_M(u, vv, mass, detJ)
+        got = k_int.dot_M(u, vv, mass, detJ, table=tab)
+        again = k_int.dot_M(u, vv, mass, detJ, table=tab)
         ref = k_int.sigma_integral_plain(k_int.DOT_M, vv, mass, u, detJ, None)
         scale = float(k_int.sigma_integral_plain(k_int.DOT_M, vv.abs(), mass.abs(), u.abs(), detJ,
                                                  None))
@@ -2652,34 +2756,38 @@ def check_multishift_kernels(dev):
         check(torch.equal(_bits(got), _bits(again)), f"K14b {dtype}: two launches differ")
         check(err <= (1e-12 if f64 else 1e-5), f"K14b {dtype}: rel err {err}")
         report[f"K14b_{tag}_rel_err"] = err
+        report[f"K14b_{tag}_ms"] = cuda_ms(lambda: k_int.dot_M(u, vv, mass, detJ, table=tab), 10)
         if f64:
             timing["mass_dot"] = entry(
-                abs(float(got) - float(ref)), cuda_ms(lambda: k_int.dot_M(u, vv, mass, detJ), 5),
+                abs(float(got) - float(ref)),
+                cuda_ms(lambda: k_int.dot_M(u, vv, mass, detJ, table=tab), 10),
                 cuda_ms(lambda: k_int.sigma_integral_plain(k_int.DOT_M, vv, mass, u, detJ, None), 3),
-                nbytes=es * (2 * N + n * n + E), flops=2 * E * n * n + 3 * N,
+                nbytes=es * (2 * N + E) + table_bytes(tab), flops=apply_flops(E, tab) + 3 * N,
                 library_ms=cuda_ms(lambda: torch.einsum("e,em,mn,en->", detJ, u, mass, vv), 3))
-        del u, vv, detJ, mass
+            timing["mass_dot"]["csr_mm_ms"] = csr_mm_ms(mass, vv, 3)
+        del u, vv, detJ
         torch.cuda.empty_cache()
 
         if f64:
             # K1's mass apply of the mass solves: the one-piece stack [M],
             # coefficient detJ, the boundary mask at the store
-            mass = rand(n, n)
-            mass = ((mass + mass.T) * 0.5).contiguous()
             u, detJ = rand(E, n), rand(E, 1).abs() + 0.5
             bm = torch.rand((E, n), generator=g, device=dev) < 0.9
-            got = element_apply(u, detJ, mass[None], mask=bm)
+            got = element_apply(u, detJ, mass[None], mask=bm, table=tab)
             ref = element_apply_plain(u, detJ, mass[None]) * bm
             err = float((got - ref).abs().max())
             check(err <= 1e-12 * float(ref.abs().max()), f"K1 mass apply: abs err {err}")
             report["K1_mass_apply_float64"] = entry(
-                err, cuda_ms(lambda: element_apply(u, detJ, mass[None], mask=bm), 5),
+                err, cuda_ms(lambda: element_apply(u, detJ, mass[None], mask=bm, table=tab), 10),
                 cuda_ms(lambda: element_apply_plain(u, detJ, mass[None]) * bm, 3),
-                nbytes=es * (2 * N + n * n + E) + N, flops=2 * E * n * n + 2 * N)
-            # cuBLAS's GEMM of the same product alone (no detJ, no mask)
+                nbytes=es * (2 * N + E) + N + table_bytes(tab), flops=apply_flops(E, tab) + 2 * N)
+            # the same product alone (no detJ, no mask): cuBLAS's dense GEMM
+            # and cuSPARSE's CSR product
             report["K1_mass_apply_float64"]["gemm_ms"] = cuda_ms(lambda: torch.mm(u, mass), 3)
-            del u, detJ, bm, mass, got, ref
+            report["K1_mass_apply_float64"]["csr_mm_ms"] = csr_mm_ms(mass, u, 3)
+            del u, detJ, bm, got, ref
             torch.cuda.empty_cache()
+        del mass, tab
 
         # K14c: one-pass with m = 120, K + 1 = 3; the two-pass accumulation
         V, Y = rand(m, E, n), rand(K, m)
@@ -2942,7 +3050,8 @@ def lanczos_step_profile(dev, field, rec_a, smi):
     steps = st["lanczos_iters"]
     say("20e", ok=True, vectors=CONFIG4_PROFILE_VECTORS, step_wall_ms=p["wall_ms"],
         step_event_ms=p["event_ms"], device_busy_ms=busy, coverage=p["coverage"],
-        idle_share=1.0 - busy / p["wall_ms"], host_reads=p["host_reads"],
+        idle_share=1.0 - busy / p["wall_ms"], host_wait_share=p["host_wait_ms"] / p["event_ms"],
+        lost_launches=p["lost_launches"], host_reads=p["host_reads"],
         attempts=[a["coverage"] for a in attempts],
         mass_cg_iterations_per_step=(st["M_applies"] - steps - 1) / (steps + 1),
         a_lanczos_ms_per_step=rec_a["lanczos_s"] * 1e3 / rec_a["lanczos_iters"],

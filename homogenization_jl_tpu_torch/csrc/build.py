@@ -64,11 +64,12 @@ _L = ctypes.c_longlong
 _D = ctypes.c_double
 # C entry points: name -> argtypes (every entry returns cudaGetLastError())
 _SIGNATURES = {
-    # dtype(0 f32, 1 f64), x, coeff, stack, b (or NULL), row sums (with b),
-    # mask (or NULL), out, E, n, P, stream
-    "hz_element_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # dtype(0 f32, 1 f64), x, coeff, table cols, vals, counts, R, PP, b (or
+    # NULL), row sums (with b), mask (or NULL), out, E, n, P, stream
+    "hz_element_apply": [_I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P],
     # dtype, xtype (0 f32, 2 bf16, 3 f16), then as hz_element_apply
-    "hz_element_apply_half": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "hz_element_apply_half": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _L, _I, _I,
+                              _P],
     # dtype, x, out, mask (or NULL), E, n_local, i0, n, d, ept, type_major,
     # mode, tab, stream
     "hz_structured_combine": [_I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P],
@@ -90,9 +91,9 @@ _SIGNATURES = {
     "hz_gather_scale": [_I, _I, _P, _P, _P, _P, _L, _P],
     # dtype, x, out, mask (or NULL), E, n_local, i0, ncls, classes (host), stream
     "hz_gather_combine": [_I, _P, _P, _P, _L, _I, _I, _I, _P, _P],
-    # dtype, mode, x, M, w, detJ, mask, partA, partB, blocksum, out, E, n,
-    # ntile, scale, stream
-    "hz_integrals": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _P],
+    # dtype, mode, x, mass table cols, vals, counts, R, w, detJ, mask, partA,
+    # partB, blocksum, out, E, n, scale, stream
+    "hz_integrals": [_I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _D, _P],
     # dtype, x_fine (or NULL), x_coarse, out, cols, wts, E, n_f, n_c, G, stream
     "hz_prolong_add": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # dtype, r, out, colptr, rows, wts, E, n_f, n_c, G, stream

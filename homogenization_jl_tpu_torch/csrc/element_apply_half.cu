@@ -4,34 +4,39 @@
 // the JAX package applies ``load(p)``, p cast up to the state dtype).
 //
 // Bound and design: K1's; x takes half (bfloat16, float16) or two thirds
-// (float32 under float64) of its bytes, which K1's compute bound does not
-// feel. Each x value is widened exactly as it is loaded, so the result is
-// K1's on x cast up to the state dtype, bit for bit, in all three forms
-// (the apply, the shifted residual form, the mask store).
+// (float32 under float64) of its bytes. Each x value is widened exactly as
+// it is staged, so the result is K1's on x cast up to the state dtype, bit
+// for bit, in all three forms (the apply, the shifted residual form, the
+// mask store).
 
 #include "element_apply.cuh"
 
-// dtype: 0 = float32, 1 = float64 (coeff, S, b, rs, out); xtype: the
+// dtype: 0 = float32, 1 = float64 (coeff, vals, b, rs, out); xtype: the
 // stored type of x, 0 = float32 (under float64 only), 2 = bfloat16,
 // 3 = float16. Otherwise as hz_element_apply. Returns cudaGetLastError(),
-// or cudaErrorInvalidValue for a pair it does not take.
+// or cudaErrorInvalidValue for a pair or table it does not take.
 extern "C" int hz_element_apply_half(int dtype, int xtype, const void* x, const void* coeff,
-                                     const void* S, const void* b, const void* rs,
-                                     const void* mask, void* out, int E, int n, int P,
+                                     const void* cols, const void* vals, const void* counts,
+                                     int R, int PP, const void* b, const void* rs,
+                                     const void* mask, void* out, long long E, int n, int P,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b && P > MAXP) return static_cast<int>(cudaErrorInvalidValue);
+  int err;
+#define HZ_HALF(T, TX) \
+  err = launch_apply<T, TX>(x, coeff, cols, vals, counts, R, PP, b, rs, mask, out, E, n, P, s)
   if (dtype == hz::F32 && xtype == hz::BF16)
-    launch_apply<float, __nv_bfloat16>(x, coeff, S, b, rs, mask, out, E, n, P, s);
+    HZ_HALF(float, __nv_bfloat16);
   else if (dtype == hz::F32 && xtype == hz::F16)
-    launch_apply<float, __half>(x, coeff, S, b, rs, mask, out, E, n, P, s);
+    HZ_HALF(float, __half);
   else if (dtype == hz::F64 && xtype == hz::F32)
-    launch_apply<double, float>(x, coeff, S, b, rs, mask, out, E, n, P, s);
+    HZ_HALF(double, float);
   else if (dtype == hz::F64 && xtype == hz::BF16)
-    launch_apply<double, __nv_bfloat16>(x, coeff, S, b, rs, mask, out, E, n, P, s);
+    HZ_HALF(double, __nv_bfloat16);
   else if (dtype == hz::F64 && xtype == hz::F16)
-    launch_apply<double, __half>(x, coeff, S, b, rs, mask, out, E, n, P, s);
+    HZ_HALF(double, __half);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+#undef HZ_HALF
+  if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

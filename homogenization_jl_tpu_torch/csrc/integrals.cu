@@ -22,170 +22,149 @@
 // sum_e detJ_e u_e . (M v_e), with x = v and w = u), unmasked (mask NULL)
 // and with scale 1; the mass apply's output is never written.
 //
-// Bound on the H100: operations. At the flagship's finest level (E =
-// 196,608, n = 969) the mass product is 2 E n^2 = 3.7e11 FLOP, 5.5 ms at
-// 67 TFLOP/s FP32, against 1.5 GB of x and v / b0 (0.45 ms at 3.35 TB/s).
+// Bound on the H100: bytes. M is as sparse as K1's stack (12.5 nonzeros per
+// row at n = 969: ops/apply.py), so at the flagship's finest level (E =
+// 196,608) the mass product is 2 * E * 12,121 = 4.8 GFLOP (0.07 ms at 67
+// TFLOP/s FP32) against 1.52 GB of x and v / b0 (0.45 ms at 3.35 TB/s).
 //
 // Design, three launches:
-//   1. K1's shared-memory tiled GEMM on the CUDA cores with one piece and no
-//      coefficient (the same tiles, K order and register blocking). Its
-//      epilogue does not store M x: each thread multiplies its register tile
-//      by the matching entries of u (x, or x + v) and of b0, the threads of a
-//      row add their sums in shared memory in thread order, and one partial
-//      per (row, column tile) goes to device memory: E * ceil(n / BN) values
-//      (6 MB at the flagship size) instead of the 0.76 GB of M x.
+//   1. K1's sparse row pass (csrc/stencil_rows.cuh) over the mass matrix's
+//      row table (vals [n, R, 1]): a block stages the x rows of G elements
+//      in shared memory; a lane takes a row m of a chunk of 16 (float32) or
+//      8 (float64) elements, a warp 16 rows of 2 chunks, forms (M x)_m of
+//      each element from the row's real slots, and adds u_m (M x)_m (u = x,
+//      x + v or w; w's rows loaded before the slot walk) and, for the first
+//      term, x_m b0_m into its running partials. A warp's lanes on one
+//      chunk then add their partials in a fixed butterfly, the warps' sums
+//      are added in warp order, and one partial per element goes to device
+//      memory: E values instead of the 0.76 GB of M x.
 //   2. A fixed grid of RED_BLOCKS blocks: each thread walks its block's rows
-//      in a fixed stride, adds a row's tile partials in tile order, forms s
-//      and multiplies by the mask; the block adds its threads in a fixed tree.
+//      in a fixed stride, forms s from the row partials and multiplies by
+//      the mask; the block adds its threads in a fixed tree.
 //   3. One block adds the block sums in a fixed tree.
 // No atomics and no launch-dependent order: two launches give the same bits,
 // which the driver's stopping rule needs (it reads this scalar after every
-// iteration).
+// iteration), and the Lanczos recurrence's M-inner products repeat.
 
 #include <cuda_runtime.h>
+
+#include "stencil_rows.cuh"
 
 namespace {
 
 constexpr int RED_BLOCKS = 264;  // pass-2 grid: fixed, so the order is too
 constexpr int RED_THREADS = 256;
+constexpr int NT = hz::ROW_THREADS;
 
-__device__ __forceinline__ void load4(const float* p, float* o) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x;
-  o[1] = v.y;
-  o[2] = v.z;
-  o[3] = v.w;
+// chunks per warp (csrc/stencil_rows.cuh), and elements per chunk: 16 in
+// float32, 8 in float64 (one accumulator each), so that a block's chunks
+// of 969-value rows take 124 KB
+constexpr int CW = 2;
+template <typename T>
+__host__ __device__ constexpr int chunk_elems() {
+  return sizeof(T) == 4 ? 16 : 8;
 }
 
-__device__ __forceinline__ void load4(const double* p, double* o) {
-  const double2 a = *reinterpret_cast<const double2*>(p);
-  const double2 b = *reinterpret_cast<const double2*>(p + 2);
-  o[0] = a.x;
-  o[1] = a.y;
-  o[2] = b.x;
-  o[3] = b.y;
-}
+template <typename T>
+__global__ void __launch_bounds__(hz::ROW_THREADS, 1)
+integrals_rows_kernel(const T* __restrict__ x, const int* __restrict__ cols,
+                      const T* __restrict__ vals, const int* __restrict__ counts, int R,
+                      const T* __restrict__ w, int mode,
+                      T* __restrict__ partA, T* __restrict__ partB, long long E, int n, int G,
+                      int CS) {
+  constexpr int GC = chunk_elems<T>();
+  constexpr int NW = hz::ROW_WARPS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* redA = reinterpret_cast<T*>(smem);  // [G][NW] each warp's partials
+  T* redB = redA + G * NW;
+  T* xs = redB + G * NW;
 
-template <typename T, int BM, int BN, int BK, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-integrals_rows_kernel(const T* __restrict__ x, const T* __restrict__ M,
-                      const T* __restrict__ w, int mode, T* __restrict__ partA,
-                      T* __restrict__ partB, int E, int n) {
-  constexpr int NTX = BN / TN;
-  constexpr int NTY = BM / TM;
-  constexpr int NT = NTX * NTY;
-  constexpr int SGM = NTY * 4;
-  constexpr int SGN = NTX * 4;
-  constexpr int PAD = 4;
-  constexpr int A_PER = BM * BK / NT;
-  constexpr int B_PER = BK * BN / NT;
-  static_assert(TM % 4 == 0 && TN % 4 == 0, "4-wide register groups");
-  static_assert(A_PER * NT == BM * BK && B_PER * NT == BK * BN, "tile split");
-  __shared__ __align__(16) T As[BK][BM + PAD];
-  __shared__ __align__(16) T Bs[BK][BN];
-  __shared__ T redA[BM][NTX + 1];
-  __shared__ T redB[BM][NTX + 1];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % NTX;
-  const int ty = tid / NTX;
-  const int m0 = blockIdx.x * BN;
-  const long long e0 = (long long)blockIdx.y * BM;
-  const int ntile = gridDim.x;
-
-  T acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
-
-  T xv[A_PER], sv[B_PER];
-  auto load_x = [&](int k0) {
-#pragma unroll
-    for (int q = 0; q < A_PER; ++q) {
-      const int i = tid + q * NT;
-      const long long e = e0 + i / BK;
-      const int k = k0 + i % BK;
-      xv[q] = (e < E && k < n) ? x[e * n + k] : T(0);
-    }
-  };
-  auto load_s = [&](int k0) {
-#pragma unroll
-    for (int q = 0; q < B_PER; ++q) {
-      const int i = tid + q * NT;
-      const int k = k0 + i / BN, m = m0 + i % BN;
-      sv[q] = (k < n && m < n) ? M[(long long)k * n + m] : T(0);
-    }
-  };
-
-  load_x(0);
-  load_s(0);
-  for (int k0 = 0; k0 < n; k0 += BK) {
-#pragma unroll
-    for (int q = 0; q < A_PER; ++q) {
-      const int i = tid + q * NT;
-      As[i % BK][i / BK] = xv[q];
-    }
-#pragma unroll
-    for (int q = 0; q < B_PER; ++q) {
-      const int i = tid + q * NT;
-      Bs[i / BN][i % BN] = sv[q];
-    }
-    __syncthreads();
-    if (k0 + BK < n) {
-      load_x(k0 + BK);
-      load_s(k0 + BK);
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      T a[TM], bb[TN];
-#pragma unroll
-      for (int g = 0; g < TM / 4; ++g) load4(&As[kk][g * SGM + ty * 4], a + 4 * g);
-#pragma unroll
-      for (int g = 0; g < TN / 4; ++g) load4(&Bs[kk][g * SGN + tx * 4], bb + 4 * g);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] += a[i] * bb[j];
-    }
-    __syncthreads();
-  }
-
-  // epilogue: the row dots of this thread's tile, then its row's threads
-  // added in thread order
+  const long long e0 = static_cast<long long>(blockIdx.x) * G;
+  const int Gb = E - e0 < G ? static_cast<int>(E - e0) : G;
   const bool with_b = mode == 1 || mode == 2;
+  for (int i = threadIdx.x; i < 2 * G * NW; i += blockDim.x) redA[i] = T(0);
+  hz::stage_rows<T, T, GC>(x, e0, Gb, G, n, CS, nullptr, xs);
+  __syncthreads();
+
+  const int nch = G / GC;
+  const int ncg = nch / CW;
+  const int items = hz::warp_items<CW>(n, nch);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  // this lane's running terms of its chunk's GC elements; a lane's chunk
+  // changes only with the warp's chunk group (never when the block holds
+  // one group, as at n = 969)
+  T sa[GC], sb[GC];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = (i / 4) * SGM + ty * 4 + i % 4;
-    const long long e = e0 + r;
-    T sa = T(0), sb = T(0);
-    if (e < E) {
+  for (int j = 0; j < GC; ++j) sa[j] = sb[j] = T(0);
+  // the sum over the lanes of one chunk (the lane bits above the chunk's) in a fixed
+  // butterfly, added into this warp's partials of the chunk's elements
+  auto flush = [&](int c) {
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int m = m0 + (j / 4) * SGN + tx * 4 + j % 4;
-        if (m >= n) continue;
-        const long long o = e * n + m;
-        const T xo = x[o];
-        const T u = mode == 0 ? xo + w[o] : (mode == 4 ? w[o] : xo);
-        sa += u * acc[i][j];
-        if (with_b) sb += xo * w[o];
+    for (int j = 0; j < GC; ++j) {
+#pragma unroll
+      for (int sft = CW; sft < 32; sft <<= 1) {
+        sa[j] += __shfl_xor_sync(0xffffffffu, sa[j], sft);
+        if (with_b) sb[j] += __shfl_xor_sync(0xffffffffu, sb[j], sft);
       }
     }
-    redA[r][tx] = sa;
-    redB[r][tx] = sb;
-  }
-  __syncthreads();
-  for (int r = tid; r < BM; r += NT) {
-    const long long e = e0 + r;
-    if (e >= E) continue;
-    T sa = T(0), sb = T(0);
+    if (lane < CW) {
 #pragma unroll
-    for (int t = 0; t < NTX; ++t) {
-      sa += redA[r][t];
-      sb += redB[r][t];
+      for (int j = 0; j < GC; ++j) {
+        redA[(c * GC + j) * NW + warp] += sa[j];
+        if (with_b) redB[(c * GC + j) * NW + warp] += sb[j];
+      }
     }
-    partA[e * ntile + blockIdx.x] = sa;
-    if (with_b) partB[e * ntile + blockIdx.x] = sb;
+#pragma unroll
+    for (int j = 0; j < GC; ++j) sa[j] = sb[j] = T(0);
+  };
+  int cg_cur = warp < items ? warp % ncg : 0;
+  for (int W = warp; W < items; W += NW) {
+    if (W % ncg != cg_cur) {
+      flush(cg_cur * CW + lane % CW);
+      cg_cur = W % ncg;
+    }
+    int c, m;
+    const bool row = hz::item_of<CW>(W, n, nch, lane, c, m);
+    const T* xc = xs + c * CS;
+    // this lane's rows of w, loaded before the slot walk so that their
+    // latency hides behind it
+    T wo[GC];
+#pragma unroll
+    for (int j = 0; j < GC; ++j) {
+      const int g = c * GC + j;
+      wo[j] = (row && g < Gb) ? w[(e0 + g) * n + m] : T(0);
+    }
+    if (row) {
+      const int* cm = cols + static_cast<long long>(m) * R;
+      const T* vm = vals + static_cast<long long>(m) * R;
+      const int cnt = __ldg(counts + m);
+      hz::prefetch_row<T, 1, CW>(cm, vm, cnt, lane % CW);
+      T acc[GC][1];
+      hz::row_products<T, 1, 1, GC>(cm, vm, cnt, xc, n, acc);
+#pragma unroll
+      for (int j = 0; j < GC; ++j) {
+        if (c * GC + j < Gb) {
+          const T xo = xc[j * n + m];
+          const T u = mode == 0 ? xo + wo[j] : (mode == 4 ? wo[j] : xo);
+          sa[j] += u * acc[j][0];
+          if (with_b) sb[j] += xo * wo[j];
+        }
+      }
+    }
+  }
+  flush(cg_cur * CW + lane % CW);
+  __syncthreads();
+
+  // one partial per element: the warps' partials in warp order
+  for (int g = threadIdx.x; g < Gb; g += blockDim.x) {
+    T a = T(0), bsum = T(0);
+#pragma unroll
+    for (int wi = 0; wi < NW; ++wi) {
+      a += redA[g * NW + wi];
+      bsum += redB[g * NW + wi];
+    }
+    partA[e0 + g] = a;
+    if (with_b) partB[e0 + g] = bsum;
   }
 }
 
@@ -203,7 +182,7 @@ __device__ __forceinline__ void block_tree(T* sh) {
 template <typename T>
 __global__ void __launch_bounds__(RED_THREADS)
 integrals_reduce_kernel(const T* __restrict__ partA, const T* __restrict__ partB,
-                        int ntile, const T* __restrict__ detJ,
+                        const T* __restrict__ detJ,
                         const T* __restrict__ mask, int mode, long long E,
                         T* __restrict__ blocksum) {
   __shared__ T sh[RED_THREADS];
@@ -212,11 +191,8 @@ integrals_reduce_kernel(const T* __restrict__ partA, const T* __restrict__ partB
   const long long hi = lo + chunk < E ? lo + chunk : E;
   T s = T(0);
   for (long long e = lo + threadIdx.x; e < hi; e += RED_THREADS) {
-    T a = T(0), b = T(0);
-    if (mode != 3)
-      for (int t = 0; t < ntile; ++t) a += partA[e * ntile + t];
-    if (mode == 1 || mode == 2)
-      for (int t = 0; t < ntile; ++t) b += partB[e * ntile + t];
+    const T a = mode != 3 ? partA[e] : T(0);
+    const T b = (mode == 1 || mode == 2) ? partB[e] : T(0);
     T v;
     if (mode == 0 || mode == 4)
       v = detJ[e] * a;
@@ -245,49 +221,32 @@ integrals_final_kernel(const T* __restrict__ blocksum, double scale,
   if (threadIdx.x == 0) out[0] = T(scale) * sh[0];
 }
 
-template <typename T, int BM, int BN, int BK, int TM, int TN>
-int launch_rows(const T* x, const T* M, const T* w, int mode, T* partA,
-                T* partB, int E, int n, int ntile, cudaStream_t stream) {
-  const int tiles = (n + BN - 1) / BN;
-  if (tiles != ntile) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(tiles, (E + BM - 1) / BM);
-  dim3 block((BM / TM) * (BN / TN));
-  integrals_rows_kernel<T, BM, BN, BK, TM, TN>
-      <<<grid, block, 0, stream>>>(x, M, w, mode, partA, partB, E, n);
-  return 0;
-}
-
 template <typename T>
-int launch_integrals(int mode, const void* x, const void* M, const void* w,
-                     const void* detJ, const void* mask, void* partA,
-                     void* partB, void* blocksum, void* out, int E, int n,
-                     int ntile, double scale, cudaStream_t stream) {
-  const T* xx = static_cast<const T*>(x);
-  const T* mm = static_cast<const T*>(M);
-  const T* ww = static_cast<const T*>(w);
+int launch_integrals(int mode, const void* x, const void* cols, const void* vals,
+                     const void* counts, int R,
+                     const void* w, const void* detJ, const void* mask, void* partA,
+                     void* partB, void* blocksum, void* out, long long E, int n, double scale,
+                     cudaStream_t stream) {
   T* pa = static_cast<T*>(partA);
   T* pb = static_cast<T*>(partB);
-  int err = 0;
-  if (mode != 3) {
-    // the tile shapes of K1 (csrc/element_apply.cu), chosen the same way
-    bool done = false;
-    if constexpr (sizeof(T) == 4) {
-      if (n > 64) {
-        err = launch_rows<T, 128, 128, 8, 8, 8>(xx, mm, ww, mode, pa, pb, E, n, ntile, stream);
-        done = true;
-      }
+  if (mode != 3 && E > 0) {
+    constexpr int GC = chunk_elems<T>();
+    static bool allowed = false;
+    if (!allowed) {
+      hz::allow_smem(integrals_rows_kernel<T>);
+      allowed = true;
     }
-    if (!done) {
-      if (n > 16)
-        err = launch_rows<T, 64, 64, 8, 4, 4>(xx, mm, ww, mode, pa, pb, E, n, ntile, stream);
-      else
-        err = launch_rows<T, 128, 16, 8, 4, 4>(xx, mm, ww, mode, pa, pb, E, n, ntile, stream);
-    }
-    if (err) return err;
+    const int vb = static_cast<int>(sizeof(T));
+    const hz::RowsLayout L = hz::rows_layout(E, n, CW, GC, vb, 2 * GC * hz::ROW_WARPS * vb);
+    if (L.smem == 0 || R < 1) return static_cast<int>(cudaErrorInvalidValue);
+    integrals_rows_kernel<T><<<L.blocks, NT, L.smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const int*>(cols), static_cast<const T*>(vals),
+        static_cast<const int*>(counts), R,
+        static_cast<const T*>(w), mode, pa, pb, E, n, L.G, L.CS);
   }
   integrals_reduce_kernel<T><<<RED_BLOCKS, RED_THREADS, 0, stream>>>(
-      pa, pb, ntile, static_cast<const T*>(detJ), static_cast<const T*>(mask),
-      mode, E, static_cast<T*>(blocksum));
+      pa, pb, static_cast<const T*>(detJ), static_cast<const T*>(mask), mode, E,
+      static_cast<T*>(blocksum));
   integrals_final_kernel<T><<<1, RED_THREADS, 0, stream>>>(
       static_cast<const T*>(blocksum), scale, static_cast<T*>(out));
   return 0;
@@ -295,24 +254,26 @@ int launch_integrals(int mode, const void* x, const void* M, const void* w,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float64; mode as above. x, M, w and partA/partB
-// may be NULL where the mode does not read them (area reads none of them);
-// mask may be NULL (every row counts once).
-// ntile = ceil(n / BN) of the tile shape the dtype and n select (checked);
-// partA/partB hold [E, ntile], blocksum [RED_BLOCKS], out one value.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for a wrong ntile.
-extern "C" int hz_integrals(int dtype, int mode, const void* x, const void* M,
-                            const void* w, const void* detJ, const void* mask,
-                            void* partA, void* partB, void* blocksum,
-                            void* out, int E, int n, int ntile, double scale,
-                            void* stream) {
+// dtype: 0 = float32, 1 = float64; mode as above. cols (int32 [R, n]) and
+// vals ([R, n, 1]) are the mass matrix's table (ops/apply.py::
+// stack_table of the one-piece stack [M]). x, the table, w and
+// partA/partB may be NULL where the mode does not read them (area reads
+// none of them); mask may be NULL (every row counts once). partA/partB
+// hold [E], blocksum [RED_BLOCKS], out one value. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for rows too long for one
+// block's shared memory.
+extern "C" int hz_integrals(int dtype, int mode, const void* x, const void* cols,
+                            const void* vals, const void* counts, int R, const void* w,
+                            const void* detJ,
+                            const void* mask, void* partA, void* partB, void* blocksum,
+                            void* out, long long E, int n, double scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err =
       dtype == 0
-          ? launch_integrals<float>(mode, x, M, w, detJ, mask, partA, partB,
-                                    blocksum, out, E, n, ntile, scale, s)
-          : launch_integrals<double>(mode, x, M, w, detJ, mask, partA, partB,
-                                     blocksum, out, E, n, ntile, scale, s);
+          ? launch_integrals<float>(mode, x, cols, vals, counts, R, w, detJ, mask, partA, partB,
+                                    blocksum, out, E, n, scale, s)
+          : launch_integrals<double>(mode, x, cols, vals, counts, R, w, detJ, mask, partA, partB,
+                                     blocksum, out, E, n, scale, s);
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,7 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .ops.apply import stack_rowsum
+from .ops.apply import stack_rowsum, stack_table
 
 
 class SolverState(NamedTuple):
@@ -60,6 +60,7 @@ def load_levels(solver, stacks=None, P_up=None) -> None:
             L.stack = _same_shape(f"stacks[{k}]", tens(s), L.stack)
             L.diag_ref = torch.diagonal(L.stack, dim1=1, dim2=2).contiguous()
             L.rowsum = stack_rowsum(L.stack)
+            L.table = stack_table(L.stack)
     if P_up is not None:
         if len(P_up) != solver.nlevels or P_up[0] is not None:
             raise ValueError("P_up: one entry per level, None at level 0")

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..mesh.grid import affine_maps, hypercube
-from ..ops.apply import element_apply
+from ..ops.apply import element_apply, stack_table
 from ..ops.elementwise import diagonal, div_nz, inv_positive, lanczos_update
 from ..ops.integrals import dot_M as k9_dot_M
 from ..ops.integrals import integrals_fns
@@ -133,6 +133,7 @@ def homogenization_multishift(
     coeff_A = solver.coefficients(sigma_el, 0.0)  # the pure -div a grad part
     mass = solver.levels[kf].stack[-1].contiguous()
     mass_stack = mass[None]
+    mass_table = stack_table(mass_stack)  # the mass's nonzeros (K1, K14b)
     _, _, detJ_np, _ = affine_maps(base)
     detJ = to_dev(detJ_np)
     detJ_col = detJ[:, None].contiguous()
@@ -146,12 +147,12 @@ def homogenization_multishift(
 
     def Mop(v):
         # combine(constrain(detJ_e Mhat v_e)): K1 with the one-piece stack
-        y = element_apply(v, detJ_col, mass_stack, mask=bm)
+        y = element_apply(v, detJ_col, mass_stack, mask=bm, table=mass_table)
         return solver._combine(y if bm is not None else solver._constrain(y, kf), kf)
 
     def dot_M(u, v):
         # the exact global M-inner product sum_e u_e' (detJ_e Mhat) v_e (K14b)
-        return k9_dot_M(u, v, mass, detJ)
+        return k9_dot_M(u, v, mass, detJ, table=mass_table)
 
     def scalar(value):
         return torch.tensor(value, dtype=dtype, device=dev)

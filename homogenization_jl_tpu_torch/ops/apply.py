@@ -6,9 +6,20 @@ per-element geometry coefficients are precomputed ([E, P]), and
 
     y[e, m] = sum_p coeff[e, p] * sum_n stack[p, m, n] * x[e, n]
 
+The JAX package multiplies the dense stack only to feed the TPU's matrix
+unit; the stack is almost empty (at n_local = 969 the union of the seven
+slices holds 12.5 nonzeros per row, 1.3% of the dense product). On the card
+the product runs over the nonzeros, as the Julia reference applies these
+operators (per-element sparse products): ``stack_table`` lists them once per
+stack (``StackTable``: for each row, the columns of the union of the P
+slices' exact nonzeros and the P values of each, pieces interleaved), and
 ``element_apply`` launches the hand-written CUDA kernel K1
-(csrc/element_apply.cu) for CUDA tensors and runs the plain PyTorch version
-for CPU tensors. Both run full FP32 (or FP64) arithmetic.
+(csrc/element_apply.cu) over that table for CUDA tensors. A CUDA call must
+pass the table: the wrapper never derives it from the stack, which would
+read the stack back to the host on every call. CPU tensors run the plain
+PyTorch version, which multiplies the dense stack (the JAX function's own
+form). Both run full FP32 (or FP64) arithmetic; only the zeros are skipped,
+so the two differ by the order of the sums.
 
 The residual form b - A x is computed shifted, in both versions: with
 s_e = x[e, 0], A x = A (x - s_e) + s_e * sum_p coeff[e, p] * rowsum_p, where
@@ -31,6 +42,9 @@ its plain form casts x up first.
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from ..csrc.build import LAUNCHES, launch
@@ -43,8 +57,74 @@ NARROWER = {
     torch.float32: (torch.bfloat16, torch.float16),
     torch.float64: (torch.float32, torch.bfloat16, torch.float16),
 }
-# MAXP of csrc/element_apply.cuh (3D: six conductivity pieces and the mass)
+# the most pieces K1's table slots hold (3D: six conductivity pieces and the
+# mass; csrc/element_apply.cuh)
 _MAX_PIECES = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class StackTable:
+    """The nonzeros of a [P, n, n] stack, row by row (``stack_table``).
+
+    ``cols`` (int32 [n, R]): row m's columns, ascending, of the union of
+    the P slices' exact nonzeros; R is the widest row, and a narrower row's
+    pad slots point at the row itself. ``vals`` ([n, R, PP], the stack's
+    dtype): the P slices' values at each slot, pieces innermost so that one
+    slot is one vector load; 0 in pad slots, in a slice's own zeros and in
+    the pieces padded up to PP (1, 4 or a multiple of 8). ``counts`` (int32
+    [n]): each row's slots before its pads (the kernels walk no pad slot).
+    ``nnz``: the union's nonzeros; ``slice_nnz``: the sum of each slice's
+    own (the multiply-adds of one element's product)."""
+
+    cols: torch.Tensor
+    vals: torch.Tensor
+    counts: torch.Tensor
+    pieces: int
+    nnz: int
+    slice_nnz: int
+
+    def __post_init__(self):
+        n, R = self.cols.shape if self.cols.dim() == 2 else (-1, -1)
+        _check("table cols", self.cols, torch.int32, self.vals.device, (n, R))
+        _check("table vals", self.vals, self.vals.dtype, self.vals.device,
+               (n, R, _padded_pieces(self.pieces)))
+        _check("table counts", self.counts, torch.int32, self.vals.device, (n,))
+
+    @property
+    def width(self) -> int:
+        return self.cols.shape[1]
+
+
+def _padded_pieces(P: int) -> int:
+    return 1 if P == 1 else (4 if P <= 4 else -(-P // 8) * 8)
+
+
+def stack_table(stack) -> StackTable:
+    """The ``StackTable`` of a [P, n, n] stack, on the stack's device and in
+    its dtype. Built once per stack, on the host (it reads the stack back):
+    build it where the stack is held, from the tensor that is applied (the
+    solver's levels hold the interface-layout permutation of the reference
+    stack), never per call."""
+    if not isinstance(stack, torch.Tensor) or stack.dim() != 3:
+        raise ValueError("stack_table: expected a [P, n, n] tensor")
+    P, n, _ = stack.shape
+    S = stack.detach().cpu().numpy()
+    nz = S != 0
+    union = nz.any(axis=0)
+    counts = union.sum(axis=1)
+    R = max(int(counts.max()) if n else 0, 1)
+    # each row's nonzero columns first, ascending (stable sort on "is zero")
+    order = np.argsort(~union, axis=1, kind="stable")[:, :R]
+    rows = np.arange(n)[:, None]
+    pad = np.arange(R)[None, :] >= counts[:, None]
+    cols = np.where(pad, rows, order).astype(np.int32)
+    vals = np.zeros((n, R, _padded_pieces(P)), dtype=S.dtype)
+    vals[:, :, :P] = np.where(pad[..., None], 0, S[:, rows, cols].transpose(1, 2, 0))
+    dev = stack.device
+    return StackTable(
+        cols=torch.as_tensor(cols, device=dev), vals=torch.as_tensor(vals, device=dev),
+        counts=torch.as_tensor(counts.astype(np.int32), device=dev),
+        pieces=P, nnz=int(union.sum()), slice_nnz=int(nz.sum()))
 
 
 def stack_rowsum(stack):
@@ -87,13 +167,15 @@ def _check(name, t, dtype, device, shape=None):
         raise ValueError(f"{name} must be contiguous")
 
 
-def element_apply(x, coeff, stack, b=None, out=None, rowsum=None, mask=None):
+def element_apply(x, coeff, stack, b=None, out=None, rowsum=None, mask=None, table=None):
     """y[e] = sum_p coeff[e, p] * (stack[p] @ x[e]); with ``b``, b - y
     (shifted, module docstring); with ``mask`` (bool [E, n]), that result
     times the mask.
 
     x: [E, n], coeff: [E, P], stack: [P, n, n] (symmetric slices), b: [E, n]
     or None; float32 or float64, all on one device and contiguous.
+    ``table`` is ``stack_table(stack)``, on the stack's device: CUDA calls
+    need it (kernel K1 runs over it), CPU calls ignore it.
     ``rowsum`` ([P, n], read with ``b`` only) is ``stack_rowsum(stack)``,
     which callers that apply one stack often pass precomputed.
     ``out`` receives the result and may be ``b`` itself (the in-place
@@ -101,10 +183,10 @@ def element_apply(x, coeff, stack, b=None, out=None, rowsum=None, mask=None):
     """
     if x.dtype not in _DTYPES:
         raise TypeError(f"element_apply: unsupported dtype {x.dtype}")
-    return _apply(x, coeff, stack, b, out, rowsum, mask, x.dtype)
+    return _apply(x, coeff, stack, b, out, rowsum, mask, table, x.dtype)
 
 
-def element_apply_half(x, coeff, stack, b=None, out=None, rowsum=None, mask=None):
+def element_apply_half(x, coeff, stack, b=None, out=None, rowsum=None, mask=None, table=None):
     """``element_apply`` on an x stored narrower than the state dtype
     (coeff's; ``NARROWER``): kernel K16 for CUDA tensors, the result K1's
     on ``x.to(coeff.dtype)`` bit for bit and in coeff's dtype; the plain
@@ -112,10 +194,27 @@ def element_apply_half(x, coeff, stack, b=None, out=None, rowsum=None, mask=None
     dt = getattr(coeff, "dtype", None)
     if dt not in _DTYPES or x.dtype not in NARROWER[dt]:
         raise TypeError(f"element_apply_half: x dtype {x.dtype} under a {dt} state")
-    return _apply(x, coeff, stack, b, out, rowsum, mask, dt)
+    return _apply(x, coeff, stack, b, out, rowsum, mask, table, dt)
 
 
-def _apply(x, coeff, stack, b, out, rowsum, mask, dt):
+def check_table(name, table, n, P, dtype, device):
+    """Raise unless ``table`` is a ``StackTable`` of P pieces over n rows in
+    ``dtype`` on ``device`` that the kernels take (at most _MAX_PIECES
+    pieces; its own layout is checked when it is built). Reads no tensor
+    back: the table must be the stack's own."""
+    if not isinstance(table, StackTable):
+        raise ValueError(f"{name}: a CUDA call needs the stack's table (ops/apply.py::stack_table)")
+    if table.cols.shape[0] != n or table.pieces != P:
+        raise ValueError(f"{name}: table of {table.pieces} pieces over {table.cols.shape[0]} "
+                         f"rows, stack of {P} over {n}")
+    if table.vals.dtype != dtype or table.vals.device != device:
+        raise TypeError(f"{name}: table in {table.vals.dtype} on {table.vals.device}, "
+                        f"expected {dtype} on {device}")
+    if table.vals.shape[2] > _MAX_PIECES:
+        raise ValueError(f"{name}: the kernel takes at most {_MAX_PIECES} pieces")
+
+
+def _apply(x, coeff, stack, b, out, rowsum, mask, table, dt):
     """The checks and the route of both wrappers; ``dt`` is the state
     dtype (x's, or narrower for ``element_apply_half``)."""
     if x.dim() != 2 or stack.dim() != 3 or coeff.dim() != 2:
@@ -147,9 +246,12 @@ def _apply(x, coeff, stack, b, out, rowsum, mask, dt):
         return y if out is None else out.copy_(y)
     if dev.type != "cuda":
         raise ValueError(f"element_apply: unsupported device {dev}")
+    check_table("element_apply", table, n, P, dt, dev)
     if out is None:
         out = torch.empty((E, n), dtype=dt, device=dev)
-    tail = (coeff.data_ptr(), stack.data_ptr(), None if b is None else b.data_ptr(),
+    tail = (coeff.data_ptr(), table.cols.data_ptr(), table.vals.data_ptr(),
+            table.counts.data_ptr(), table.width,
+            table.vals.shape[2], None if b is None else b.data_ptr(),
             None if b is None else rowsum.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(), E, n, P)
     if half:

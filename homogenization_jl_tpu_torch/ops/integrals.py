@@ -18,11 +18,15 @@ masked sum over element rows:
 sum_e detJ_e u_e . (M v_e), the M-inner product of the multishift
 recurrence (homogenization_jl_tpu/models/multishift.py:152-155; kernel
 K14b: K9's mode DOT_M, unmasked, the mass apply never written): kernel K9
-(csrc/integrals.cu) for CUDA tensors, the plain form for CPU tensors. The
-plain form is the JAX expression with the sum over elements taken in the
-kernel's fixed order (RED_BLOCKS blocks of RED_THREADS strided partials
-and a tree); only the row sums, which the kernel takes inside its GEMM
-tiles, round differently.
+(csrc/integrals.cu) for CUDA tensors, the plain form for CPU tensors.
+The kernel forms M x over the nonzeros of M (12.5 per row at n = 969),
+from the row table of the one-piece stack [M] (ops/apply.py::stack_table),
+which CUDA calls must pass (``table=``; ``integrals_fns`` builds it once).
+It writes one partial per element row and sums them in a fixed order.
+The plain form is the JAX expression with the sum over elements taken in
+the kernel's fixed order (RED_BLOCKS blocks of RED_THREADS strided partials
+and a tree); only the row sums, which the kernel takes over its threads'
+rows, round differently.
 
 ``reference_quirk``: the reference's integrate_first_term multiplies the
 b0 part, which already carries detJ, by detJ again. On unit cells (every
@@ -40,18 +44,12 @@ import numpy as np
 import torch
 
 from ..csrc.build import LAUNCHES, launch
-from .apply import element_apply
+from .apply import check_table, element_apply, stack_table
 from .dots import RED_BLOCKS, fixed_order_sum
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 
 TERMS, FIRST_QUIRK, FIRST, AREA, DOT_M = 0, 1, 2, 3, 4
-
-
-def _tile_count(dtype, n: int) -> int:
-    """Column tiles of K9's GEMM pass: K1's tile width for (dtype, n)."""
-    bn = 128 if (dtype == torch.float32 and n > 64) else (64 if n > 16 else 16)
-    return -(-n // bn)
 
 
 def sigma_integral_plain(mode, x, mass, w, detJ, mask, scale=1.0):
@@ -81,13 +79,14 @@ def _check(name, t, dtype, device, shape):
         raise ValueError(f"sigma_integral: {name} must be contiguous")
 
 
-def sigma_integral(mode, x, mass, w, detJ, mask, scale=1.0):
+def sigma_integral(mode, x, mass, w, detJ, mask, scale=1.0, table=None):
     """One of the driver's integrals as a 0-d tensor: ``mode`` TERMS (w =
     v_prev), FIRST_QUIRK / FIRST (w = b0), AREA (x, mass, w unused: pass
     None) or DOT_M (sum_e detJ_e w_e . (M x_e)). x, w: [E, n]; mass: [n, n]
     symmetric; detJ, mask: [E] (mask None: every row counts); one dtype
-    (float32/float64) and device. Kernel K9 for CUDA tensors, the plain form
-    for CPU tensors."""
+    (float32/float64) and device. ``table``: ``stack_table(mass[None])``,
+    which CUDA calls need (but AREA). Kernel K9 for CUDA tensors, the plain
+    form for CPU tensors."""
     if mode not in (TERMS, FIRST_QUIRK, FIRST, AREA, DOT_M):
         raise ValueError(f"sigma_integral: unknown mode {mode}")
     dtype, dev = detJ.dtype, detJ.device
@@ -107,40 +106,43 @@ def sigma_integral(mode, x, mass, w, detJ, mask, scale=1.0):
         return sigma_integral_plain(mode, x, mass, w, detJ, mask, scale)
     if dev.type != "cuda":
         raise ValueError(f"sigma_integral: unsupported device {dev}")
-    ntile = _tile_count(dtype, n) if mode != AREA else 0
-    part_a = torch.empty((E, ntile), dtype=dtype, device=dev) if mode != AREA else None
-    part_b = (
-        torch.empty((E, ntile), dtype=dtype, device=dev) if mode in (FIRST_QUIRK, FIRST) else None
-    )
+    if mode != AREA:
+        check_table("sigma_integral", table, n, 1, dtype, dev)
+    part_a = torch.empty(E, dtype=dtype, device=dev) if mode != AREA else None
+    part_b = torch.empty(E, dtype=dtype, device=dev) if mode in (FIRST_QUIRK, FIRST) else None
     blocksum = torch.empty(RED_BLOCKS, dtype=dtype, device=dev)
     out = torch.empty((), dtype=dtype, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    tab = (None, None, None) if mode == AREA else (table.cols, table.vals, table.counts)
+    R = 0 if mode == AREA else table.width
     LAUNCHES["mass_dot" if mode == DOT_M else "integrals"] += 1
     launch(
-        "hz_integrals", _DTYPES[dtype], mode, ptr(x), ptr(mass), ptr(w), detJ.data_ptr(),
-        ptr(mask), ptr(part_a), ptr(part_b), blocksum.data_ptr(), out.data_ptr(),
-        E, n, ntile, float(scale),
+        "hz_integrals", _DTYPES[dtype], mode, ptr(x), *(ptr(t) for t in tab), R, ptr(w),
+        detJ.data_ptr(), ptr(mask), ptr(part_a), ptr(part_b), blocksum.data_ptr(),
+        out.data_ptr(), E, n, float(scale),
     )
     return out
 
 
-def dot_M(u, v, mass, detJ):
+def dot_M(u, v, mass, detJ, table=None):
     """sum_e detJ_e u_e . (M v_e) as a 0-d tensor (kernel K14b: K9's mode
     DOT_M for CUDA tensors, the plain form for CPU tensors). u, v: [E, n];
-    mass: [n, n] symmetric; detJ: [E]."""
-    return sigma_integral(DOT_M, v, mass, u, detJ, None)
+    mass: [n, n] symmetric; detJ: [E]; ``table``: ``stack_table(mass[None])``
+    (CUDA calls need it)."""
+    return sigma_integral(DOT_M, v, mass, u, detJ, None, table=table)
 
 
 def integrals_fns(mass, detJ, reference_quirk: bool | None = None, group=None):
     """(area, first_term, terms, next_rhs), closed over the finest reference
     mass matrix ``mass`` [n, n] and the per-element |det J| ``detJ`` [E]
-    (tensors of one dtype and device); see the module docstring. With a
-    ``group`` (a SlabGroup), ``detJ`` and the states are the rank's rows and
-    the three integrals are summed over the ranks; pass ``reference_quirk``
-    then, decided on the whole base."""
+    (tensors of one dtype and device; the mass matrix's row table is built
+    here, once); see the module docstring. With a ``group`` (a SlabGroup),
+    ``detJ`` and the states are the rank's rows and the three integrals are
+    summed over the ranks; pass ``reference_quirk`` then, decided on the
+    whole base."""
     mass = mass.contiguous()
     detJ = detJ.contiguous()
     # the JAX form sums the mass matrix in the state dtype
@@ -149,18 +151,19 @@ def integrals_fns(mass, detJ, reference_quirk: bool | None = None, group=None):
         reference_quirk = bool(np.allclose(detJ.cpu().numpy(), 1.0))
     first_mode = FIRST_QUIRK if reference_quirk else FIRST
     stack = mass[None]
+    table = stack_table(stack)
     total = (lambda t: t) if group is None else group.sum
 
     def area(mask):
         return total(sigma_integral(AREA, None, None, None, detJ, mask, scale=mass_total))
 
     def first_term(x, b0, mask):
-        return total(sigma_integral(first_mode, x, mass, b0, detJ, mask))
+        return total(sigma_integral(first_mode, x, mass, b0, detJ, mask, table=table))
 
     def terms(x, v_prev, mask):
-        return total(sigma_integral(TERMS, x, mass, v_prev, detJ, mask))
+        return total(sigma_integral(TERMS, x, mass, v_prev, detJ, mask, table=table))
 
     def next_rhs(x, lam):
-        return element_apply(x, (lam * detJ)[:, None].contiguous(), stack)
+        return element_apply(x, (lam * detJ)[:, None].contiguous(), stack, table=table)
 
     return area, first_term, terms, next_rhs

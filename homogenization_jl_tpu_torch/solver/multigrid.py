@@ -120,7 +120,7 @@ import torch
 from ..fem.assembly import assemble_operator
 from ..fem.local_operators import build_level_operators, element_coefficients
 from ..mesh.reference import prolongation_dense
-from ..ops.apply import NARROWER, element_apply, element_apply_half, stack_rowsum
+from ..ops.apply import NARROWER, element_apply, element_apply_half, stack_rowsum, stack_table
 from ..ops.cg import cg_direction, cg_direction_half, cg_step, cg_step_half, safe_div
 from ..ops.chebyshev import chebyshev_update, chebyshev_update_half
 from ..ops.dots import dot, dot_half
@@ -213,6 +213,7 @@ class LevelDevice:
 
     stack: torch.Tensor  # [P, n, n]
     rowsum: torch.Tensor  # [P, n] row sums of the stack slices (K1's shift)
+    table: object  # ops/apply.py::StackTable of the stack (K1's nonzeros)
     diag_ref: torch.Tensor  # [P, n] diagonals of the stack slices
     first_copy_mask: torch.Tensor  # [E, n] bool
     P_up: torch.Tensor | None  # prolongation to this level from below [n_k, n_{k-1}]
@@ -392,6 +393,7 @@ class MultigridSolver:
                 LevelDevice(
                     stack=tens(stack),
                     rowsum=stack_rowsum(tens(stack)),
+                    table=stack_table(tens(stack)),
                     diag_ref=tens(np.diagonal(stack, axis1=1, axis2=2)),
                     first_copy_mask=tens(self.rows_of(plan.levels[k].first_copy_mask), torch.bool),
                     P_up=P_up,
@@ -632,7 +634,7 @@ class MultigridSolver:
         direction) goes through K16's apply, its result in coeff's dtype."""
         L = self.levels[k]
         apply = element_apply if x.dtype == coeff.dtype else element_apply_half
-        return apply(x, coeff, L.stack, b=b, out=out, rowsum=L.rowsum, mask=mask)
+        return apply(x, coeff, L.stack, b=b, out=out, rowsum=L.rowsum, mask=mask, table=L.table)
 
     def _apply_constrained(self, x, coeff, k, Ls=None, b=None):
         """constrain(A x), with ``b`` constrain(b - A x): the mask multiply
@@ -730,10 +732,10 @@ class MultigridSolver:
                 lambda y0: self._sum_partial(lattice_assemble(y0, st, x0=x0, planes=planes)),
                 lambda u: lattice_distribute(u, st, x0=x0, planes=planes),
             )
-        stack0 = self.levels[0].stack
+        L0 = self.levels[0]
 
         def apply(u, b=None):
-            yd = element_apply(distribute(u, self._base_idx), coeff, stack0)
+            yd = element_apply(distribute(u, self._base_idx), coeff, L0.stack, table=L0.table)
             y = self._to_global(yd) * m
             return y if b is None else b - y
 

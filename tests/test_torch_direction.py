@@ -377,17 +377,18 @@ def test_k16_kernels_bitwise_equal_to_plain(cuda, sdt, ddt):
     S = torch.randn((P, n, n), generator=g, device=cuda, dtype=sdt)
     S = (S + S.transpose(1, 2)).contiguous()
     rs = t_apply.stack_rowsum(S)
+    tab = t_apply.stack_table(S)
     m = torch.rand((E, n), generator=g, device=cuda) < 0.7
     before = dict(LAUNCHES)
     # K1: the apply, the shifted residual form, the mask store, in place
     for kw in ({}, dict(b=b), dict(mask=m), dict(b=b, mask=m)):
-        got = t_apply.element_apply_half(p, coeff, S, rowsum=rs, **kw)
-        want = t_apply.element_apply(p.to(sdt), coeff, S, rowsum=rs, **kw)
+        got = t_apply.element_apply_half(p, coeff, S, rowsum=rs, table=tab, **kw)
+        want = t_apply.element_apply(p.to(sdt), coeff, S, rowsum=rs, table=tab, **kw)
         assert got.dtype == sdt and torch.equal(_bits(got), _bits(want)), kw
     r = b.clone()
-    t_apply.element_apply_half(p, coeff, S, b=r, out=r, rowsum=rs, mask=m)
+    t_apply.element_apply_half(p, coeff, S, b=r, out=r, rowsum=rs, mask=m, table=tab)
     assert torch.equal(_bits(r), _bits(t_apply.element_apply(p.to(sdt), coeff, S, b=b, rowsum=rs,
-                                                             mask=m)))
+                                                             mask=m, table=tab)))
     # K3: p = store(a load(p) + b z), x += load(p)
     ab = torch.tensor([0.37, 1.9], dtype=sdt, device=cuda)
     for first, x_zero in ((True, True), (True, False), (False, False)):

@@ -176,12 +176,13 @@ def test_element_apply_kernel_matches_plain(plan, cuda, dtype):
         b = torch.as_tensor(rng.standard_normal((E, op.n_local)), dtype=dtype, device=cuda)
         coeff = torch.as_tensor(rng.uniform(0.5, 2.0, (E, op.n_pieces)), dtype=dtype, device=cuda)
         stack = torch.as_tensor(op.stack, dtype=dtype, device=cuda)
+        tab = t_apply.stack_table(stack)
         ref = t_apply.element_apply_plain(x, coeff, stack)
         b_old = b.clone()
         n0 = LAUNCHES["element_apply"]
-        got = t_apply.element_apply(x, coeff, stack)
-        res = t_apply.element_apply(x, coeff, stack, b=b)
-        t_apply.element_apply(x, coeff, stack, b=b, out=b)  # in place
+        got = t_apply.element_apply(x, coeff, stack, table=tab)
+        res = t_apply.element_apply(x, coeff, stack, b=b, table=tab)
+        t_apply.element_apply(x, coeff, stack, b=b, out=b, table=tab)  # in place
         torch.cuda.synchronize()
         assert LAUNCHES["element_apply"] == n0 + 3
         assert torch.linalg.norm(got - ref) <= tol * torch.linalg.norm(ref), op.n_local
@@ -392,11 +393,12 @@ def test_integrals_kernel_matches_plain(cuda, dtype, n_local):
     mass = t(A @ A.T / n_local)
     x, w = t(rng.random((E, n_local))), t(rng.standard_normal((E, n_local)))
     detJ, mask = t(rng.uniform(0.5, 2.0, E)), t((rng.random(E) < 0.8).astype(float))
+    tab = t_apply.stack_table(mass[None])
     n0 = LAUNCHES["integrals"]
     for mode in (t_int.TERMS, t_int.FIRST_QUIRK, t_int.FIRST, t_int.AREA):
         args = (None, None, None) if mode == t_int.AREA else (x, mass, w)
-        got = t_int.sigma_integral(mode, *args, detJ, mask, scale=1.5)
-        again = t_int.sigma_integral(mode, *args, detJ, mask, scale=1.5)
+        got = t_int.sigma_integral(mode, *args, detJ, mask, scale=1.5, table=tab)
+        again = t_int.sigma_integral(mode, *args, detJ, mask, scale=1.5, table=tab)
         ref = t_int.sigma_integral_plain(mode, *args, detJ, mask, scale=1.5)
         absargs = (None, None, None) if mode == t_int.AREA else (x.abs(), mass.abs(), w.abs())
         scale = t_int.sigma_integral_plain(mode, *absargs, detJ, mask, scale=1.5)

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from homogenization_jl_tpu_torch.csrc.build import LAUNCHES
+from homogenization_jl_tpu_torch.ops import apply as t_apply
 from homogenization_jl_tpu_torch.ops import integrals as t_int
 from homogenization_jl_tpu_torch.ops import multishift as t_ms
 from homogenization_jl_tpu_torch.ops import recurrence as t_rec
@@ -146,7 +147,7 @@ def test_dot_M_kernel_close_to_plain(cuda, dtype):
     M = r(35, 35)
     M = (M + M.T).contiguous()
     u, v, detJ = r(), r(), r(500).abs()
-    k = t_int.dot_M(u, v, M, detJ)
+    k = t_int.dot_M(u, v, M, detJ, table=t_apply.stack_table(M[None]))
     p = t_int.sigma_integral_plain(t_int.DOT_M, v, M, u, detJ, None)
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     scale = float((detJ[:, None] * (u * (v @ M.T)).abs()).sum())

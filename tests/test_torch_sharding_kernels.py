@@ -196,13 +196,14 @@ def test_element_apply_mask_store_equals_masked_output(cuda, dtype, n):
     S = torch.randn((P, n, n), generator=g, device=cuda, dtype=dtype)
     S = (S + S.transpose(1, 2)).contiguous()
     m = torch.rand((E, n), generator=g, device=cuda) < 0.6
+    tab = t_apply.stack_table(S)
     for kw in (dict(), dict(b=b)):
-        ref = t_apply.element_apply(x, c, S, **kw) * m
-        got = t_apply.element_apply(x, c, S, mask=m, **kw)
+        ref = t_apply.element_apply(x, c, S, table=tab, **kw) * m
+        got = t_apply.element_apply(x, c, S, mask=m, table=tab, **kw)
         assert torch.equal(_bits(got), _bits(ref))
     r = b.clone()
-    t_apply.element_apply(x, c, S, b=r, out=r, mask=m)
-    assert torch.equal(_bits(r), _bits(t_apply.element_apply(x, c, S, b=b) * m))
+    t_apply.element_apply(x, c, S, b=r, out=r, mask=m, table=tab)
+    assert torch.equal(_bits(r), _bits(t_apply.element_apply(x, c, S, b=b, table=tab) * m))
 
 
 @pytest.mark.cuda
