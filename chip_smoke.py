@@ -8,17 +8,28 @@ then exits non-zero without the final line):
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build the CUDA kernels (every one but the Triton ones: K3, K16's
      Chebyshev update and K17; one nvcc per source, started together) from csrc/ into
-     build/kernels/, warm up K3 (Triton);
+     build/kernels/, warm up K3 (Triton); the wrappers' raw stream is
+     PyTorch's current stream;
   3. every kernel against its plain PyTorch version on the card, at the
      main path's shapes, float32 and float64: K1-K5 and K10 at every level
      (K1 over each level's row table of nonzeros, ops/apply.py)
      (n = 4..969, E = 196,608; K4 prolong_add bitwise equal to the dense
-     product, K5 bitwise equal on two launches and to its plain form, K10
-     bitwise equal to its plain form, den == 0 included); K6 on the 33^3
-     lattice of the type-major base; K7 on the base's 786,432 -> 35,937
+     product, K5 bitwise equal on two launches and to its plain form, on a
+     misaligned view as on its aligned copy, K10 bitwise equal to its
+     plain form, den == 0 included); K6 on the 33^3 lattice of the
+     type-major base (apply bitwise equal to its plain form in every mask /
+     b form); K7 on the base's 786,432 -> 35,937
      segment sum, the aux hierarchy's cube-major 98,304 -> 4,913 one, and
      the aux transfers ([24576, 10]); the kernel, plain and library times
-     at the float32 shapes; the segment sum bitwise equal on two launches;
+     at the float32 shapes (K5's plain dot, K6's apply and K7's segment sum
+     per call, medians of 5 rounds in turns with torch.dot, CSR mv and
+     index_add_; K5's mask, scale and float64 forms beside them); the
+     segment sum bitwise equal on two launches; (3c) the device times of
+     K6's apply and K7's segment sum beside CSR mv's (the sum of cuSPARSE's
+     kernels) and index_add_'s, from one torch.profiler session in a child
+     process (its first session: later sessions of a process lost kernel
+     records, and one before phase 15b's costs that one its coverage):
+     medians of 5 rounds, each timing the four in turns;
      at the finest shape (E = 196,608, n = 969), float32 and float64, every
      entry of K18 (the mask, the Lanczos scale, three-term update, first
      step and normalization, the Jacobi inverse, the diagonal), K10's r_out
@@ -28,7 +39,9 @@ then exits non-zero without the final line):
      time (one einsum of the same function);
  3b. the driver's kernels against their plain versions, float32 and
      float64: K9 (sigma integrals, all forms, both reference_quirk
-     branches) at E = 196,608, n = 969, bitwise equal on two launches; K8
+     branches) at E = 196,608, n = 969, bitwise equal on two launches, the
+     area form (no row partials: the sum in K5's order alone) bitwise equal
+     to its plain form; K8
      (gather combine, with and without its mask) at the finest level of
      the ordered 3D base ordered_hypercube(3, 16) (196,608 tets, n = 969)
      and at every level of the 2D base of phase 8, bitwise equal to the
@@ -131,7 +144,8 @@ then exits non-zero without the final line):
      0.9 of the CUDA-event time of the same call (each profiles up to 4
      iterations, (b) from its second, until one is covered), with no
      PyTorch elementwise kernel above 20 us per launch on
-     average; (d) the ordered driver through
+     average, the device's waits on the host, and one K5 kernel per K5
+     call (18 and 20e report and hold the same); (d) the ordered driver through
      the gather-sharded solver on 2 spawned ranks that share the card
      through a gloo group (NCCL refuses two ranks on one card), two
      levels below the flagship (refinements=2, 6,881,280 DOFs) in float64,
@@ -205,6 +219,8 @@ cg_exact cycles, K15 on phase 18, K13 on 20d, K14 on 20a, K17 on 21, the
 others on phase 7), and last the device JSON line.
 
 Usage: python3 chip_smoke.py            (one card, full size)
+       python3 chip_smoke.py --device-times
+                                        (phase 3c alone: one JSON line)
        python3 chip_smoke.py --n 16     (a smaller base, for rehearsals)
        python3 chip_smoke.py --profile DIR
                                         (also write phase 5's full
@@ -611,6 +627,23 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
+# repeats of a timing taken in turns (phase 3's K5, K6 and K7 against their
+# library calls, phase 3c's device times): median of at least 5
+TIMING_ROUNDS = 5
+
+
+def turns_ms(fns, reps, rounds=TIMING_ROUNDS):
+    """Median ms per call of each of ``fns`` ({label: callable}) by
+    ``cuda_ms`` over ``reps`` back-to-back calls, taken in turns (a, b, b,
+    a, ...) ``rounds`` times. Returns ({label: median}, {label: samples})."""
+    samples = {k: [] for k in fns}
+    order = list(fns)
+    for _ in range(rounds):
+        for k in order + order[::-1]:
+            samples[k].append(cuda_ms(fns[k], reps))
+    return {k: float(np.median(v)) for k, v in samples.items()}, samples
+
+
 def problem(hz, n, nlevels, seed=0):
     """The bench problem: base mesh, checkerboard sigma, local unit rhs."""
     from homogenization_jl_tpu_torch.fem.local_operators import load_vector
@@ -774,9 +807,11 @@ def check_kernels(solver, plan, coeff64, dev):
 
 def check_coarse_kernels(solver, coeff64, dev):
     """Phase 3, K6 and K7 at the main path's shapes (``solver`` is the
-    coarse="mg" main-path solver). Returns {kernel: (max_abs_err, ms,
-    plain_ms)} of the float32 entry the coarse loop calls most (K6 apply,
-    K7 segment sum) and a report of every entry."""
+    coarse="mg" main-path solver): K6 apply bitwise equal to its plain form
+    in every mask / b form. Returns {kernel: (max_abs_err, ms, plain_ms)} of
+    the float32 entry the coarse loop calls most (K6 apply, K7 segment sum;
+    ms and library_ms per call: medians of TIMING_ROUNDS rounds taken in
+    turns with the library call) and a report of every entry."""
     import torch
 
     from homogenization_jl_tpu_torch.ops import interfaces as k_if
@@ -789,7 +824,7 @@ def check_coarse_kernels(solver, coeff64, dev):
     E = coeff64.shape[0]
     aux = solver.aux_solver
     m = solver._interior_mask_N
-    report, timing = [], {}
+    report, timing, turns = [], {}, {}
 
     def rel(got, ref, scale=None):
         scale = ref.abs().max() if scale is None else scale
@@ -810,21 +845,27 @@ def check_coarse_kernels(solver, coeff64, dev):
         W = k_st.lattice_weights(coeff, stack0, st)
         e_w = rel(W, W_ref)
         check(e_w <= tol, f"K6 weights {name}: rel err {e_w}")
-        scale = k_st.lattice_apply_plain(u.abs(), W_ref.abs(), st).max()
-        ref = k_st.lattice_apply_plain(u, W_ref, st, m=m, b=b)
-        got = k_st.lattice_apply(u, W_ref, st, m=m, b=b)
-        e_a = rel(got, ref, scale)
-        check(e_a <= tol, f"K6 apply {name}: rel err {e_a}")
+        # apply: the plain form's products and adds in its order, every
+        # mask / b form bit for bit
+        for mm, bb in ((None, None), (m, None), (None, b), (m, b)):
+            ref = k_st.lattice_apply_plain(u, W_ref, st, m=mm, b=bb)
+            got = k_st.lattice_apply(u, W_ref, st, m=mm, b=bb)
+            check(torch.equal(_bits(got), _bits(ref)),
+                  f"K6 apply {name} m={mm is not None} b={bb is not None}: differs from plain")
         if f32:
             K = W_ref.shape[0]
             A_csr = stencil_csr(W_ref, st)
+            # per call, in turns with the library call (K6, CSR, CSR, K6)
+            med, samples = turns_ms({
+                "k6": lambda: k_st.lattice_apply(u, W_ref, st, m=m, b=b),
+                "csr_mv": lambda: torch.mv(A_csr, u)}, 50)
             timing["lattice_stencil"] = entry(
-                (got - ref).abs().max(),
-                cuda_ms(lambda: k_st.lattice_apply(u, W_ref, st, m=m, b=b), 50),
+                (got - ref).abs().max(), med["k6"],
                 cuda_ms(lambda: k_st.lattice_apply_plain(u, W_ref, st, m=m, b=b), 20),
                 nbytes=4 * (K * N + 3 * N) + N, flops=2 * K * N + 2 * N,
-                library_ms=cuda_ms(lambda: torch.mv(A_csr, u), 50),
+                library_ms=med["csr_mv"],
             )
+            turns["lattice_apply_vs_csr_mv"] = dict(median_ms=med, samples_ms=samples)
             del A_csr
             t_w = (cuda_ms(lambda: k_st.lattice_weights(coeff, stack0, st), 20),
                    cuda_ms(lambda: k_st.lattice_weights_plain(coeff, stack0, st), 5))
@@ -859,14 +900,17 @@ def check_coarse_kernels(solver, coeff64, dev):
             if f32 and label == "base":
                 S = vals.numel()
                 keys = torch.as_tensor(solver.plan.base.elements.reshape(-1), device=dev)
+                med, samples = turns_ms({
+                    "k7": lambda: k_if.segment_sum(vals, tab),
+                    "index_add": lambda: torch.zeros(tab.n_seg, dtype=dtype, device=dev).index_add_(
+                        0, keys, vals.reshape(-1))}, 50)
                 timing["coarse_gather"] = entry(
-                    (got - ref).abs().max(),
-                    cuda_ms(lambda: k_if.segment_sum(vals, tab), 50),
+                    (got - ref).abs().max(), med["k7"],
                     cuda_ms(lambda: k_if.segment_sum_plain(vals, tab), 20),
                     nbytes=4 * (2 * S + 2 * tab.n_seg + 1), flops=S,
-                    library_ms=cuda_ms(lambda: torch.zeros(
-                        tab.n_seg, dtype=dtype, device=dev).index_add_(0, keys, vals.reshape(-1)), 50),
+                    library_ms=med["index_add"],
                 )
+                turns["segment_sum_vs_index_add"] = dict(median_ms=med, samples_ms=samples)
         r_aux = torch.randn(aux.levels[-1].stack.shape[1] * aux.plan.base.nelements,
                             generator=g, device=dev, dtype=dtype)
         for label, src, idx, mask in (
@@ -883,7 +927,7 @@ def check_coarse_kernels(solver, coeff64, dev):
                    cuda_ms(lambda: k_if.gather_scale_plain(u, solver._node_map,
                                                            solver._aux_first_mask), 20))
         report.append(dict(
-            dtype=name, weights_rel=e_w, apply_rel=e_a, assemble_rel=e_s,
+            dtype=name, weights_rel=e_w, apply_bitwise=True, assemble_rel=e_s,
             assemble_bitwise=asm_bitwise, segment_sum=seg,
         ))
         del W, W_ref, u, b, y, ref, got
@@ -891,8 +935,9 @@ def check_coarse_kernels(solver, coeff64, dev):
         "lattice_weights": t_w, "lattice_apply": timing["lattice_stencil"]["ms"],
         "lattice_assemble": t_s, "lattice_distribute": t_d,
         "segment_sum_base": timing["coarse_gather"]["ms"], "gather_node_map": t_g,
-    }, shapes=dict(lattice_nodes=N, elements=E, aux_node_map=list(solver._node_map.shape),
-                   aux_segments=aux._asm.n_seg, aux_values=aux._asm.perm.numel())))
+    }, per_call_in_turns=turns,
+        shapes=dict(lattice_nodes=N, elements=E, aux_node_map=list(solver._node_map.shape),
+                    aux_segments=aux._asm.n_seg, aux_values=aux._asm.perm.numel())))
     return timing, report
 
 
@@ -977,6 +1022,10 @@ def check_driver_kernels(hz, solver, plan, dev):
             check(torch.equal(_bits(got), _bits(again)), f"K9 {label} {dtype}: two launches differ")
             err = abs(float(got) - float(ref)) / scale
             check(err <= tol, f"K9 {label} {dtype}: rel err {err} > {tol}")
+            if mode == k_int.AREA:
+                # no row partials: the sum alone, K5's order on the plain
+                # form's terms, bit for bit
+                check(torch.equal(_bits(got), _bits(ref)), f"K9 area {dtype}: differs from plain")
             errs[label] = err
             times[label] = cuda_ms(lambda: k_int.sigma_integral(mode, *args, detJ, mask, table=tab),
                                    10)
@@ -1058,9 +1107,11 @@ def check_cg_kernels(solver, plan, dev):
     main path (E = 196,608, n = 4..969), float32 and float64: K4
     (prolong_add bitwise equal to the dense product, restrict within 1e-6 /
     1e-14 of it), K5 (every mask/scale form bitwise equal on two launches
-    and equal to its plain form, which sums in the kernel's order) and K10
-    (bitwise equal to its plain form). Returns ({kernel: entry} at the
-    finest float32 shape, a per-level report)."""
+    and equal to its plain form, which sums in the kernel's order, on a
+    misaligned view as on an aligned copy; at the finest shape, float32 and
+    float64, every form timed and the plain dot in turns with torch.dot)
+    and K10 (bitwise equal to its plain form). Returns ({kernel: entry} at
+    the finest float32 shape, a per-level report)."""
     import torch
 
     from homogenization_jl_tpu_torch.ops import cg as k_cg
@@ -1130,18 +1181,47 @@ def check_cg_kernels(solver, plan, dev):
                 mag = float(torch.dot(a.abs().reshape(-1).double(), bb.abs().reshape(-1).double()))
                 worst = max(worst, abs(float(got) - ref64) / mag)
             report["masked_dot"].append((name, n, worst))
-            if fin:
-                timing["masked_dot"] = entry(
-                    0.0, cuda_ms(lambda: k_dots.dot(a, bb), 20),
-                    cuda_ms(lambda: k_dots.dot_plain(a, bb), 2),
-                    nbytes=isz * 2 * E * n, flops=2 * E * n,
-                    library_ms=cuda_ms(lambda: torch.dot(a.view(-1), bb.view(-1)), 20),
-                )
-                extra["masked_dot_one_operand_masked"] = entry(
-                    0.0, cuda_ms(lambda: k_dots.dot(a, a, mask=w), 20),
-                    cuda_ms(lambda: k_dots.dot_plain(a, a, mask=w), 2),
-                    nbytes=isz * E * n + E * n, flops=2 * E * n,
-                )
+            # a view that starts one entry past a 16-byte vector (a row-block
+            # view): the kernel's entry-by-entry loads, the aligned bits
+            av = a.view(-1)[1:]
+            check(av.data_ptr() % 16 != 0, "K5: the view is aligned")
+            wv = w.view(-1)[1:]
+            got = k_dots.dot(av, bb.view(-1)[1:], mask=wv)
+            check(torch.equal(_bits(got.view(1)),
+                              _bits(k_dots.dot(av.clone(), bb.view(-1)[1:].clone(),
+                                               mask=wv.clone()).view(1))),
+                  f"K5 level {k} {name}: a misaligned view differs from its aligned copy")
+            check(float(got) == float(k_dots.dot_plain(av, bb.view(-1)[1:], mask=wv)),
+                  f"K5 level {k} {name}: the misaligned view differs from the plain form")
+            del av, wv
+            if k == top:
+                # every form at the finest shape, the plain dot in turns with
+                # torch.dot (K5, dot, dot, K5); the bytes each form must move
+                med, samples = turns_ms({
+                    "k5": lambda: k_dots.dot(a, bb),
+                    "torch_dot": lambda: torch.dot(a.view(-1), bb.view(-1))}, 20)
+                forms = {
+                    "mask": (lambda: k_dots.dot(a, bb, mask=w), isz * 2 * E * n + E * n),
+                    "scale": (lambda: k_dots.dot(a, bb, scale=d), isz * 3 * E * n),
+                    "mask_scale": (lambda: k_dots.dot(a, bb, mask=w, scale=d),
+                                   isz * 3 * E * n + E * n),
+                    "one_operand_masked": (lambda: k_dots.dot(a, a, mask=w), isz * E * n + E * n),
+                }
+                k5 = entry(0.0, med["k5"], cuda_ms(lambda: k_dots.dot_plain(a, bb), 2),
+                           nbytes=isz * 2 * E * n, flops=2 * E * n, library_ms=med["torch_dot"])
+                k5.update(turns_samples_ms=samples, bytes_bound_share=k5["bound_ms"] / k5["ms"],
+                          not_above_torch_dot=med["k5"] <= med["torch_dot"])
+                for label, (fn, nbytes) in forms.items():
+                    ms = float(np.median([cuda_ms(fn, 20) for _ in range(TIMING_ROUNDS)]))
+                    extra[f"masked_dot_{label}_{name}"] = dict(
+                        ms=ms, **bound(nbytes, 2 * E * n),
+                        bytes_bound_share=bound(nbytes, 0)["bound_ms"] / ms)
+                if fin:
+                    timing["masked_dot"] = {kk: v for kk, v in k5.items()
+                                            if kk not in ("turns_samples_ms",
+                                                          "bytes_bound_share",
+                                                          "not_above_torch_dot")}
+                extra[f"masked_dot_{name}"] = k5
             del got, again, ref, d
             # K10: both updates, den != 0 and den == 0
             num = torch.tensor(0.7, dtype=dtype, device=dev)
@@ -1951,14 +2031,23 @@ def profile_step(step, lead_s=PROFILE_LEAD_S):
         torch.ones(1).to("cuda")
         torch.cuda.synchronize()
         time.sleep(lead_s)
+        calls = k5_calls()
         t0 = time.perf_counter()
         start.record()
         step()
         end.record()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        calls = k5_calls() - calls
         time.sleep(PROFILE_MARGIN_S)
-    return profile_table(prof, wall, start, end), prof
+    return profile_table(prof, wall, start, end, calls), prof
+
+
+def k5_calls():
+    """K5's wrapper calls so far (its launch counts: the dots and K16's)."""
+    from homogenization_jl_tpu_torch.csrc.build import LAUNCHES
+
+    return LAUNCHES["masked_dot"] + LAUNCHES["direction_dot"]
 
 
 def device_timeline(prof):
@@ -2004,13 +2093,15 @@ def device_timeline(prof):
     return dict(busy_ms=busy / 1e3, host_wait_ms=wait / 1e3, lost_launches=lost)
 
 
-def profile_table(prof, wall_s, start, end):
+def profile_table(prof, wall_s, start, end, k5_wrapper_calls):
     """The table of a finished profile: {"rows": [(kernel, device ms,
     launches)] by device time, "wall_ms", "event_ms" (between the CUDA
     events ``start`` and ``end``), "busy_ms", "host_wait_ms" and
     "lost_launches" (``device_timeline``), "coverage": busy_ms, with
-    host_wait_ms when no launch lost its record, over event_ms, and
-    "host_reads": the device scalars read on the host}. The coverage falls
+    host_wait_ms when no launch lost its record, over event_ms,
+    "host_reads": the device scalars read on the host, and "k5": K5's
+    kernels in the trace per wrapper call in the window
+    (``k5_wrapper_calls``; one launch per call)}. The coverage falls
     short of 1 by the gaps between back-to-back kernels; far below it, the
     profile lost kernels (a prefix of the step, PERF.md), and its table
     proves nothing about them. The device's waits on the host count as
@@ -2033,8 +2124,18 @@ def profile_table(prof, wall_s, start, end):
     line = device_timeline(prof)
     # waits on the host count only in a trace that lost no launch's record
     covered = line["busy_ms"] + (line["host_wait_ms"] if line["lost_launches"] == 0 else 0.0)
+    k5_kernels = sum(cnt for name, _, cnt in rows if "masked_dot_kernel" in name)
     return dict(rows=rows, wall_ms=wall_s * 1e3, event_ms=event_ms, **line,
-                coverage=covered / event_ms, host_reads=reads)
+                coverage=covered / event_ms, host_reads=reads,
+                k5=dict(kernels=k5_kernels, calls=k5_wrapper_calls,
+                        kernels_per_call=k5_kernels / max(k5_wrapper_calls, 1)))
+
+
+def check_k5_per_call(p, label):
+    """A covered profile with no lost launch holds one K5 kernel per call."""
+    if p["lost_launches"] == 0:
+        check(p["k5"]["kernels"] == p["k5"]["calls"],
+              f"{label}: {p['k5']['kernels']} K5 kernels for {p['k5']['calls']} calls")
 
 
 def covered_profile(step, label):
@@ -2197,9 +2298,10 @@ def profiles_report(pcg_profile, driver_profiles, driver_coverage, smi):
         worst = max((us for _, us, _ in lib), default=0.0)
         check(worst <= LIBRARY_ELEMENTWISE_MAX_US,
               f"15c {label}: a PyTorch elementwise kernel takes {worst} us per launch: {lib}")
+        check_k5_per_call(p, f"15c {label}")
         out[label] = dict(wall_ms=p["wall_ms"], event_ms=p["event_ms"], device_busy_ms=busy,
                           coverage=p["coverage"], idle_share=1.0 - busy / p["wall_ms"],
-                          host_wait_share=p["host_wait_ms"] / p["event_ms"],
+                          host_wait_share=p["host_wait_ms"] / p["event_ms"], k5=p["k5"],
                           lost_launches=p["lost_launches"],
                           top15=[(name[:90], ms, count) for name, ms, count in rows[:15]],
                           library_elementwise=lib)
@@ -2614,6 +2716,7 @@ def mixed_solve(kbuild, outer, inner, sigma, b_np, dev, smi):
     check(worst <= LIBRARY_ELEMENTWISE_MAX_US,
           f"18: a PyTorch elementwise kernel takes {worst} us per launch: {lib}")
     busy = sum(rw[1] for rw in rows)
+    check_k5_per_call(prof_d, "18")
     say(18, ok=True, dofs=int(np.prod(b_np.shape)), history=hist, rel_history=rel,
         iterations=iters, crossings=cross, sec_per_iter=sec_iter, solve_wall_s=wall,
         setup_s=t_setup, warmup_history=h2, max_memory_allocated=peak,
@@ -2621,6 +2724,8 @@ def mixed_solve(kbuild, outer, inner, sigma, b_np, dev, smi):
         profile=dict(wall_ms=prof_d["wall_ms"], event_ms=prof_d["event_ms"],
                      coverage=prof_d["coverage"], attempts=prof_d["attempts"],
                      device_busy_ms=busy, idle_share=1.0 - busy / prof_d["wall_ms"],
+                     host_wait_share=prof_d["host_wait_ms"] / prof_d["event_ms"],
+                     lost_launches=prof_d["lost_launches"], k5=prof_d["k5"],
                      top15=[(name[:90], ms, cnt) for name, ms, cnt in rows[:15]],
                      library_elementwise=lib, max_library_elementwise_us=worst),
         card=smi)
@@ -2670,6 +2775,7 @@ def check_multishift_kernels(dev):
 
     from homogenization_jl_tpu_torch.fem.local_operators import build_level_operators
     from homogenization_jl_tpu_torch.mesh.reference import refined_reference
+    from homogenization_jl_tpu_torch.ops import dots as k_dots
     from homogenization_jl_tpu_torch.ops import integrals as k_int
     from homogenization_jl_tpu_torch.ops import multishift as k_ms
     from homogenization_jl_tpu_torch.ops import recurrence as k_rec
@@ -2734,6 +2840,11 @@ def check_multishift_kernels(dev):
         for a, b, c in zip(outs[0], outs[1], ref):
             check(torch.equal(_bits(a), _bits(b)), f"K14a {dtype}: two launches differ")
             check(torch.equal(_bits(a), _bits(c)), f"K14a {dtype}: differs from plain")
+        # its two dots are K5's on the updated r and z, bit for bit
+        _, r1, z1, rz1, rs1 = outs[0]
+        check(torch.equal(_bits(rz1), _bits(k_dots.dot(r1, z1, mask=w)))
+              and torch.equal(_bits(rs1), _bits(k_dots.dot(r1, r1, mask=w))),
+              f"K14a {dtype}: its dots differ from K5's")
         if f64:
             xk, rk = outs[0][0], outs[0][1]
             timing["jacobi_cg"] = entry(
@@ -3006,7 +3117,8 @@ def lanczos_step_profile(dev, field, rec_a, smi):
             time.sleep(PROFILE_MARGIN_S)
             prof = win.pop("prof")
             prof.stop()
-            attempts.append(profile_table(prof, wall, win["start"], win["end"]))
+            attempts.append(profile_table(prof, wall, win["start"], win["end"],
+                                          k5_calls() - win["k5_calls"]))
             del prof
         covered = any(a["coverage"] >= PROFILE_MIN_COVERAGE for a in attempts)
         if win.get("updates", 0) >= 1 and not covered and len(attempts) < PROFILE_ATTEMPTS:
@@ -3017,7 +3129,8 @@ def lanczos_step_profile(dev, field, rec_a, smi):
             torch.cuda.synchronize()
             time.sleep(PROFILE_LEAD_S * 2 ** len(attempts))
             win.update(prof=prof, start=torch.cuda.Event(enable_timing=True),
-                       end=torch.cuda.Event(enable_timing=True), t0=time.perf_counter())
+                       end=torch.cuda.Event(enable_timing=True), t0=time.perf_counter(),
+                       k5_calls=k5_calls())
             win["start"].record()
         win["updates"] = win.get("updates", 0) + 1
         return out
@@ -3040,6 +3153,7 @@ def lanczos_step_profile(dev, field, rec_a, smi):
     check(worst <= LIBRARY_ELEMENTWISE_MAX_US,
           f"20e: a PyTorch elementwise kernel takes {worst} us per launch: {lib}")
     busy = sum(r[1] for r in p["rows"])
+    check_k5_per_call(p, "20e")
     funcs = {}
     for name, ms, count in p["rows"]:
         f = funcs.setdefault(kernel_function(name), [0.0, 0])
@@ -3051,7 +3165,7 @@ def lanczos_step_profile(dev, field, rec_a, smi):
     say("20e", ok=True, vectors=CONFIG4_PROFILE_VECTORS, step_wall_ms=p["wall_ms"],
         step_event_ms=p["event_ms"], device_busy_ms=busy, coverage=p["coverage"],
         idle_share=1.0 - busy / p["wall_ms"], host_wait_share=p["host_wait_ms"] / p["event_ms"],
-        lost_launches=p["lost_launches"], host_reads=p["host_reads"],
+        lost_launches=p["lost_launches"], host_reads=p["host_reads"], k5=p["k5"],
         attempts=[a["coverage"] for a in attempts],
         mass_cg_iterations_per_step=(st["M_applies"] - steps - 1) / (steps + 1),
         a_lanczos_ms_per_step=rec_a["lanczos_s"] * 1e3 / rec_a["lanczos_iters"],
@@ -3103,6 +3217,126 @@ def st1_rescue(kbuild, dev, smi):
     return launches
 
 
+# --------------------------------------------------------------------- #
+# phase 3c: the launch-bound kernels' device times (a child process)
+# --------------------------------------------------------------------- #
+def annotated_device_us(prof):
+    """{record_function label: [device us, kernels]} of a finished profile:
+    each kernel, copy or memset counts for the label whose host range holds
+    its launch call (matched by the trace's correlation ids)."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    ranges, launches, device = [], {}, []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat = e.get("cat")
+        corr = e.get("args", {}).get("correlation")
+        if cat == "user_annotation":
+            ranges.append((e["ts"], e["ts"] + e["dur"], e["name"]))
+        elif cat in ("cuda_runtime", "cuda_driver") and corr is not None:
+            launches[corr] = e["ts"]
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device.append((corr, e["dur"]))
+    out = {}
+    for corr, dur in device:
+        t = launches.get(corr)
+        for t0, t1, name in ranges:
+            if t is not None and t0 <= t <= t1:
+                acc = out.setdefault(name, [0.0, 0])
+                acc[0] += dur
+                acc[1] += 1
+                break
+    return out
+
+
+def launch_bound_device_times(base, dev, reps=50):
+    """The device times of K6's apply and K7's segment sum at the main
+    path's shapes (the lattice of ``base``, float32) beside their library
+    calls (cuSPARSE's CSR mv: the sum of its kernels; index_add_ with its
+    zero fill), from one torch.profiler session: after unlabelled warm-up
+    calls, TIMING_ROUNDS rounds each timing ``reps`` calls of each in turns
+    (K6, CSR, CSR, K6, K7, index_add_, index_add_, K7). Returns ({name:
+    median over the rounds of the device ms per call}, {name: samples},
+    {name: kernels per call}). Runs in a process of its own
+    (``device_times_subprocess``): sessions after a process's first lost
+    kernel records on the H100, and a session before phase 15b's cost that
+    one its coverage (PERF.md)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from homogenization_jl_tpu_torch.ops import interfaces as k_if
+    from homogenization_jl_tpu_torch.ops import stencil as k_st
+
+    g = torch.Generator(device=dev).manual_seed(2222)
+    st = k_st.build_lattice_stencil(base)
+    N, K = (st.n + 1) ** st.dim, len(st.deltas)
+    W = torch.randn((K, N), generator=g, device=dev)
+    u, b = (torch.randn(N, generator=g, device=dev) for _ in range(2))
+    m = torch.rand(N, generator=g, device=dev) < 0.9
+    A_csr = stencil_csr(W, st)
+    tab = k_if.build_segment_tables(base.elements, base.nnodes, dev)
+    vals = torch.randn((base.nelements, base.dim + 1), generator=g, device=dev)
+    keys = torch.as_tensor(base.elements.reshape(-1), device=dev)
+    fns = {
+        "k6": lambda: k_st.lattice_apply(u, W, st, m=m, b=b),
+        "csr_mv": lambda: torch.mv(A_csr, u),
+        "k7": lambda: k_if.segment_sum(vals, tab),
+        "index_add": lambda: torch.zeros(tab.n_seg, device=dev).index_add_(0, keys, vals.view(-1)),
+    }
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.ones(1).to(dev)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+        for fn in fns.values():  # unlabelled: a lost prefix of records falls here
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+        for r in range(TIMING_ROUNDS):
+            for x, y in (("k6", "csr_mv"), ("k7", "index_add")):
+                for k in (x, y, y, x):
+                    with record_function(f"hz_{k}_{r}"):
+                        for _ in range(reps):
+                            fns[k]()
+                    torch.cuda.synchronize()
+    got = annotated_device_us(prof)
+    samples = {k: [] for k in fns}
+    kernels = {k: [] for k in fns}
+    for r in range(TIMING_ROUNDS):
+        for k in fns:
+            us, cnt = got.get(f"hz_{k}_{r}", (0.0, 0))
+            check(cnt > 0, f"3c: no device record of {k}")
+            per_call = max(round(cnt / (2 * reps)), 1)  # kernels per call
+            samples[k].append(us / (cnt / per_call) / 1e3)
+            kernels[k].append(cnt / (2 * reps))
+    # one kernel per call (a lost record lowers the count, never raises it)
+    check(all(0.5 < c <= 1.0 for c in kernels["k6"] + kernels["k7"]),
+          f"3c: K6 / K7 kernels per call {kernels['k6']} {kernels['k7']}")
+    return {k: float(np.median(v)) for k, v in samples.items()}, samples, kernels
+
+
+def device_times_subprocess(n, smi):
+    """Phase 3c: ``launch_bound_device_times`` in a child process (its
+    profiler session the process's first; the kernels' build is already on
+    disk), read from the child's last line. Returns {kernel: {"device_ms",
+    "library_device_ms"}} for K6 (lattice_stencil) and K7 (coarse_gather)."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--device-times",
+                          "--n", str(n)], capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, f"3c: the device-time process failed (rc {res.returncode}): "
+          f"{res.stderr[-3000:]}")
+    med, samples, kernels = json.loads(res.stdout.strip().splitlines()[-1])
+    say("3c", ok=True, device_ms_median=med, device_ms_samples=samples,
+        kernels_per_call=kernels, rounds=TIMING_ROUNDS, calls_per_turn=50, card=smi)
+    return {"lattice_stencil": dict(device_ms=med["k6"], library_device_ms=med["csr_mv"]),
+            "coarse_gather": dict(device_ms=med["k7"], library_device_ms=med["index_add"])}
+
+
 def slice_phases(kbuild, dev, smi):
     """Phases 19-21. Returns ({kernel: entry}, {kernel: launches on its
     path}) of K13, K14 and K17."""
@@ -3132,6 +3366,9 @@ def main(argv=None):
     ap.add_argument("--profile", metavar="DIR",
                     help="trace one PCG iteration with torch.profiler; "
                     "write the kernel table into DIR")
+    ap.add_argument("--device-times", action="store_true",
+                    help="phase 3c's child: print K6's and K7's device times (one JSON "
+                    "line) and exit")
     args = ap.parse_args(argv)
     t_all = time.perf_counter()
 
@@ -3145,6 +3382,13 @@ def main(argv=None):
     from homogenization_jl_tpu_torch.csrc import build as kbuild
     from homogenization_jl_tpu_torch.ops.chebyshev import chebyshev_update
 
+    if args.device_times:
+        from homogenization_jl_tpu_torch.csrc import build as kbuild
+
+        kbuild.kernels_lib()
+        print(json.dumps(launch_bound_device_times(hz.hypercube(3, args.n, order="type"),
+                                                   torch.device("cuda", 0))), flush=True)
+        return
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -3166,6 +3410,13 @@ def main(argv=None):
     torch.cuda.synchronize()
     ptxas = [ln.strip() for ln in kbuild.BUILD_LOG.splitlines()
              if "registers" in ln or "spill" in ln]
+    # the wrappers' raw stream is PyTorch's current stream (a side stream too)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        check(kbuild.current_stream() == torch.cuda.current_stream().cuda_stream != 0,
+              "the kernels' stream is not PyTorch's current stream")
+    check(kbuild.current_stream() == torch.cuda.current_stream().cuda_stream,
+          "the kernels' stream is not PyTorch's current stream")
     say(2, nvcc_s=t_nvcc, triton_warmup_s=time.perf_counter() - t0 - t_nvcc,
         ptxas=ptxas)
 
@@ -3189,6 +3440,8 @@ def main(argv=None):
     timing, report = check_kernels(solver, plan, coeff64, dev)
     timing_c, report_c = check_coarse_kernels(solver, coeff64, dev)
     timing.update(timing_c)
+    for name, times in device_times_subprocess(args.n, smi).items():
+        timing[name].update(times)
     torch.cuda.empty_cache()
     forms = check_new_forms(solver, plan, coeff64, dev)
     del coeff64
@@ -3417,6 +3670,7 @@ def main(argv=None):
     # ---- phases 19-21: the multishift recurrence and st1 -------------------
     timing_slice, launches_slice = slice_phases(kbuild, dev, smi)
     timing.update(timing_slice)
+
 
     path_launches = {name: launches_f[name] for name in KERNELS}
     path_launches["gather_combine"] = launches_2d["ordered"]["gather_combine"]

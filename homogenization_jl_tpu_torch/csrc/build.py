@@ -92,13 +92,14 @@ _SIGNATURES = {
     # dtype, x, out, mask (or NULL), E, n_local, i0, ncls, classes (host), stream
     "hz_gather_combine": [_I, _P, _P, _P, _L, _I, _I, _I, _P, _P],
     # dtype, mode, x, mass table cols, vals, counts, R, w, detJ, mask, partA,
-    # partB, blocksum, out, E, n, scale, stream
+    # partB, fixed-sum scratch, out, E, n, scale, stream
     "hz_integrals": [_I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _D, _P],
     # dtype, x_fine (or NULL), x_coarse, out, cols, wts, E, n_f, n_c, G, stream
     "hz_prolong_add": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # dtype, r, out, colptr, rows, wts, E, n_f, n_c, G, stream
     "hz_restrict": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # dtype, a, b, mask (or NULL), scale (or NULL), blocksum, out, N, stream
+    # dtype, a, b, mask (or NULL), scale (or NULL), fixed-sum scratch, out, N,
+    # stream
     "hz_masked_dot": [_I, _P, _P, _P, _P, _P, _P, _L, _P],
     # dtype, atype (the stored type of a), then as hz_masked_dot
     "hz_masked_dot_half": [_I, _I, _P, _P, _P, _P, _P, _P, _L, _P],
@@ -132,8 +133,8 @@ _SIGNATURES = {
     # dtype, v, W, xs, shifts, t_curr, t_prev, D_prev, y_prev, D_curr,
     # y_curr, coef, n_shifts, N, first, stream
     "hz_multishift_step": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _P],
-    # dtype, x, r, p, Ap, d, w (or NULL), num, den, z, blocksum, rz, rs, N,
-    # stream
+    # dtype, x, r, p, Ap, d, w (or NULL), num, den, z, fixed-sum scratch, rz,
+    # rs, r_out (or NULL), x_zero, N, stream
     "hz_jacobi_cg_step": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _P],
     # dtype, V, Y, ldy, out, m, K, N, stream
     "hz_basis_combine": [_I, _P, _P, _I, _P, _I, _I, _L, _P],
@@ -216,12 +217,17 @@ def kernels_lib() -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, *args) -> None:
-    """Call the C entry ``name`` on the current CUDA stream and raise if the
-    launch was refused (cudaGetLastError() != 0)."""
+def current_stream() -> int:
+    """The current CUDA stream of the current device, as a raw pointer (the
+    one PyTorch launches on; chip_smoke.py phase 2 checks it)."""
     import torch
 
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(kernels_lib(), name)(*args, stream)
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+
+def launch(name: str, *args, stream: int | None = None) -> None:
+    """Call the C entry ``name`` on ``stream`` (default: the current CUDA
+    stream) and raise if the launch was refused (cudaGetLastError() != 0)."""
+    err = getattr(kernels_lib(), name)(*args, current_stream() if stream is None else stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

@@ -27,7 +27,7 @@
 // 196,608) the mass product is 2 * E * 12,121 = 4.8 GFLOP (0.07 ms at 67
 // TFLOP/s FP32) against 1.52 GB of x and v / b0 (0.45 ms at 3.35 TB/s).
 //
-// Design, three launches:
+// Design, two launches:
 //   1. K1's sparse row pass (csrc/stencil_rows.cuh) over the mass matrix's
 //      row table (vals [n, R, 1]): a block stages the x rows of G elements
 //      in shared memory; a lane takes a row m of a chunk of 16 (float32) or
@@ -38,22 +38,26 @@
 //      chunk then add their partials in a fixed butterfly, the warps' sums
 //      are added in warp order, and one partial per element goes to device
 //      memory: E values instead of the 0.76 GB of M x.
-//   2. A fixed grid of RED_BLOCKS blocks: each thread walks its block's rows
-//      in a fixed stride, forms s from the row partials and multiplies by
-//      the mask; the block adds its threads in a fixed tree.
-//   3. One block adds the block sums in a fixed tree.
-// No atomics and no launch-dependent order: two launches give the same bits,
-// which the driver's stopping rule needs (it reads this scalar after every
-// iteration), and the Lanczos recurrence's M-inner products repeat.
+//   2. One launch sums the element terms in the port's fixed order
+//      (fixed_sum.cuh, the order of K5's dots): each term is formed from
+//      the row partials with the round-to-nearest intrinsics and multiplied
+//      by the mask, and the last block to finish adds the block sums and
+//      applies the scale.
+// No atomics on the values and no launch-dependent order: two launches give
+// the same bits, which the driver's stopping rule needs (it reads this
+// scalar after every iteration), and the Lanczos recurrence's M-inner
+// products repeat. From the same row partials, pass 2 gives the bits of the
+// plain form's sum (ops/integrals.py), which is ops/dots.py::
+// fixed_order_sum; the AREA form, which has no row partials, is its plain
+// form bit for bit.
 
 #include <cuda_runtime.h>
 
+#include "fixed_sum.cuh"
 #include "stencil_rows.cuh"
 
 namespace {
 
-constexpr int RED_BLOCKS = 264;  // pass-2 grid: fixed, so the order is too
-constexpr int RED_THREADS = 256;
 constexpr int NT = hz::ROW_THREADS;
 
 // chunks per warp (csrc/stencil_rows.cuh), and elements per chunk: 16 in
@@ -168,64 +172,47 @@ integrals_rows_kernel(const T* __restrict__ x, const int* __restrict__ cols,
   }
 }
 
-// fixed-order tree over the block's RED_THREADS values in sh[]; the sum
-// ends in sh[0]
+// pass 2: total = scale * sum_e [mask_e] s_e in the fixed order
 template <typename T>
-__device__ __forceinline__ void block_tree(T* sh) {
-  for (int s = RED_THREADS / 2; s > 0; s >>= 1) {
-    __syncthreads();
-    if (threadIdx.x < s) sh[threadIdx.x] += sh[threadIdx.x + s];
-  }
-  __syncthreads();
+__device__ __forceinline__ T element_term(const T* __restrict__ partA, const T* __restrict__ partB,
+                                          const T* __restrict__ detJ, const T* __restrict__ mask,
+                                          int mode, long long e) {
+  const T a = mode != 3 ? partA[e] : T(0);
+  const T b = (mode == 1 || mode == 2) ? partB[e] : T(0);
+  T v;
+  if (mode == 0 || mode == 4)
+    v = hz::mul_rn(detJ[e], a);
+  else if (mode == 1)
+    v = hz::mul_rn(detJ[e], hz::add_rn(a, b));
+  else if (mode == 2)
+    v = hz::add_rn(b, hz::mul_rn(detJ[e], a));
+  else
+    v = detJ[e];
+  return mask == nullptr ? v : hz::mul_rn(v, mask[e]);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(RED_THREADS)
-integrals_reduce_kernel(const T* __restrict__ partA, const T* __restrict__ partB,
-                        const T* __restrict__ detJ,
-                        const T* __restrict__ mask, int mode, long long E,
-                        T* __restrict__ blocksum) {
-  __shared__ T sh[RED_THREADS];
-  const long long chunk = (E + RED_BLOCKS - 1) / RED_BLOCKS;
-  const long long lo = blockIdx.x * chunk;
-  const long long hi = lo + chunk < E ? lo + chunk : E;
-  T s = T(0);
-  for (long long e = lo + threadIdx.x; e < hi; e += RED_THREADS) {
-    const T a = mode != 3 ? partA[e] : T(0);
-    const T b = (mode == 1 || mode == 2) ? partB[e] : T(0);
-    T v;
-    if (mode == 0 || mode == 4)
-      v = detJ[e] * a;
-    else if (mode == 1)
-      v = detJ[e] * (a + b);
-    else if (mode == 2)
-      v = b + detJ[e] * a;
-    else
-      v = detJ[e];
-    s += mask == nullptr ? v : v * mask[e];
+__global__ void __launch_bounds__(hz::SUM_THREADS)
+integrals_sum_kernel(const T* __restrict__ partA, const T* __restrict__ partB,
+                     const T* __restrict__ detJ, const T* __restrict__ mask, int mode,
+                     long long E, double scale, unsigned char* scratch, T* __restrict__ out) {
+  constexpr int V = hz::sum_vec<T>();
+  T acc[1] = {T(0)};
+  for (long long i = hz::sum_first<T>(); i < E; i += hz::sum_stride<T>()) {
+#pragma unroll
+    for (int l = 0; l < V; ++l)
+      if (i + l < E)
+        acc[0] = hz::add_rn(acc[0], element_term(partA, partB, detJ, mask, mode, i + l));
   }
-  sh[threadIdx.x] = s;
-  block_tree(sh);
-  if (threadIdx.x == 0) blocksum[blockIdx.x] = sh[0];
-}
-
-template <typename T>
-__global__ void __launch_bounds__(RED_THREADS)
-integrals_final_kernel(const T* __restrict__ blocksum, double scale,
-                       T* __restrict__ out) {
-  __shared__ T sh[RED_THREADS];
-  T s = T(0);
-  for (int b = threadIdx.x; b < RED_BLOCKS; b += RED_THREADS) s += blocksum[b];
-  sh[threadIdx.x] = s;
-  block_tree(sh);
-  if (threadIdx.x == 0) out[0] = T(scale) * sh[0];
+  hz::sum_finish<T, 1>(acc, scratch,
+                       [&](const T (&r)[1]) { out[0] = hz::mul_rn(T(scale), r[0]); });
 }
 
 template <typename T>
 int launch_integrals(int mode, const void* x, const void* cols, const void* vals,
                      const void* counts, int R,
                      const void* w, const void* detJ, const void* mask, void* partA,
-                     void* partB, void* blocksum, void* out, long long E, int n, double scale,
+                     void* partB, void* scratch, void* out, long long E, int n, double scale,
                      cudaStream_t stream) {
   T* pa = static_cast<T*>(partA);
   T* pb = static_cast<T*>(partB);
@@ -244,11 +231,9 @@ int launch_integrals(int mode, const void* x, const void* cols, const void* vals
         static_cast<const int*>(counts), R,
         static_cast<const T*>(w), mode, pa, pb, E, n, L.G, L.CS);
   }
-  integrals_reduce_kernel<T><<<RED_BLOCKS, RED_THREADS, 0, stream>>>(
-      pa, pb, static_cast<const T*>(detJ), static_cast<const T*>(mask), mode, E,
-      static_cast<T*>(blocksum));
-  integrals_final_kernel<T><<<1, RED_THREADS, 0, stream>>>(
-      static_cast<const T*>(blocksum), scale, static_cast<T*>(out));
+  integrals_sum_kernel<T><<<hz::SUM_BLOCKS, hz::SUM_THREADS, 0, stream>>>(
+      pa, pb, static_cast<const T*>(detJ), static_cast<const T*>(mask), mode, E, scale,
+      static_cast<unsigned char*>(scratch), static_cast<T*>(out));
   return 0;
 }
 
@@ -259,21 +244,22 @@ int launch_integrals(int mode, const void* x, const void* cols, const void* vals
 // stack_table of the one-piece stack [M]). x, the table, w and
 // partA/partB may be NULL where the mode does not read them (area reads
 // none of them); mask may be NULL (every row counts once). partA/partB
-// hold [E], blocksum [RED_BLOCKS], out one value. Returns
+// hold [E], scratch is the current stream's fixed-sum scratch
+// (fixed_sum.cuh), out one value. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for rows too long for one
 // block's shared memory.
 extern "C" int hz_integrals(int dtype, int mode, const void* x, const void* cols,
                             const void* vals, const void* counts, int R, const void* w,
                             const void* detJ,
-                            const void* mask, void* partA, void* partB, void* blocksum,
+                            const void* mask, void* partA, void* partB, void* scratch,
                             void* out, long long E, int n, double scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err =
       dtype == 0
           ? launch_integrals<float>(mode, x, cols, vals, counts, R, w, detJ, mask, partA, partB,
-                                    blocksum, out, E, n, scale, s)
+                                    scratch, out, E, n, scale, s)
           : launch_integrals<double>(mode, x, cols, vals, counts, R, w, detJ, mask, partA, partB,
-                                     blocksum, out, E, n, scale, s);
+                                     scratch, out, E, n, scale, s);
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,7 +13,8 @@
 //
 // Bound on the H100: at the main path's 33^3 lattice every array is under
 // 5 MB (W is 15 x 35,937), so all four entries live in L2 and a call costs
-// about one launch; the coarse PCG loop around them is launch bound.
+// about one launch; the coarse PCG loop around them is launch bound, and
+// the host's part of a call (ops/stencil.py) is what the loop waits on.
 //
 // Design: gather form, one thread per output, no atomics. Where the JAX
 // form scatter-adds a slab per entry, each output here walks the same
@@ -22,7 +23,21 @@
 // the same additions in the same order). The small static tables (lattice
 // corners of each simplex type's local nodes, the K offsets, the entry
 // list) travel by value as a __grid_constant__ kernel parameter: constant
-// memory, read by every thread of a warp at one address (a broadcast).
+// memory, read by every thread of a warp at one address (a broadcast). The
+// host packs the table once per stencil (ops/stencil.py::kernel_table).
+//
+// apply, the entry the coarse loop calls most: 32-bit node indices (the
+// wrapper holds K * N < 2^31), coordinates from one 32-bit div/mod chain,
+// and a small table of its own (the K offsets, flat and per axis). An
+// interior node walks its K neighbours at their flat offsets with no
+// bounds test; a boundary node tests each neighbour's coordinates. Both
+// issue their 2K loads before the adds when K is the 3D split's 15 or the
+// 2D split's 7: nearly every warp of 32 nodes holds a boundary node of a
+// row of n + 1, so most warps run both walks. Both add
+// W[k, a] * u[a + delta_k] in k order from zero with the round-to-nearest
+// intrinsics (no multiply fused into an add), then the mask and b - y
+// likewise: lattice_apply_plain's operations in its order, so the bits of
+// the plain form.
 //
 // Element order: type-major (e = t * n^d + q) or cube-major (e = q * ept +
 // t); q is the lattice-lexicographic cube index (x slowest).
@@ -46,10 +61,20 @@ struct LatticeTab {
   int corner[6][4][3];  // corner[t][i] in {0,1}^dim (padded to 3 axes)
   int delta[27][3];     // delta_k in {-1,0,1}^dim
   int ent[96][4];       // (t, i, j, k) in the order of the JAX entry list
+  int off[27];          // flat lattice offset of delta_k
 };
-static_assert(sizeof(LatticeTab) == 543 * sizeof(int), "table layout");
+static_assert(sizeof(LatticeTab) == 570 * sizeof(int), "table layout");
+
+// what apply reads: dim, n + 1, K, N, and the K offsets
+struct ApplyTab {
+  int dim, n1, K, N;
+  int off[27];
+  int delta[27][3];
+};
 
 constexpr int kThreads = 256;
+// apply: 128 threads a block, so that the 33^3 lattice spreads over every SM
+constexpr int kApplyThreads = 128;
 
 __device__ __forceinline__ void node_coords(long long a, int dim, int n1,
                                             int c[3]) {
@@ -118,37 +143,85 @@ __global__ void weights_kernel(const T* __restrict__ coeff,
   W[idx] = acc;
 }
 
-// y[a] = m[a] * sum_k W[k, a] u[a + delta_k]; out = y or b - y
-template <typename T>
-__global__ void apply_kernel(const T* __restrict__ u, const T* __restrict__ W,
-                             const unsigned char* __restrict__ m,
-                             const T* __restrict__ b, T* __restrict__ out,
-                             long long N, const __grid_constant__ LatticeTab tb) {
-  const long long a = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (a >= N) return;
-  const int n1 = tb.n + 1;
-  int c[3];
-  node_coords(a, tb.dim, n1, c);
-  long long stride[3] = {0, 0, 0};
-  long long s = 1;
-  for (int ax = tb.dim - 1; ax >= 0; --ax) {
-    stride[ax] = s;
-    s *= n1;
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+
+// a node's sum over its K neighbours, every load issued before the adds,
+// which run in k order from zero. Interior nodes (GUARD false) read every
+// neighbour at its flat offset; boundary nodes test each neighbour's
+// coordinates and skip the ones off the lattice.
+template <typename T, int K, bool GUARD>
+__device__ __forceinline__ T walk(const T* __restrict__ u, const T* __restrict__ W, int a,
+                                  const int (&c)[3], const ApplyTab& tb) {
+  T w[K], x[K];
+  bool ok[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    ok[k] = true;
+    if (GUARD) {
+      for (int ax = 0; ax < tb.dim; ++ax) {
+        const int v = c[ax] + tb.delta[k][ax];
+        ok[k] = ok[k] && v >= 0 && v < tb.n1;
+      }
+    }
+    w[k] = ok[k] ? W[k * tb.N + a] : T(0);
+    x[k] = ok[k] ? u[a + tb.off[k]] : T(0);
   }
+  T acc = T(0);
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (ok[k]) acc = add_rn(acc, mul_rn(w[k], x[k]));
+  return acc;
+}
+
+// the same for any K, one neighbour at a time
+template <typename T>
+__device__ __forceinline__ T walk_any(const T* __restrict__ u, const T* __restrict__ W, int a,
+                                      const int (&c)[3], bool interior, const ApplyTab& tb) {
   T acc = T(0);
   for (int k = 0; k < tb.K; ++k) {
     bool ok = true;
-    long long off = 0;
-    for (int ax = 0; ax < tb.dim; ++ax) {
-      const int dl = tb.delta[k][ax];
-      const int v = c[ax] + dl;
-      ok = ok && v >= 0 && v < n1;
-      off += dl * stride[ax];
+    for (int ax = 0; !interior && ax < tb.dim; ++ax) {
+      const int v = c[ax] + tb.delta[k][ax];
+      ok = ok && v >= 0 && v < tb.n1;
     }
-    if (ok) acc += W[(long long)k * N + a] * u[a + off];
+    if (ok) acc = add_rn(acc, mul_rn(W[k * tb.N + a], u[a + tb.off[k]]));
   }
-  if (m != nullptr) acc = acc * T(m[a]);
-  out[a] = (b != nullptr) ? b[a] - acc : acc;
+  return acc;
+}
+
+// y[a] = m[a] * sum_k W[k, a] u[a + delta_k]; out = y or b - y
+template <typename T>
+__global__ void __launch_bounds__(kApplyThreads)
+apply_kernel(const T* __restrict__ u, const T* __restrict__ W,
+             const unsigned char* __restrict__ m, const T* __restrict__ b,
+             T* __restrict__ out, const __grid_constant__ ApplyTab tb) {
+  const int a = blockIdx.x * kApplyThreads + threadIdx.x;
+  if (a >= tb.N) return;
+  const int n1 = tb.n1;
+  int c[3] = {0, 0, 0};
+  int r = a;
+  for (int ax = tb.dim - 1; ax > 0; --ax) {
+    const int q = r / n1;
+    c[ax] = r - q * n1;
+    r = q;
+  }
+  c[0] = r;
+  bool interior = true;
+  for (int ax = 0; ax < tb.dim; ++ax) interior = interior && c[ax] > 0 && c[ax] < n1 - 1;
+  T acc;
+  if (tb.K == 15)  // the 3D split's 15-point stencil
+    acc = interior ? walk<T, 15, false>(u, W, a, c, tb) : walk<T, 15, true>(u, W, a, c, tb);
+  else if (tb.K == 7)  // the 2D split's 7-point stencil
+    acc = interior ? walk<T, 7, false>(u, W, a, c, tb) : walk<T, 7, true>(u, W, a, c, tb);
+  else
+    acc = walk_any(u, W, a, c, interior, tb);
+  if (m != nullptr) acc = mul_rn(acc, T(m[a]));
+  out[a] = (b != nullptr) ? sub_rn(b[a], acc) : acc;
 }
 
 // out[a] = sum over (t, i), in that order, of y[e(t, a - corner[t][i]), i]
@@ -228,8 +301,8 @@ unsigned blocks(long long total) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float64. tab: the host int32 table built by
-// ops/stencil.py::kernel_table. x0, planes: the plane window (0 and n for
+// dtype: 0 = float32, 1 = float64. tab: the host int32 table packed once
+// per stencil by ops/stencil.py::kernel_table. x0, planes: the plane window (0 and n for
 // the whole box). Each returns cudaGetLastError().
 extern "C" int hz_lattice_weights(int dtype, const void* coeff,
                                   const void* stack0, void* W, int P, int x0,
@@ -252,22 +325,32 @@ extern "C" int hz_lattice_weights(int dtype, const void* coeff,
   return static_cast<int>(cudaGetLastError());
 }
 
+// apply: cudaErrorInvalidValue when K * N does not fit 32 bits (the
+// wrapper refuses such a lattice first).
 extern "C" int hz_lattice_apply(int dtype, const void* u, const void* W,
                                 const void* m, const void* b, void* out,
                                 const int* tab, void* stream) {
-  const LatticeTab tb = unpack(tab);
-  const long long N = lattice_nodes(tb);
+  const LatticeTab* full = reinterpret_cast<const LatticeTab*>(tab);
+  const long long N = lattice_nodes(*full);
+  if (N * full->K >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  ApplyTab tb;
+  tb.dim = full->dim;
+  tb.n1 = full->n + 1;
+  tb.K = full->K;
+  tb.N = static_cast<int>(N);
+  std::memcpy(tb.off, full->off, sizeof(tb.off));
+  std::memcpy(tb.delta, full->delta, sizeof(tb.delta));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned char* mm = static_cast<const unsigned char*>(m);
   if (N > 0) {
     if (dtype == 0)
-      apply_kernel<float><<<blocks(N), kThreads, 0, s>>>(
+      apply_kernel<float><<<static_cast<unsigned>((N + kApplyThreads - 1) / kApplyThreads), kApplyThreads, 0, s>>>(
           static_cast<const float*>(u), static_cast<const float*>(W), mm,
-          static_cast<const float*>(b), static_cast<float*>(out), N, tb);
+          static_cast<const float*>(b), static_cast<float*>(out), tb);
     else
-      apply_kernel<double><<<blocks(N), kThreads, 0, s>>>(
+      apply_kernel<double><<<static_cast<unsigned>((N + kApplyThreads - 1) / kApplyThreads), kApplyThreads, 0, s>>>(
           static_cast<const double*>(u), static_cast<const double*>(W), mm,
-          static_cast<const double*>(b), static_cast<double*>(out), N, tb);
+          static_cast<const double*>(b), static_cast<double*>(out), tb);
   }
   return static_cast<int>(cudaGetLastError());
 }

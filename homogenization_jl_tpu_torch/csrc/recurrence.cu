@@ -11,11 +11,9 @@
 //       z = d * r;  rz = sum_i [w_i] r_i z_i;  rs = sum_i [w_i] r_i r_i
 //
 //     with the first-copy mask w, so each DOF counts once. The two sums are
-//     taken in kernel K5's fixed order (csrc/dots.cu: RED_BLOCKS contiguous
-//     chunks, RED_THREADS strided running sums in each, a fixed tree in each
-//     block and one more over the block sums), so they are the bits of K5's
-//     dot(r, z, w) and dot(r, r, w) on the updated r and z, and two runs give
-//     the same bits. The direction p = z + beta p that follows is K10's
+//     taken in the port's fixed order (fixed_sum.cuh), K5's, so they are
+//     the bits of K5's dot(r, z, w) and dot(r, r, w) on the updated r and z,
+//     and two runs give the same bits. The direction p = z + beta p that follows is K10's
 //     cg_direction. As K10's cg_step, it takes ``r_out`` (r_out = r - alpha
 //     Ap, r kept) and ``x_zero`` (x = 0 + alpha p, x unread): the first step
 //     of a solve from zero then reads b as r, and x, r need no zero pass.
@@ -31,11 +29,12 @@
 // writes x, r, z: 65 B per entry, 3.02 GB, 0.90 ms at 3.35 TB/s. (c) with m
 // = 120 reads 44.6 GB of basis, 13.3 ms.
 //
-// Design: (a) runs on K5's grid (RED_BLOCKS blocks of RED_THREADS threads,
-// each thread striding through its block's chunk), which fixes the order
-// of the sums; the elementwise updates ride along, so r and z are read
-// for the dots while still in registers. A second launch of one block adds
-// the block sums. (c) one thread per entry, up to MAXK running sums in
+// Design: (a) runs on K5's grid and order (fixed_sum.cuh: SUM_BLOCKS
+// blocks sweeping the state tile by tile, a thread's vector of 16 bytes in
+// each of its block's tiles, 16-byte loads and stores when every operand
+// is aligned, entry by entry in the same order when not); the elementwise updates ride along, so r and z are
+// read for the dots while still in registers, and the last block to finish
+// adds the block sums: one launch. (c) one thread per entry, up to MAXK running sums in
 // registers, V read with neighbouring threads on neighbouring addresses;
 // the wrapper splits more rows into launches of MAXK. Every product and sum
 // is rounded on its own (the _rn intrinsics), so each entry gives the bits
@@ -43,105 +42,80 @@
 
 #include <cuda_runtime.h>
 
+#include "fixed_sum.cuh"
+
 namespace {
 
-constexpr int RED_BLOCKS = 264;  // K5's grid (csrc/dots.cu)
-constexpr int RED_THREADS = 256;
-constexpr int UNROLL = 4;
+using hz::add_rn;
+using hz::div_rn;
+using hz::mul_rn;
+using hz::sub_rn;
+
 constexpr int THREADS = 256;
 constexpr int MAXK = 8;
 
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
-
-// K5's block tree (csrc/dots.cu) over two arrays at once
-template <typename T>
-__device__ __forceinline__ void block_tree2(T* a, T* b) {
-  for (int st = RED_THREADS / 2; st > 0; st >>= 1) {
-    __syncthreads();
-    if (threadIdx.x < st) {
-      a[threadIdx.x] = add_rn(a[threadIdx.x], a[threadIdx.x + st]);
-      b[threadIdx.x] = add_rn(b[threadIdx.x], b[threadIdx.x + st]);
-    }
-  }
-  __syncthreads();
-}
-
-template <typename T>
-__global__ void __launch_bounds__(RED_THREADS)
-jacobi_cg_blocks_kernel(T* __restrict__ x, const T* r, T* r_out, const T* __restrict__ p,
-                        const T* __restrict__ Ap, const T* __restrict__ d,
-                        const bool* __restrict__ w, const T* __restrict__ num,
-                        const T* __restrict__ den, T* __restrict__ z, int x_zero, long long N,
-                        T* __restrict__ blocksum) {
-  __shared__ T sh_rz[RED_THREADS];
-  __shared__ T sh_rs[RED_THREADS];
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(hz::SUM_THREADS)
+jacobi_cg_kernel(T* __restrict__ x, const T* r, T* r_out, const T* __restrict__ p,
+                 const T* __restrict__ Ap, const T* __restrict__ d, const bool* __restrict__ w,
+                 const T* __restrict__ num, const T* __restrict__ den, T* __restrict__ z,
+                 int x_zero, long long N, unsigned char* scratch, T* __restrict__ rz,
+                 T* __restrict__ rs) {
+  constexpr int V = hz::sum_vec<T>();
   const T dd = *den;
   const T alpha = dd == T(0) ? T(0) : div_rn(*num, dd);
-  const long long chunk = (N + RED_BLOCKS - 1) / RED_BLOCKS;
-  const long long lo = blockIdx.x * chunk;
-  const long long hi = lo + chunk < N ? lo + chunk : N;
-  T acc_rz = T(0), acc_rs = T(0);
-  long long i = lo + threadIdx.x;
-  auto entry = [&](long long j, T& trz, T& trs) {
-    x[j] = add_rn(x_zero ? T(0) : x[j], mul_rn(alpha, p[j]));
-    const T rj = sub_rn(r[j], mul_rn(alpha, Ap[j]));
-    r_out[j] = rj;
-    const T zj = mul_rn(d[j], rj);
-    z[j] = zj;
-    const bool m = w == nullptr || w[j];
-    trz = m ? mul_rn(rj, zj) : T(0);
-    trs = m ? mul_rn(rj, rj) : T(0);
+  T acc[2] = {T(0), T(0)};  // rz, rs
+  // the entry's update; its two dot terms
+  auto entry = [&](T xj, T rj0, T pj, T Apj, T dj, bool mj, T& xo, T& ro, T& zo, T& trz,
+                   T& trs) {
+    xo = add_rn(x_zero ? T(0) : xj, mul_rn(alpha, pj));
+    ro = sub_rn(rj0, mul_rn(alpha, Apj));
+    zo = mul_rn(dj, ro);
+    trz = mj ? mul_rn(ro, zo) : T(0);
+    trs = mj ? mul_rn(ro, ro) : T(0);
   };
-  for (; i + (UNROLL - 1) * RED_THREADS < hi; i += UNROLL * RED_THREADS) {
-    T trz[UNROLL], trs[UNROLL];
+  for (long long i = hz::sum_first<T>(); i < N; i += hz::sum_stride<T>()) {
+    if (VEC && i + V <= N) {
+      T xv[V], rv[V], pv[V], av[V], dv[V], xo[V], ro[V], zo[V], trz[V], trs[V];
+      bool mv[V];
+      if (!x_zero) hz::load_vec<V>(x + i, xv);
+      hz::load_vec<V>(r + i, rv);
+      hz::load_vec<V>(p + i, pv);
+      hz::load_vec<V>(Ap + i, av);
+      hz::load_vec<V>(d + i, dv);
+      if (w != nullptr) hz::load_vec<V>(w + i, mv);
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) entry(i + u * RED_THREADS, trz[u], trs[u]);
+      for (int l = 0; l < V; ++l)
+        entry(x_zero ? T(0) : xv[l], rv[l], pv[l], av[l], dv[l], w == nullptr || mv[l], xo[l],
+              ro[l], zo[l], trz[l], trs[l]);
+      hz::store_vec<V>(x + i, xo);
+      hz::store_vec<V>(r_out + i, ro);
+      hz::store_vec<V>(z + i, zo);
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      acc_rz = add_rn(acc_rz, trz[u]);
-      acc_rs = add_rn(acc_rs, trs[u]);
+      for (int l = 0; l < V; ++l) {
+        acc[0] = add_rn(acc[0], trz[l]);
+        acc[1] = add_rn(acc[1], trs[l]);
+      }
+    } else {
+#pragma unroll
+      for (int l = 0; l < V; ++l) {
+        const long long j = i + l;
+        if (j >= N) break;
+        T xo, ro, zo, trz, trs;
+        entry(x_zero ? T(0) : x[j], r[j], p[j], Ap[j], d[j], w == nullptr || w[j], xo, ro, zo,
+              trz, trs);
+        x[j] = xo;
+        r_out[j] = ro;
+        z[j] = zo;
+        acc[0] = add_rn(acc[0], trz);
+        acc[1] = add_rn(acc[1], trs);
+      }
     }
   }
-  for (; i < hi; i += RED_THREADS) {
-    T trz, trs;
-    entry(i, trz, trs);
-    acc_rz = add_rn(acc_rz, trz);
-    acc_rs = add_rn(acc_rs, trs);
-  }
-  sh_rz[threadIdx.x] = acc_rz;
-  sh_rs[threadIdx.x] = acc_rs;
-  block_tree2(sh_rz, sh_rs);
-  if (threadIdx.x == 0) {
-    blocksum[blockIdx.x] = sh_rz[0];
-    blocksum[RED_BLOCKS + blockIdx.x] = sh_rs[0];
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(RED_THREADS)
-jacobi_cg_final_kernel(const T* __restrict__ blocksum, T* __restrict__ rz,
-                       T* __restrict__ rs) {
-  __shared__ T sh_rz[RED_THREADS];
-  __shared__ T sh_rs[RED_THREADS];
-  T a = T(0), b = T(0);
-  for (int j = threadIdx.x; j < RED_BLOCKS; j += RED_THREADS) {
-    a = add_rn(a, blocksum[j]);
-    b = add_rn(b, blocksum[RED_BLOCKS + j]);
-  }
-  sh_rz[threadIdx.x] = a;
-  sh_rs[threadIdx.x] = b;
-  block_tree2(sh_rz, sh_rs);
-  if (threadIdx.x == 0) {
-    rz[0] = sh_rz[0];
-    rs[0] = sh_rs[0];
-  }
+  hz::sum_finish<T, 2>(acc, scratch, [&](const T (&v)[2]) {
+    rz[0] = v[0];
+    rs[0] = v[1];
+  });
 }
 
 // out[k, i] = sum_j Y[k * ldy + j] V[j, i], k < K (<= MAXK), j < m
@@ -192,11 +166,21 @@ const T* p(const void* q) { return static_cast<const T*>(q); }
 template <typename T>
 void launch_jacobi(void* x, const void* r, void* r_out, const void* pp, const void* Ap,
                    const void* d, const void* w, const void* num, const void* den, void* z,
-                   void* blocksum, void* rz, void* rs, int x_zero, long long N, cudaStream_t st) {
-  jacobi_cg_blocks_kernel<T><<<RED_BLOCKS, RED_THREADS, 0, st>>>(
-      p<T>(x), p<T>(r), p<T>(r_out), p<T>(pp), p<T>(Ap), p<T>(d), p<bool>(w), p<T>(num),
-      p<T>(den), p<T>(z), x_zero, N, p<T>(blocksum));
-  jacobi_cg_final_kernel<T><<<1, RED_THREADS, 0, st>>>(p<T>(blocksum), p<T>(rz), p<T>(rs));
+                   void* scratch, void* rz, void* rs, int x_zero, long long N, cudaStream_t st) {
+  constexpr int V = hz::sum_vec<T>();
+  const bool vec = hz::aligned16(x) && hz::aligned16(r) && hz::aligned16(r_out) &&
+                   hz::aligned16(pp) && hz::aligned16(Ap) && hz::aligned16(d) &&
+                   hz::aligned16(z) &&
+                   (w == nullptr || reinterpret_cast<unsigned long long>(w) % V == 0);
+  unsigned char* sc = static_cast<unsigned char*>(scratch);
+  if (vec)
+    jacobi_cg_kernel<T, true><<<hz::SUM_BLOCKS, hz::SUM_THREADS, 0, st>>>(
+        p<T>(x), p<T>(r), p<T>(r_out), p<T>(pp), p<T>(Ap), p<T>(d), p<bool>(w), p<T>(num),
+        p<T>(den), p<T>(z), x_zero, N, sc, p<T>(rz), p<T>(rs));
+  else
+    jacobi_cg_kernel<T, false><<<hz::SUM_BLOCKS, hz::SUM_THREADS, 0, st>>>(
+        p<T>(x), p<T>(r), p<T>(r_out), p<T>(pp), p<T>(Ap), p<T>(d), p<bool>(w), p<T>(num),
+        p<T>(den), p<T>(z), x_zero, N, sc, p<T>(rz), p<T>(rs));
 }
 
 }  // namespace
@@ -205,18 +189,18 @@ void launch_jacobi(void* x, const void* r, void* r_out, const void* pp, const vo
 // place, or written unread when x_zero != 0; z written; none may alias
 // another); r_out: [N], receives r - alpha Ap (r itself or NULL: in place;
 // else it aliases none of the others); w: bool [N] or NULL (every entry
-// counts); num, den: one value each; blocksum: [2 * RED_BLOCKS] scratch;
-// rz, rs: one value each. Returns cudaGetLastError().
+// counts); num, den: one value each; scratch: the current stream's
+// fixed-sum scratch (fixed_sum.cuh); rz, rs: one value each. Returns cudaGetLastError().
 extern "C" int hz_jacobi_cg_step(int dtype, void* x, void* r, const void* pp, const void* Ap,
                                  const void* d, const void* w, const void* num,
-                                 const void* den, void* z, void* blocksum, void* rz, void* rs,
+                                 const void* den, void* z, void* scratch, void* rz, void* rs,
                                  void* r_out, int x_zero, long long N, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   void* ro = r_out == nullptr ? r : r_out;
   if (dtype == 0)
-    launch_jacobi<float>(x, r, ro, pp, Ap, d, w, num, den, z, blocksum, rz, rs, x_zero, N, st);
+    launch_jacobi<float>(x, r, ro, pp, Ap, d, w, num, den, z, scratch, rz, rs, x_zero, N, st);
   else
-    launch_jacobi<double>(x, r, ro, pp, Ap, d, w, num, den, z, blocksum, rz, rs, x_zero, N, st);
+    launch_jacobi<double>(x, r, ro, pp, Ap, d, w, num, den, z, scratch, rz, rs, x_zero, N, st);
   return static_cast<int>(cudaGetLastError());
 }
 

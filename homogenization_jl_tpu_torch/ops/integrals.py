@@ -22,11 +22,12 @@ K14b: K9's mode DOT_M, unmasked, the mass apply never written): kernel K9
 The kernel forms M x over the nonzeros of M (12.5 per row at n = 969),
 from the row table of the one-piece stack [M] (ops/apply.py::stack_table),
 which CUDA calls must pass (``table=``; ``integrals_fns`` builds it once).
-It writes one partial per element row and sums them in a fixed order.
-The plain form is the JAX expression with the sum over elements taken in
-the kernel's fixed order (RED_BLOCKS blocks of RED_THREADS strided partials
-and a tree); only the row sums, which the kernel takes over its threads'
-rows, round differently.
+It writes one partial per element row and sums them in the port's fixed
+order, K5's (ops/dots.py::fixed_order_sum, csrc/fixed_sum.cuh), in one
+launch. The plain form is the JAX expression with the sum over elements
+taken in that order; only the row sums, which the kernel takes over its
+threads' rows, round differently (``area``, which has none, gives the plain
+form's bits).
 
 ``reference_quirk``: the reference's integrate_first_term multiplies the
 b0 part, which already carries detJ, by detJ again. On unit cells (every
@@ -43,9 +44,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..csrc.build import LAUNCHES, launch
+from ..csrc.build import LAUNCHES, current_stream, launch
 from .apply import check_table, element_apply, stack_table
-from .dots import RED_BLOCKS, fixed_order_sum
+from .dots import fixed_order_sum, sum_scratch
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 
@@ -110,8 +111,8 @@ def sigma_integral(mode, x, mass, w, detJ, mask, scale=1.0, table=None):
         check_table("sigma_integral", table, n, 1, dtype, dev)
     part_a = torch.empty(E, dtype=dtype, device=dev) if mode != AREA else None
     part_b = torch.empty(E, dtype=dtype, device=dev) if mode in (FIRST_QUIRK, FIRST) else None
-    blocksum = torch.empty(RED_BLOCKS, dtype=dtype, device=dev)
     out = torch.empty((), dtype=dtype, device=dev)
+    stream = current_stream()
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -121,8 +122,8 @@ def sigma_integral(mode, x, mass, w, detJ, mask, scale=1.0, table=None):
     LAUNCHES["mass_dot" if mode == DOT_M else "integrals"] += 1
     launch(
         "hz_integrals", _DTYPES[dtype], mode, ptr(x), *(ptr(t) for t in tab), R, ptr(w),
-        detJ.data_ptr(), ptr(mask), ptr(part_a), ptr(part_b), blocksum.data_ptr(),
-        out.data_ptr(), E, n, float(scale),
+        detJ.data_ptr(), ptr(mask), ptr(part_a), ptr(part_b), sum_scratch(dev, stream),
+        out.data_ptr(), E, n, float(scale), stream=stream,
     )
     return out
 

@@ -10,8 +10,9 @@ multishift.py::homogenization_multishift that XLA lowers on the TPU:
     ``precond = inv_diag * r``, multishift.py:173-178): alpha =
     safe_div(num, den); x += alpha p; r -= alpha Ap; z = d * r; and the
     first-copy-weighted dots rz = sum [w] r z, rs = sum [w] r r, summed in
-    kernel K5's fixed order (ops/dots.py): the bits of ``dot(r, z, w)`` and
-    ``dot(r, r, w)`` on the updated r and z. Returns (z, rz, rs). As K10's
+    kernel K5's fixed order (ops/dots.py::fixed_order_sum) in the same
+    launch: the bits of ``dot(r, z, w)`` and ``dot(r, r, w)`` on the updated
+    r and z. Returns (z, rz, rs). As K10's
     ``cg_step`` it takes ``r_out`` (r_out = r - alpha Ap, r kept) and
     ``x_zero`` (x = 0 + alpha p, x unread): a solve from zero starts from
     r = b with no zero pass and no apply of the zero iterate.
@@ -34,9 +35,9 @@ from __future__ import annotations
 
 import torch
 
-from ..csrc.build import LAUNCHES, launch
+from ..csrc.build import LAUNCHES, current_stream, launch
 from .cg import safe_div
-from .dots import RED_BLOCKS, dot_plain
+from .dots import dot_plain, sum_scratch
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 MAXK = 8  # rows of one basis_combine launch (csrc/recurrence.cu)
@@ -103,14 +104,15 @@ def jacobi_cg_step(x, r, p, Ap, d, w, num, den, r_out=None, x_zero=False):
     if not kern:
         return jacobi_cg_step_plain(x, r, p, Ap, d, w, num, den, r_out, x_zero)
     z = torch.empty_like(x)
-    blocksum = torch.empty(2 * RED_BLOCKS, dtype=x.dtype, device=x.device)
     rz = torch.empty((), dtype=x.dtype, device=x.device)
     rs = torch.empty((), dtype=x.dtype, device=x.device)
+    stream = current_stream()
     LAUNCHES["jacobi_cg"] += 1
     launch("hz_jacobi_cg_step", _DTYPES[x.dtype], x.data_ptr(), r.data_ptr(), p.data_ptr(),
            Ap.data_ptr(), d.data_ptr(), None if w is None else w.data_ptr(), num.data_ptr(),
-           den.data_ptr(), z.data_ptr(), blocksum.data_ptr(), rz.data_ptr(), rs.data_ptr(),
-           None if r_out is None else r_out.data_ptr(), int(bool(x_zero)), x.numel())
+           den.data_ptr(), z.data_ptr(), sum_scratch(x.device, stream), rz.data_ptr(),
+           rs.data_ptr(), None if r_out is None else r_out.data_ptr(), int(bool(x_zero)),
+           x.numel(), stream=stream)
     return z, rz, rs
 
 

@@ -36,7 +36,6 @@ those rows. The defaults (0, n) are the whole box.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
@@ -207,27 +206,52 @@ def lattice_distribute_plain(u, st: LatticeStencil, x0=0, planes=None):
 # --------------------------------------------------------------------- #
 # wrappers: plain form on CPU, kernel K6 on CUDA
 # --------------------------------------------------------------------- #
-@functools.lru_cache(maxsize=None)
 def kernel_table(st: LatticeStencil) -> np.ndarray:
     """The stencil's int32 table in the layout of csrc/lattice_stencil.cu
     (``LatticeTab``): dim, n, ept, type_major, K, n_entries, then
-    corner[6][4][3], delta[27][3], entry[96][4] (t, i, j, k), zero-padded.
-    The kernel receives it by value, in the launch's constant parameter
-    space."""
+    corner[6][4][3], delta[27][3], entry[96][4] (t, i, j, k) and off[27]
+    (the flat lattice offset delta_k . stride of each neighbour),
+    zero-padded. Packed once per stencil, on first use, and kept on it
+    (read-only): every K6 call passes this array's address, and the kernels
+    receive it by value, in the launch's constant parameter space. Raises
+    for a stencil beyond the table's capacity."""
+    tab = st.__dict__.get("_kernel_table")
+    if tab is not None:
+        return tab
     d = st.dim
+    K = len(st.deltas)
+    if st.ept > _MAX_EPT or K > _MAX_DELTAS or len(st.entries) > _MAX_ENTRIES:
+        raise ValueError("lattice stencil exceeds the kernel table's capacity")
     corner = np.zeros((_MAX_EPT, 4, 3), np.int32)
     for t in range(st.ept):
         for i in range(d + 1):
             corner[t, i, :d] = st.corner[t][i]
     delta = np.zeros((_MAX_DELTAS, 3), np.int32)
+    off = np.zeros(_MAX_DELTAS, np.int32)
+    stride = (st.n + 1) ** np.arange(d - 1, -1, -1)
     for k, dl in enumerate(st.deltas):
         delta[k, :d] = dl
+        off[k] = int(np.dot(dl, stride))
     ent = np.zeros((_MAX_ENTRIES, 4), np.int32)
     ent[: len(st.entries)] = st.entries
-    head = [d, st.n, st.ept, int(st.order == "type"), len(st.deltas), len(st.entries)]
-    return np.concatenate(
-        [np.asarray(head, np.int32), corner.ravel(), delta.ravel(), ent.ravel()]
+    head = [d, st.n, st.ept, int(st.order == "type"), K, len(st.entries)]
+    tab = np.concatenate(
+        [np.asarray(head, np.int32), corner.ravel(), delta.ravel(), ent.ravel(), off]
     )
+    tab.flags.writeable = False
+    # the frozen dataclass keeps its fields; the table rides in its __dict__
+    object.__setattr__(st, "_kernel_table", tab)
+    object.__setattr__(st, "_kernel_table_ptr", tab.ctypes.data)
+    return tab
+
+
+def _table_ptr(st: LatticeStencil) -> int:
+    """Host address of ``kernel_table(st)`` (packed on first use)."""
+    ptr = st.__dict__.get("_kernel_table_ptr")
+    if ptr is None:
+        kernel_table(st)
+        ptr = st.__dict__["_kernel_table_ptr"]
+    return ptr
 
 
 def _nodes(st: LatticeStencil) -> int:
@@ -259,14 +283,9 @@ def _route(name, t):
 
 
 def _launch(entry, st, *args):
+    ptr = _table_ptr(st)
     LAUNCHES["lattice_stencil"] += 1
-    tab = kernel_table(st)
-    launch(entry, *args, tab.ctypes.data)
-
-
-def _check_stencil(st: LatticeStencil):
-    if st.ept > _MAX_EPT or len(st.deltas) > _MAX_DELTAS or len(st.entries) > _MAX_ENTRIES:
-        raise ValueError("lattice stencil exceeds the kernel table's capacity")
+    launch(entry, *args, ptr)
 
 
 def _check_window(st: LatticeStencil, x0, planes):
@@ -293,7 +312,6 @@ def lattice_weights(coeff, stack0, st: LatticeStencil, x0: int = 0, planes=None)
     _check("lattice_weights: stack0", stack0, coeff.dtype, coeff.device, (P, d1, d1))
     if not kern:
         return lattice_weights_plain(coeff, stack0, st, x0, p)
-    _check_stencil(st)
     W = torch.empty((len(st.deltas), _nodes(st)), dtype=coeff.dtype, device=coeff.device)
     _launch("hz_lattice_weights", st, _DTYPES[coeff.dtype], coeff.data_ptr(),
             stack0.data_ptr(), W.data_ptr(), P, int(x0), p)
@@ -303,20 +321,35 @@ def lattice_weights(coeff, stack0, st: LatticeStencil, x0: int = 0, planes=None)
 def lattice_apply(u, W, st: LatticeStencil, m=None, b=None):
     """y = A u via the K shifted multiply-adds, times the node mask ``m``
     (bool [N] or None); with ``b``, returns b - y (the residual in one
-    pass). u, b, y: flat [(n+1)^dim]."""
+    pass). u, b, y: flat [(n+1)^dim]. The entry the coarse loop calls most:
+    on CUDA tensors its host part is the route, the checks, one allocation
+    and one ctypes call, with the stencil's table packed once."""
     N = _nodes(st)
+    K = len(st.deltas)
     kern = _route("lattice_apply: u", u)
-    _check("lattice_apply: u", u, u.dtype, u.device, (N,))
-    _check("lattice_apply: W", W, u.dtype, u.device, (len(st.deltas), N))
-    if b is not None:
-        _check("lattice_apply: b", b, u.dtype, u.device, (N,))
-    if m is not None:
-        _check("lattice_apply: m", m, torch.bool, u.device, (N,))
+    dt, dev = u.dtype, u.device
+    try:  # the checks in one expression; on a failure, the named check below raises
+        ok = (u.shape == (N,) and u.is_contiguous() and W.dtype == dt and W.device == dev
+              and W.shape == (K, N) and W.is_contiguous()
+              and (b is None or (b.dtype == dt and b.device == dev and b.shape == (N,)
+                                 and b.is_contiguous()))
+              and (m is None or (m.dtype == torch.bool and m.device == dev and m.shape == (N,)
+                                 and m.is_contiguous())))
+    except AttributeError:
+        ok = False
+    if not ok:
+        _check("lattice_apply: u", u, dt, dev, (N,))
+        _check("lattice_apply: W", W, dt, dev, (K, N))
+        if b is not None:
+            _check("lattice_apply: b", b, dt, dev, (N,))
+        if m is not None:
+            _check("lattice_apply: m", m, torch.bool, dev, (N,))
     if not kern:
         return lattice_apply_plain(u, W, st, m=m, b=b)
-    _check_stencil(st)
+    if K * N >= 2**31:  # the kernel indexes W in 32 bits
+        raise ValueError(f"lattice_apply: K * N = {K * N} does not fit 32 bits")
     out = torch.empty_like(u)
-    _launch("hz_lattice_apply", st, _DTYPES[u.dtype], u.data_ptr(), W.data_ptr(),
+    _launch("hz_lattice_apply", st, _DTYPES[dt], u.data_ptr(), W.data_ptr(),
             None if m is None else m.data_ptr(),
             None if b is None else b.data_ptr(), out.data_ptr())
     return out
@@ -332,7 +365,6 @@ def lattice_assemble(y_local, st: LatticeStencil, x0: int = 0, planes=None):
     _check("lattice_assemble: y", y_local, y_local.dtype, y_local.device, (E, st.dim + 1))
     if not kern:
         return lattice_assemble_plain(y_local, st, x0, p)
-    _check_stencil(st)
     out = torch.empty(_nodes(st), dtype=y_local.dtype, device=y_local.device)
     _launch("hz_lattice_assemble", st, _DTYPES[y_local.dtype], y_local.data_ptr(),
             out.data_ptr(), int(x0), p)
@@ -348,7 +380,6 @@ def lattice_distribute(u, st: LatticeStencil, x0: int = 0, planes=None):
     _check("lattice_distribute: u", u, u.dtype, u.device, (_nodes(st),))
     if not kern:
         return lattice_distribute_plain(u, st, x0, p)
-    _check_stencil(st)
     out = torch.empty((E, st.dim + 1), dtype=u.dtype, device=u.device)
     _launch("hz_lattice_distribute", st, _DTYPES[u.dtype], u.data_ptr(), out.data_ptr(),
             int(x0), p)

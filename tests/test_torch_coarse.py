@@ -10,8 +10,10 @@ stencil) and 2D hypercube(2, 8, "cube") with 3 levels (m = 2, 7 points).
     arrays exactly;
   * the lattice-stencil and coarse-gather plain forms match ops/stencil.py,
     copy_to_base / _to_global / distribute to 1e-12, and a NumPy emulation
-    of the K6 kernel's per-thread arithmetic, reading its by-value table,
-    reproduces them (the CUDA kernel cannot run here);
+    of the K6 kernel's per-thread arithmetic, reading its by-value table
+    (packed once per stencil, with the flat neighbour offsets that the
+    apply's interior walk takes), reproduces them, the apply bit for bit
+    (the CUDA kernel cannot run here);
   * the segment sum adds each node's contributions in the presorted order;
   * with the JAX payload carried over by interop: V-cycle x and r, the FMG
     output and a 5-iteration flexible-PCG history to 1e-10, for each of
@@ -198,11 +200,16 @@ def test_segment_sum_adds_in_presorted_order():
 
 def _emulate_k6(st, tab, coeff, stack0, u, m, y):
     """NumPy emulation of csrc/lattice_stencil.cu, reading only the
-    kernel's int32 table: returns (W, A u * m, assemble(y), distribute(u))."""
+    kernel's int32 table: returns (W, A u * m, assemble(y), distribute(u),
+    the apply's interior-node mask). The apply walks an interior node's
+    neighbours at their flat offsets, unguarded, and a boundary node's with
+    a bounds test per axis, each adding W[k, a] * u[neighbour] in k order
+    from zero."""
     dim, n, ept, type_major, K, ne = (int(v) for v in tab[:6])
     corner = tab[6:6 + 72].reshape(6, 4, 3)
     delta = tab[78:78 + 81].reshape(27, 3)
     ent = tab[159:159 + 384].reshape(96, 4)
+    off = tab[543:543 + 27]
     n1 = n + 1
     N = n1**dim
     nd = n**dim
@@ -220,11 +227,18 @@ def _emulate_k6(st, tab, coeff, stack0, u, m, y):
         ok = np.all((q >= 0) & (q < n), axis=1)
         s = coeff[elem(t, q[ok])] @ stack0[:, i, j]
         W[k, ok] += s
+    inner = np.all((coords > 0) & (coords < n1 - 1), axis=1)
+    a_in = np.flatnonzero(inner)
     Au = np.zeros(N)
     for k in range(K):
         nb = coords + delta[k, :dim]
         ok = np.all((nb >= 0) & (nb < n1), axis=1)
-        Au[ok] += W[k, ok] * u[np.ravel_multi_index(tuple(nb[ok].T), (n1,) * dim)]
+        assert ok[inner].all()  # an interior node's neighbours all exist
+        flat = np.ravel_multi_index(tuple(nb[ok].T), (n1,) * dim)
+        assert np.array_equal(flat, np.flatnonzero(ok) + off[k])  # the flat offsets
+        Au[a_in] += W[k, a_in] * u[a_in + off[k]]  # interior walk: no bounds test
+        edge = ok & ~inner  # boundary walk: the guarded neighbours
+        Au[edge] += W[k, edge] * u[np.flatnonzero(edge) + off[k]]
     asm = np.zeros(N)
     for t in range(ept):
         for i in range(d1):
@@ -240,21 +254,51 @@ def _emulate_k6(st, tab, coeff, stack0, u, m, y):
     for i in range(d1):
         node = q + corner[t, i, :dim]
         dist[:, i] = u[np.ravel_multi_index(tuple(node.T), (n1,) * dim)]
-    return W, Au * m, asm, dist
+    return W, Au * m, asm, dist, inner
 
 
 def test_k6_table_emulation_matches_plain_forms(plans):
     _, st, solver, stack0, coeff, u, y = _level0(plans)
     tab = t_stencil.kernel_table(st)
-    assert tab.dtype == np.int32 and tab.size == 543
+    assert tab.dtype == np.int32 and tab.size == 570
     m = solver._interior_mask_N
-    W, Au, asm, dist = _emulate_k6(st, tab, coeff, stack0.numpy(), u, m.numpy(), y)
+    W, Au, asm, dist, inner = _emulate_k6(st, tab, coeff, stack0.numpy(), u, m.numpy(), y)
+    assert inner.any() and not inner.all()  # both walks run
     Wt = t_stencil.lattice_weights(torch.as_tensor(coeff), stack0, st)
     assert _rel(Wt, W) <= OPS_TOL
-    assert _rel(t_stencil.lattice_apply(torch.as_tensor(u), Wt, st, m=m), Au) <= OPS_TOL
+    ut = torch.as_tensor(u)
+    assert _rel(t_stencil.lattice_apply(ut, Wt, st, m=m), Au) <= OPS_TOL
+    # on the emulation's weights the apply is the emulation bit for bit,
+    # in every form: the same products added in the same order
+    W_emu = torch.as_tensor(W)
+    assert t_stencil.lattice_apply(ut, W_emu, st, m=m).numpy().tobytes() == Au.tobytes()
+    _, Au1, _, _, _ = _emulate_k6(st, tab, coeff, stack0.numpy(), u, np.ones_like(u), y)
+    assert t_stencil.lattice_apply(ut, W_emu, st).numpy().tobytes() == Au1.tobytes()
+    b = np.random.default_rng(22).standard_normal(u.shape)
+    got = t_stencil.lattice_apply(ut, W_emu, st, m=m, b=torch.as_tensor(b)).numpy()
+    assert got.tobytes() == (b - Au).tobytes()
     # assemble and distribute: the same additions in the same order
     assert np.array_equal(t_stencil.lattice_assemble(torch.as_tensor(y), st).numpy(), asm)
     assert np.array_equal(t_stencil.lattice_distribute(torch.as_tensor(u), st).numpy(), dist)
+
+
+def test_k6_table_is_packed_once_per_stencil(plans):
+    """Every K6 call reads the table packed on the stencil's first use: the
+    same read-only array, the same bytes; a new stencil of the same base
+    packs the same bytes once more."""
+    st = t_stencil.build_lattice_stencil(plans["pt"].base)
+    assert "_kernel_table" not in st.__dict__
+    first = t_stencil.kernel_table(st)
+    again = t_stencil.kernel_table(st)
+    assert again is first and not first.flags.writeable
+    assert again.tobytes() == first.tobytes()
+    other = t_stencil.build_lattice_stencil(plans["pt"].base)
+    assert other == st and t_stencil.kernel_table(other) is not first
+    assert t_stencil.kernel_table(other).tobytes() == first.tobytes()
+    # the flat offsets: delta_k . (n+1)-strides of the lexicographic lattice
+    n1, d = st.n + 1, st.dim
+    for k, dl in enumerate(st.deltas):
+        assert first[543 + k] == sum(c * n1 ** (d - 1 - ax) for ax, c in enumerate(dl))
 
 
 def test_level0_fallback_matches_stencil(plans):

@@ -6,8 +6,9 @@ they skip at run time with a reason. Run them on the card with
 ``python -m pytest tests/test_torch_kernels.py -q``. Tolerances are those
 of chip_smoke.py's kernel phase: K1 relative norm error <= 1e-5 in float32
 (a 7n-term sum in another order) and 1e-12 in float64; K2 bitwise-equal
-copies and <= 1e-6 from the plain form; K3 <= 1e-6; K6 weights and apply
-<= 2e-6 (float32) / 1e-13 (float64) of their scale, distribute exact; K7
+copies and <= 1e-6 from the plain form; K3 <= 1e-6; K6 weights <= 2e-6
+(float32) / 1e-13 (float64) of their scale, apply bitwise equal to its
+plain form in every mask / b form, distribute exact; K7
 gathers exact and the segment sum bitwise equal on two launches; K2 with
 the mask epilogue bitwise equal to the plain combine times the mask; K8
 (gather combine) bitwise equal to its plain form, with and without the
@@ -16,7 +17,8 @@ plain form, relative to the sum of the absolute terms, and bitwise equal on
 two launches; K4 (transfers) prolong_add bitwise equal to the dense product
 (P's weights make every product exact) and restrict within 1e-6 (float32)
 / 1e-14 (float64) of it; K5 (dots) bitwise equal on two launches and equal
-to its plain form, which sums in the kernel's order; K10 (CG updates)
+to its plain form, which sums in the kernel's order, on a misaligned view
+as on an aligned copy; K10 (CG updates)
 bitwise equal to its plain form, den == 0 included.
 
 The CPU tests check the wrappers' contract: CPU tensors take the plain path
@@ -282,15 +284,15 @@ def test_lattice_stencil_kernel_matches_plain(plan, cuda, dtype):
     W_ref = t_stencil.lattice_weights_plain(coeff, stack0, st)
     torch.cuda.synchronize()
     assert (W - W_ref).abs().max() <= tol * W_ref.abs().max()
-    scale = t_stencil.lattice_apply_plain(u.abs(), W_ref.abs(), st).max()
-    for mm, bb in ((None, None), (m, None), (m, b)):
+    for mm, bb in ((None, None), (m, None), (None, b), (m, b)):
         got = t_stencil.lattice_apply(u, W_ref, st, m=mm, b=bb)
         ref = t_stencil.lattice_apply_plain(u, W_ref, st, m=mm, b=bb)
-        assert (got - ref).abs().max() <= tol * scale
+        # the plain form's products and adds in its order: the same bits
+        assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8)), (mm is None, bb is None)
     ref = t_stencil.lattice_assemble_plain(y, st)
     assert (t_stencil.lattice_assemble(y, st) - ref).abs().max() <= tol * ref.abs().max()
     assert torch.equal(t_stencil.lattice_distribute(u, st), t_stencil.lattice_distribute_plain(u, st))
-    assert LAUNCHES["lattice_stencil"] == n0 + 6
+    assert LAUNCHES["lattice_stencil"] == n0 + 7
 
 
 @pytest.mark.cuda
@@ -458,6 +460,45 @@ def test_masked_dot_kernel_matches_plain(cuda, dtype, N):
         assert torch.equal(got.view(-1), again.view(-1))  # fixed order: the same bits
         assert float(got) == float(ref)  # the plain form sums in that order
     assert LAUNCHES["masked_dot"] == n0 + 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shift", [1, 3])
+def test_masked_dot_kernel_misaligned_view(cuda, dtype, shift):
+    """An operand that starts off its 16-byte vector (a row-block view)
+    takes the same order entry by entry: the bits of an aligned copy."""
+    rng = np.random.default_rng(40 + shift)
+    N = 300_001
+    base = torch.as_tensor(rng.standard_normal(N + shift), device=cuda).to(dtype)
+    a = base[shift:]  # storage offset of `shift` entries
+    assert a.data_ptr() % 16 != 0
+    b = torch.as_tensor(rng.standard_normal(N), device=cuda).to(dtype)
+    w = torch.as_tensor(rng.random(N + shift) < 0.6, device=cuda)[shift:]
+    for mask in (None, w):
+        got = t_dots.dot(a, b, mask=mask)
+        copy = t_dots.dot(a.clone(), b, mask=None if mask is None else mask.clone())
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(-1), copy.view(-1))
+        assert float(got) == float(t_dots.dot_plain(a, b, mask=mask))
+
+
+@pytest.mark.cuda
+def test_masked_dot_ticket_resets_between_launches(cuda):
+    """One launch per call, its last block resetting the ticket: a hundred
+    launches on one stream give one value, and so do launches on another
+    stream (its own scratch)."""
+    g = torch.Generator(device="cpu").manual_seed(41)
+    a, b = (torch.randn(1_000_003, generator=g).to(cuda) for _ in range(2))
+    first = t_dots.dot(a, b)
+    vals = torch.stack([t_dots.dot(a, b) for _ in range(100)])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = torch.stack([t_dots.dot(a, b) for _ in range(10)])
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(vals, first.expand(100)) and torch.equal(other, first.expand(10))
 
 
 @pytest.mark.cuda

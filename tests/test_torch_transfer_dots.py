@@ -12,7 +12,10 @@ the plain forms on a card).
     every product exact), restrict to 1e-14;
   * K5: ``dot_plain`` against ``jnp.vdot`` with and without the mask and
     the scale, to 1e-14 of the sum of absolute terms, and bit for bit
-    against a per-thread emulation of the kernel's fixed order;
+    against a thread-by-thread emulation of the kernels' fixed order
+    (csrc/fixed_sum.cuh) in float64 and float32, at the lengths where the
+    order has edges: one entry, one short of a vector, fewer entries than
+    blocks, one short of and one past whole chunks;
   * K10: ``cg_step_plain`` / ``cg_direction_plain`` against the JAX update
     expressions, bit for bit, including den == 0 (the _safe_div guard);
   * the wrappers' contract: CPU tensors take the plain forms and count no
@@ -161,11 +164,18 @@ def test_transfer_wrappers_reject_malformed_inputs():
 # K5
 # --------------------------------------------------------------------- #
 def _emulate_k5(terms):
-    """NumPy emulation of csrc/dots.cu's order on the products: block b
-    takes the chunk [b * chunk, (b + 1) * chunk), thread t a running sum of
-    its entries t, t + 256, ... from 0, then the block's tree; one more
-    block does the same over the 264 block sums."""
-    nb, nt = t_dots.RED_BLOCKS, t_dots.RED_THREADS
+    """Thread-by-thread emulation of csrc/fixed_sum.cuh's order on the
+    products (float32 or float64, summed in their own dtype): V = 16 /
+    itemsize entries per vector, 256 vectors per tile; block b of
+    SUM_BLOCKS takes the tiles b, b + SUM_BLOCKS, ...; its thread t adds the
+    entries of vector t of each of those tiles, in index order, to a running
+    sum from 0, then the block's pairwise tree; last, thread t adds the
+    block sums t, t + 256, ... from 0, and the same tree."""
+    nb, nt = t_dots.SUM_BLOCKS, t_dots.SUM_THREADS
+    dt = terms.dtype.type
+    V = 16 // terms.itemsize
+    N = terms.size
+    tile = nt * V
 
     def tree(sh):
         sh = sh.copy()
@@ -175,23 +185,23 @@ def _emulate_k5(terms):
             s //= 2
         return sh[0]
 
-    N = terms.size
-    chunk = -(-N // nb)
-    sums = np.zeros(nb)
+    sums = np.zeros(nb, terms.dtype)
     for b in range(nb):
-        lo, hi = b * chunk, min(N, (b + 1) * chunk)
-        sh = np.zeros(nt)
+        if b * tile >= N:
+            break  # this block and the next have no entry: their sums are 0
+        sh = np.zeros(nt, terms.dtype)
         for t in range(nt):
-            acc = 0.0
-            for i in range(lo + t, hi, nt):
-                acc = acc + terms[i]
+            acc = dt(0)
+            for j in range(b, -(-N // tile), nb):  # the block's tiles
+                for i in range(j * tile + t * V, min(j * tile + t * V + V, N)):
+                    acc = dt(acc + terms[i])
             sh[t] = acc
         sums[b] = tree(sh)
-    sh = np.zeros(nt)
+    sh = np.zeros(nt, terms.dtype)
     for t in range(nt):
-        acc = 0.0
+        acc = dt(0)
         for j in range(t, nb, nt):
-            acc = acc + sums[j]
+            acc = dt(acc + sums[j])
         sh[t] = acc
     return tree(sh)
 
@@ -215,19 +225,55 @@ def test_dot_plain_matches_jax_vdot(N):
     assert LAUNCHES == before
 
 
-@pytest.mark.parametrize("N", [1, 300, 2000, 70001])
-def test_dot_plain_follows_the_kernel_order(N):
-    """Terms of mixed magnitude make the order observable; the plain form
-    gives the bits of the kernel's order, and another order gives others."""
+# one short of a vector (float32), fewer entries than one tile (256
+# vectors), a tile and one entry, one short of and one past a sweep of
+# every block's tile (float64: 1056 * 512 entries), and past it into a
+# second tile of block 0
+EDGES = [3, 1000, 1025, 1056 * 512 - 1, 1056 * 512 + 1]
+
+
+def _order_case(N, dtype):
+    """Terms of mixed magnitude (the order is observable) and the dot's
+    bits from the plain form."""
     rng = np.random.default_rng(N + 1)
-    a = rng.standard_normal(N) * 10.0 ** rng.integers(-8, 9, N)
-    b = rng.standard_normal(N)
+    a = (rng.standard_normal(N) * 10.0 ** rng.integers(-8, 9, N)).astype(dtype)
+    b = rng.standard_normal(N).astype(dtype)
     w = rng.random(N) < 0.7
     terms = (a * w) * b
-    got = float(t_dots.dot(torch.as_tensor(a), torch.as_tensor(b), mask=torch.as_tensor(w)))
-    assert got == _emulate_k5(terms)
+    got = t_dots.dot(torch.as_tensor(a), torch.as_tensor(b), mask=torch.as_tensor(w))
+    return terms, got.numpy()
+
+
+@pytest.mark.parametrize("N", [1, 300, 2000, 70001] + EDGES)
+def test_dot_plain_follows_the_kernel_order(N):
+    """The plain form gives the bits of the kernel's order (float64), and
+    another order gives others."""
+    terms, got = _order_case(N, np.float64)
+    assert got.tobytes() == _emulate_k5(terms).tobytes()
     if N > 1000:
-        assert float(np.sum(terms[::-1])) != got or float(np.cumsum(terms)[-1]) != got
+        assert float(np.sum(terms[::-1])) != float(got) or float(np.cumsum(terms)[-1]) != float(got)
+
+
+@pytest.mark.parametrize("N", [1, 70001] + EDGES)
+def test_dot_plain_follows_the_kernel_order_float32(N):
+    """The same in float32: four entries to a vector, the sums in float32."""
+    terms, got = _order_case(N, np.float32)
+    assert got.dtype == np.float32
+    assert got.tobytes() == _emulate_k5(terms).tobytes()
+
+
+def test_fixed_order_sum_covers_every_entry_once():
+    """The tiles cover the N entries once, whatever N (a one-hot vector
+    sums to its one entry in any order), each starting on a whole 16-byte
+    vector."""
+    for N in (1, 3, 5, 1023, 1025, 270_335, 270_337, 1056 * 1024 + 7):
+        for dtype in (torch.float32, torch.float64):
+            V = 16 // torch.empty((), dtype=dtype).element_size()
+            assert (t_dots.SUM_THREADS * V * torch.empty((), dtype=dtype).element_size()) % 16 == 0
+            for i in (0, N // 2, N - 1):
+                v = torch.zeros(N, dtype=dtype)
+                v[i] = 1.5
+                assert float(t_dots.fixed_order_sum(v)) == 1.5
 
 
 def test_dot_rejects_malformed_inputs():
