@@ -24,7 +24,9 @@ then exits non-zero without the final line):
      at the float32 shapes (K5's plain dot, K6's apply and K7's segment sum
      per call, medians of 5 rounds in turns with torch.dot, CSR mv and
      index_add_; K5's mask, scale and float64 forms beside them); the
-     segment sum bitwise equal on two launches; (3c) the device times of
+     segment sum bitwise equal on two launches; K2's fold, combine and
+     constraint at the finest float32 shape in turns with a copy of the
+     same bytes; (3c) the device times of
      K6's apply and K7's segment sum beside CSR mv's (the sum of cuSPARSE's
      kernels) and index_add_'s, from one torch.profiler session in a child
      process (its first session: later sessions of a process lost kernel
@@ -159,7 +161,9 @@ then exits non-zero without the final line):
      step forms and its direction store) for bfloat16 and float16
      directions under float32 and float64 states and float32 under
      float64, each bitwise equal to its plain form; their times (float32
-     state, bfloat16 direction), and K1 and K2 in float64;
+     state, bfloat16 direction), and K1 and K2 in float64; K15's downcast
+     and upcast in turns with the one .to() call each computes (no call
+     casts and scales);
  17. (a) ``python -m homogenization_jl_tpu_torch.bench`` in a subprocess at
      its defaults (190,513,152 DOFs): its last line parses with the
      metric and every detail key, 6 / 8 PCG iterations to 1e-3 / 1e-4
@@ -185,7 +189,10 @@ then exits non-zero without the final line):
      K14b (K9's DOT_M mode, on config 4's finest mass matrix) within phase
      3b's K9 bars, repeatable; K14c's
      one-pass combination (m = 120 basis vectors, K + 1 = 3 rows) and
-     two-pass accumulation, bitwise; K17a / K17b on the 32^3 field of
+     two-pass accumulation, bitwise, the combination timed in turns with
+     torch.matmul of the same function and the accumulation beside its
+     bound, in float64 and float32, with a copy of eight basis vectors (the
+     card's stream rate); K17a / K17b on the 32^3 field of
      phase 21 within 1e-6 / 4e-6 relative; the kernel, plain and library
      times (float64; K17 float32) and bounds; and K1's mass apply (the
      one-piece stack [M], coefficient detJ, masked) at [48000, 969]
@@ -198,7 +205,10 @@ then exits non-zero without the final line):
      (sigma, apply counts, setup and Lanczos seconds, peak memory); (b)
      homogenization_multishift(two_pass=True), sigma within 1e-10 of (a);
      (c) the per-step driver (shrink=False, inner="pcg", chebyshev,
-     tolerance 1e-8): (a) within 1e-2 of it, or else (a) again with 188
+     tolerance 1e-8, its random start iterate from seed 7), twice, the
+     second run's sigma and residuals bitwise equal to the first's (without
+     a seed the driver draws a new start each call, so sigma moves within
+     the tolerance): (a) within 1e-2 of it, or else (a) again with 188
      vectors (as many as the card holds with 10e9 bytes to spare) within
      1e-2; (d) shifted_family_solve (shifts 1, 1/2, 1/4, 150 iterations,
      K13) one level down (7,920,000 DOFs) within 1e-8 of per-shift CG (tol
@@ -226,6 +236,10 @@ Usage: python3 chip_smoke.py            (one card, full size)
                                         (also write phase 5's full
                                          torch.profiler table to
                                          DIR/profile_pcg_iter.txt)
+       python3 chip_smoke.py --config4-repeat
+                                        (phase 20c's call twice with its
+                                         seed, twice without, a digest of
+                                         its library calls: one JSON line)
 """
 
 from __future__ import annotations
@@ -644,6 +658,12 @@ def turns_ms(fns, reps, rounds=TIMING_ROUNDS):
     return {k: float(np.median(v)) for k, v in samples.items()}, samples
 
 
+def quartiles(samples):
+    """{label: [first, third quartile]} of ``turns_ms``'s samples: the
+    spread a difference of medians is held against."""
+    return {k: np.percentile(v, [25, 75]).tolist() for k, v in samples.items()}
+
+
 def problem(hz, n, nlevels, seed=0):
     """The bench problem: base mesh, checkerboard sigma, local unit rhs."""
     from homogenization_jl_tpu_torch.fem.local_operators import load_vector
@@ -775,6 +795,15 @@ def check_kernels(solver, plan, coeff64, dev):
                     cuda_ms(lambda: k_st.combine_structured_plain(x, st, constrain=True), 3),
                     nbytes=4 * 2 * E * n, flops=combine_adds(plan, k, E),
                 )
+                # what bounds it: each mode in turns with a copy of the same
+                # bytes (the constraint reads and writes them without the
+                # sums)
+                t, samples = turns_ms(dict(
+                    fold=lambda: k_st.combine_structured(x, st, constrain=True),
+                    combine=lambda: k_st.combine_structured(x, st),
+                    constrain=lambda: k_st.constrain_structured(x, st),
+                    copy=lambda: x.clone()), 10)
+                report["K2_modes_f32_ms"] = dict(t, quartiles=quartiles(samples))
                 del ref, got
 
             # K3: fused update against the plain one on the same inputs
@@ -2409,13 +2438,20 @@ def check_precision_kernels(outer, inner, plan, coeff64, dev):
     check(same(k_mixed.downcast_scale(c), k_mixed.downcast_scale_plain(c)),
           "K15 downcast differs from plain")
     check(same(k_mixed.upcast(z), k_mixed.upcast_plain(z)), "K15 upcast differs from plain")
+    # no single PyTorch call casts and scales; the two forms that .to()
+    # computes are timed in turns with it (12 bytes per entry each)
     timing["mixed_boundary"] = entry(
         0.0, cuda_ms(lambda: k_mixed.downcast_scale(c, s), 10),
-        cuda_ms(lambda: k_mixed.downcast_scale_plain(c, s), 10), nbytes=16 * N, flops=N,
-        library_ms=cuda_ms(lambda: c.to(torch.float32), 10))
-    report["upcast"] = entry(
-        0.0, cuda_ms(lambda: k_mixed.upcast(z), 10), cuda_ms(lambda: k_mixed.upcast_plain(z), 10),
-        nbytes=12 * N, flops=0, library_ms=cuda_ms(lambda: z.to(torch.float64), 10))
+        cuda_ms(lambda: k_mixed.downcast_scale_plain(c, s), 10), nbytes=16 * N, flops=N)
+    for name, kern, plain, lib in (
+            ("downcast", lambda: k_mixed.downcast_scale(c), lambda: k_mixed.downcast_scale_plain(c),
+             lambda: c.to(torch.float32)),
+            ("upcast", lambda: k_mixed.upcast(z), lambda: k_mixed.upcast_plain(z),
+             lambda: z.to(torch.float64))):
+        t, samples = turns_ms(dict(kernel=kern, library=lib), 10)
+        report[name] = entry(0.0, t["kernel"], cuda_ms(plain, 10), nbytes=12 * N, flops=0,
+                             library_ms=t["library"])
+        report[name]["quartiles"] = quartiles(samples)
     del c, s, z
     torch.cuda.empty_cache()
 
@@ -2916,16 +2952,26 @@ def check_multishift_kernels(dev):
         k_rec.basis_accumulate(sums, V[1], Yt[1])
         acc(sums_p, V[1], Yt[1], False)
         check(torch.equal(_bits(sums), _bits(sums_p)), f"K14c accumulate {dtype}: differs from plain")
-        del sums_p
-        report[f"K14c_accumulate_{tag}_ms"] = cuda_ms(
-            lambda: k_rec.basis_accumulate(sums, V[1], Yt[1]), 10)
+        # the combination in turns with cuBLAS's product of the same
+        # function; the accumulation (no single call: it updates K sums in
+        # place); a copy of eight basis vectors, the card's stream rate
+        t, samples = turns_ms(dict(kernel=lambda: k_rec.basis_combine(V, Y),
+                                   matmul=lambda: torch.matmul(Y, V.view(m, -1))), 3)
+        combine = entry(0.0, t["kernel"],
+                        cuda_ms(lambda: k_rec.basis_combine_plain(V, Y), 1) if f64 else None,
+                        nbytes=(m + K) * N * es, flops=2 * m * K * N, library_ms=t["matmul"])
+        report[f"K14c_combine_{tag}_quartiles"] = quartiles(samples)
+        report[f"K14c_accumulate_{tag}"] = entry(
+            0.0, cuda_ms(lambda: k_rec.basis_accumulate(sums, V[1], Yt[1]), 10),
+            cuda_ms(lambda: acc(sums_p, V[1], Yt[1], False), 3), nbytes=(2 * K + 1) * N * es,
+            flops=2 * K * N)
+        copy_ms = cuda_ms(lambda: V[:8].clone(), 3)
+        report[f"K14c_copy_{tag}"] = dict(ms=copy_ms, TBps=2 * 8 * N * es / copy_ms / 1e9)
         if f64:
-            timing["basis_combine"] = entry(
-                0.0, cuda_ms(lambda: k_rec.basis_combine(V, Y), 3),
-                cuda_ms(lambda: k_rec.basis_combine_plain(V, Y), 1),
-                nbytes=(m + K) * N * es, flops=2 * m * K * N,
-                library_ms=cuda_ms(lambda: torch.matmul(Y, V.view(m, -1)), 3))
-        del V, Y, out, sums, Yt
+            timing["basis_combine"] = combine
+        else:
+            report["K14c_combine_float32"] = combine
+        del V, Y, out, sums, sums_p, Yt
         torch.cuda.empty_cache()
 
     # K17 at 32^3 on the JAX draw of phase 21
@@ -2962,6 +3008,76 @@ def config4_field():
     n, dim = CONFIG4["n"], CONFIG4["dim"]
     R0 = compute_box_radius(0, n) + compute_boundary_layer(1.0, n)
     return R0, generate_conductivity(dim, 2 * R0, np.random.default_rng(CONFIG4_SEED))
+
+
+def config4_per_step(field, dev, seed=CONFIG4_SEED):
+    """Phase 20c's call: the per-step driver on config 4, its random start
+    iterate drawn from ``seed`` (None: a fresh draw, the driver's default)."""
+    import torch
+
+    from homogenization_jl_tpu_torch.models.checkerboard import checkerboard_homogenization
+
+    return checkerboard_homogenization(
+        **CONFIG4, cond_field=field, dtype=torch.float64, tolerance=1e-8, shrink=False,
+        inner="pcg", smoother="chebyshev", coarse="mg", seed=seed, return_trace=True,
+        device=dev)
+
+
+def config4_repeat(dev, smi):
+    """--config4-repeat: phase 20c's call twice with its seed and twice
+    without one (the driver's default), in this process, with a digest of
+    every library call on its path (the aux hierarchy's torch.linalg.inv
+    and torch.mv, the host's eigvalsh): one JSON line. Run it in two
+    processes to compare across them."""
+    import hashlib
+
+    import torch
+
+    def digest(a):
+        if isinstance(a, torch.Tensor):  # an integer sum of the bits, on the card
+            v = _bits(a.detach()).reshape(-1).to(torch.int64)
+            w = torch.arange(1, v.numel() + 1, device=v.device, dtype=torch.int64)
+            return f"{int((v * w).sum()) & (2**64 - 1):016x}"
+        return hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+    calls = []
+    patched = [(torch.linalg, "inv"), (torch, "mv"), (np.linalg, "eigvalsh")]
+    originals = [getattr(mod, name) for mod, name in patched]
+
+    def logged(name, f):
+        def g(*args, **kw):
+            out = f(*args, **kw)
+            calls.append((name, tuple(digest(a) for a in args), digest(out)))
+            return out
+        return g
+
+    for (mod, name), f in zip(patched, originals):
+        setattr(mod, name, logged(name, f))
+    try:
+        _, field = config4_field()
+        runs = []
+        for seed in (CONFIG4_SEED, CONFIG4_SEED, None, None):
+            calls.clear()
+            sig, tr = config4_per_step(field, dev, seed)
+            runs.append(dict(seed=seed, sigma=float(sig).hex(), cycles=tr.cycles_per_step,
+                             calls=list(calls)))
+    finally:
+        for (mod, name), f in zip(patched, originals):
+            setattr(mod, name, f)
+
+    def first_difference(a, b):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                what = "output" if x[:2] == y[:2] else "input"
+                return dict(call=i, name=x[0], differs_in=what)
+        return None
+
+    ref = runs[0]["calls"]
+    report = [dict(seed=r["seed"], sigma=r["sigma"], cycles=r["cycles"], calls=len(r["calls"]),
+                   inv=[c[2] for c in r["calls"] if c[0] == "inv"],
+                   first_difference_from_run_0=first_difference(ref, r["calls"]))
+              for r in runs]
+    print(json.dumps(dict(config4_repeat=report, card=smi)), flush=True)
 
 
 def config4(kbuild, dev, smi):
@@ -3015,12 +3131,16 @@ def config4(kbuild, dev, smi):
     out["b"] = dict(stats_rec(sig_b, st_b, rec), rel_diff_vs_one_pass=rel_b)
     say("20b", ok=True, **out["b"], card=smi)
 
-    (sig_c, tr_c), rec, _ = run(lambda: checkerboard_homogenization(
-        **CONFIG4, cond_field=field, dtype=f64, tolerance=1e-8, shrink=False, inner="pcg",
-        smoother="chebyshev", coarse="mg", return_trace=True, device=dev))
+    (sig_c, tr_c), rec, _ = run(lambda: config4_per_step(field, dev))
+    # the driver's random start iterate is drawn from the seed: the same
+    # call again gives the same bits
+    sig_c2, tr_c2 = config4_per_step(field, dev)
+    check(float(sig_c2).hex() == float(sig_c).hex() and tr_c2.residuals == tr_c.residuals,
+          f"config 4 (c): a second run gave sigma {sig_c2!r}, the first {sig_c!r}")
     gap = abs(sig_a - sig_c) / abs(sig_c)
     iters = [t for step in tr_c.iteration_seconds for t in step]
-    out["c"] = dict(sigma=sig_c, sigma_steps=tr_c.sigma_steps, cycles_per_step=tr_c.cycles_per_step,
+    out["c"] = dict(sigma=sig_c, sigma_hex=float(sig_c).hex(), second_run_bitwise_equal=True,
+                    sigma_steps=tr_c.sigma_steps, cycles_per_step=tr_c.cycles_per_step,
                     residuals=tr_c.residuals, host_init_s=tr_c.init_seconds,
                     step_setup_s=tr_c.setup_seconds, sec_per_iteration_mean=sum(iters) / len(iters),
                     gap_a_vs_c=gap, **rec)
@@ -3369,6 +3489,9 @@ def main(argv=None):
     ap.add_argument("--device-times", action="store_true",
                     help="phase 3c's child: print K6's and K7's device times (one JSON "
                     "line) and exit")
+    ap.add_argument("--config4-repeat", action="store_true",
+                    help="phase 20c's call twice with its seed and twice without, with a "
+                    "digest of its library calls (one JSON line), and exit")
     args = ap.parse_args(argv)
     t_all = time.perf_counter()
 
@@ -3397,6 +3520,10 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.config4_repeat:
+        kbuild.kernels_lib()
+        config4_repeat(dev, smi)
+        return
     say(1, device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 

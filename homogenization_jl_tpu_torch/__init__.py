@@ -36,6 +36,7 @@ from .ops.plan import build_grid_plan
 from .parallel.group import SlabGroup
 from .parallel.sharding import ShardedMultigridSolver
 from .parallel.slab import SlabShardedMultigridSolver
+from .models.checkerboard import checkerboard_homogenization
 from .models.st1 import st1_multigrid
 from .solver.cg import multishift_cg
 from .solver.multigrid import MultigridSolver
@@ -51,6 +52,7 @@ __all__ = [
     "SlabGroup",
     "ShardedMultigridSolver",
     "SlabShardedMultigridSolver",
+    "checkerboard_homogenization",
     "multishift_cg",
     "st1_multigrid",
 ]

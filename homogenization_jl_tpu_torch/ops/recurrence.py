@@ -18,7 +18,8 @@ multishift.py::homogenization_multishift that XLA lowers on the TPU:
     r = b with no zero pass and no apply of the zero iterate.
   * ``basis_combine(V, Y)`` (K14c): out[k] = sum_j Y[k, j] V[j] for the
     coefficient rows Y [K, m] in one read of the basis V [m, ...] (the
-    one-pass mode's einsum, :245);
+    one-pass mode's einsum, :245), each thread a 16-byte vector of
+    columns with the loads of several basis rows in flight;
   * ``basis_accumulate(sums, v, c, first)`` (K14c): sums[k] += c[k] v (or
     sums[k] = c[k] v when ``first``), the two-pass mode's accumulation
     (:257-260) in one pass over v.
@@ -41,6 +42,7 @@ from .dots import dot_plain, sum_scratch
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 MAXK = 8  # rows of one basis_combine launch (csrc/recurrence.cu)
+COMBINE_SMEM_MAX = 227 * 1024  # bytes of coefficients one launch stages
 
 
 def jacobi_cg_step_plain(x, r, p, Ap, d, w, num, den, r_out=None, x_zero=False):
@@ -118,17 +120,21 @@ def jacobi_cg_step(x, r, p, Ap, d, w, num, den, r_out=None, x_zero=False):
 
 def basis_combine(V, Y):
     """K14c: [K, *V.shape[1:]] = sum_j Y[:, j] V[j] for V [m, ...] and Y
-    [K, m] (one dtype and device, contiguous); launches of MAXK rows."""
+    [K, m] (one dtype and device, contiguous); launches of at most MAXK
+    rows, and of as many as fit COMBINE_SMEM_MAX bytes of coefficients."""
     if V.dim() < 2 or Y.dim() != 2 or Y.shape[1] != V.shape[0] or Y.shape[0] < 1:
         raise ValueError(f"basis_combine: V {tuple(V.shape)}, Y {tuple(Y.shape)}")
     kern = _check("basis_combine", V, [("V", V, V.shape), ("Y", Y, Y.shape)])
     if not kern:
         return basis_combine_plain(V, Y)
     K, m = Y.shape
+    rows = min(MAXK, COMBINE_SMEM_MAX // (m * V.element_size()))
+    if rows < 1:
+        raise ValueError(f"basis_combine: {m} basis vectors exceed one launch's coefficients")
     out = torch.empty((K,) + tuple(V.shape[1:]), dtype=V.dtype, device=V.device)
     N = V[0].numel()
-    for k0 in range(0, K, MAXK):
-        kc = min(MAXK, K - k0)
+    for k0 in range(0, K, rows):
+        kc = min(rows, K - k0)
         LAUNCHES["basis_combine"] += 1
         launch("hz_basis_combine", _DTYPES[V.dtype], V.data_ptr(), Y[k0].data_ptr(), m,
                out[k0].data_ptr(), m, kc, N)

@@ -600,9 +600,11 @@ class StructuredTables:
     """One level's structured combine: the host rules (for the plain form)
     and their flattening into one small int32 table (for kernel K2).
 
-    ``tab`` layout (see csrc/structured_combine.cu): a header of 8 ints
+    ``tab`` layout (see csrc/structured_combine.cu): a header of 10 ints
     (cell count, then the offsets of col_cell, col_w, cell_orbit,
-    cell_delta, orb_pat, orb_box, pat), followed by those arrays."""
+    cell_delta, orb_pat, orb_box, pat, and of K2's column and owner rows,
+    ``_walk_tables``), followed by those arrays (K2's two from 16-byte
+    boundaries)."""
 
     sc: StructuredCombine
     i0: int  # iface_start: first tail (interface) column
@@ -610,16 +612,59 @@ class StructuredTables:
 
 
 _CLASS_ORDER = ("face", "edge", "corner")
+_HEADER = 10  # the cell count and the offsets of the nine arrays
+OUTSIDE = 1 << 30  # K2's box bit that every cube has: no group is interior
+
+
+def _walk_tables(sc: StructuredCombine, cell_of, col_cell, orbits_flat, cell_orbit, cell_delta):
+    """K2's tables (csrc/structured_combine.cu). For every (type t, tail
+    column) one row [q0, q1, box, 0]: the range of its group's owners, and
+    the bits of the cube's boundary that put the group outside the orbit's
+    interior box (bit 2k: c_k = 0, bit 2k + 1: c_k = n - 1; ``OUTSIDE``:
+    every group of the orbit is boundary). For every owner, in the orbit's
+    pattern order, one row [forbid, rel, dcol, 0]: ``forbid`` has bit 2k
+    (2k + 1) set when the owner lies one cube below (above) on axis k, so it
+    is missing when c_k = 0 (n - 1); ``rel`` is its element minus the
+    copy's, ``dcol`` its cell's first column minus the copy's. All depend on
+    (t, cell) alone: the kernel does no coordinate arithmetic per entry."""
+    n, d, ept = sc.n, sc.d, sc.ept
+    strides = np.array([n ** (d - 1 - k) for k in range(d)])
+    first_col = {(name, l): sc.classes[name][2][l] for name, l in cell_of}
+    cells = np.zeros((ept, len(cell_of), 4), np.int64)
+    owners = []
+    for t in range(ept):
+        for (name, l), g in cell_of.items():
+            cname, ob = orbits_flat[cell_orbit[t, g]]
+            D = cell_delta[t, g, :d]
+            q0 = len(owners)
+            for dj, tj, lj in ob.pattern:
+                delta = np.asarray(dj) - D
+                assert np.abs(delta).max() <= 1, f"{name}: owner {delta} cubes away"
+                forbid = sum((1 << (2 * k)) if delta[k] < 0 else (1 << (2 * k + 1))
+                             for k in range(d) if delta[k] != 0)
+                lin = int(delta @ strides)
+                rel = (tj - t) * n**d + lin if sc.order == "type" else lin * ept + (tj - t)
+                owners.append([forbid, rel, first_col[(cname, lj)] - first_col[(name, l)], 0])
+            box = OUTSIDE
+            if ob.int_lo is not None:
+                # the interior anchors p = c - D, as boundary bits of c
+                lo, hi = np.asarray(ob.int_lo) + D, np.asarray(ob.int_hi) + D
+                assert np.isin(lo, (0, 1)).all() and np.isin(hi, (n - 2, n - 1)).all(), (lo, hi)
+                box = sum((1 << (2 * k)) * int(lo[k] == 1) + (1 << (2 * k + 1)) * int(hi[k] == n - 2)
+                          for k in range(d))
+            cells[t, g] = [q0, len(owners), box, 0]
+    return cells[:, np.asarray(col_cell)], np.asarray(owners, np.int64).reshape(-1, 4)
 
 
 def flatten_structured(sc: StructuredCombine, iface_start: int, device="cpu"):
-    """Flatten ``sc`` into the int32 tables of kernel K2.
+    """Flatten ``sc`` into the int32 tables of kernels K2 and K11.
 
     Per tail column: its cell id g (cells of all classes numbered in layout
     order face, edge, corner) and its offset w inside the cell. Per (type t,
     cell g): the orbit and the offset D from the anchor. Per orbit: its
     pattern (D_j, t_j, first column of l_j) as a CSR range, and its interior
-    anchor box (or "all boundary"). The tail columns must be exactly the
+    anchor box (or "all boundary"). K11 walks these; K2 walks the rows that
+    ``_walk_tables`` derives from them. The tail columns must be exactly the
     class blocks laid end to end from ``iface_start`` to ``n_local`` — the
     contiguous interface layout (mesh/reference.py) — which is asserted."""
     d, ept = sc.d, sc.ept
@@ -667,17 +712,22 @@ def flatten_structured(sc: StructuredCombine, iface_start: int, device="cpu"):
             hi = list(ob.int_hi) + [0] * (3 - d)
             orb_box.append([1] + lo + hi)
 
+    cols, owners = _walk_tables(sc, cell_of, col_cell, orbits_flat, cell_orbit, cell_delta)
     parts = [
         np.asarray(col_cell), np.asarray(col_w), cell_orbit.ravel(),
         cell_delta.ravel(), np.asarray(orb_pat), np.asarray(orb_box).ravel(),
-        np.asarray(pat).ravel(),
+        np.asarray(pat).ravel(), cols.ravel(), owners.ravel(),
     ]
-    header = [ncell]
-    off = 8
-    for a in parts:
+    header, chunks = [ncell], []
+    off = _HEADER
+    for i, a in enumerate(parts):
+        if i >= len(parts) - 2:  # K2's int4 rows start 16-byte aligned
+            chunks.append(np.zeros(-off % 4, np.int64))
+            off += chunks[-1].size
         header.append(off)
+        chunks.append(a)
         off += a.size
-    flat = np.concatenate([np.asarray(header)] + parts)
+    flat = np.concatenate([np.asarray(header)] + chunks)
     assert flat.max() < 2**31 and flat.min() >= -(2**31)
     tab = torch.as_tensor(flat.astype(np.int32), device=device)
     return StructuredTables(sc=sc, i0=int(iface_start), tab=tab)

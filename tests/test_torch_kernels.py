@@ -6,7 +6,9 @@ they skip at run time with a reason. Run them on the card with
 ``python -m pytest tests/test_torch_kernels.py -q``. Tolerances are those
 of chip_smoke.py's kernel phase: K1 relative norm error <= 1e-5 in float32
 (a 7n-term sum in another order) and 1e-12 in float64; K2 bitwise-equal
-copies and <= 1e-6 from the plain form; K3 <= 1e-6; K6 weights <= 2e-6
+copies and <= 1e-6 from the plain form (and, on small 2D and 3D plans in
+both orders, bitwise equal to it in every mode, on a misaligned view
+too); K3 <= 1e-6; K6 weights <= 2e-6
 (float32) / 1e-13 (float64) of their scale, apply bitwise equal to its
 plain form in every mask / b form, distribute exact; K7
 gathers exact and the segment sum bitwise equal on two launches; K2 with
@@ -60,6 +62,10 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernels)")
     return torch.device("cuda")
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32 if t.element_size() == 4 else torch.int64)
 
 
 def _tables(plan, k, device):
@@ -212,6 +218,53 @@ def test_structured_combine_kernel_matches_plain(plan, cuda, dtype):
             assert (got - ref).abs().max() <= 1e-6 * ref.abs().max(), (k, c)
         ref = t_st.constrain_structured_plain(x, st)
         assert torch.equal(t_st.constrain_structured(x, st), ref), k
+
+
+@pytest.fixture(scope="module", params=[(2, 5, "type"), (2, 4, "cube"), (3, 3, "type"),
+                                        (3, 3, "cube")], ids=lambda p: "%dd-n%d-%s" % p)
+def small_plan(request):
+    dim, n, order = request.param
+    return build_grid_plan(hypercube(dim, n, order=order), 3, slot_tables=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_structured_combine_kernel_bitwise_every_mode(small_plan, cuda, dtype):
+    """K2 in every mode (combine, fold, constraint, mask store), on an
+    aligned state and a misaligned view, bitwise equal to its plain form
+    (the same additions in pattern order), every copy of a group equal."""
+    rng = np.random.default_rng(4)
+    plan = small_plan
+    for k in range(plan.nlevels):
+        st = _tables(plan, k, cuda)
+        shape = (plan.base.nelements, plan.n_local(k))
+        flat = torch.as_tensor(rng.standard_normal(shape[0] * shape[1] + 1)).to(dtype).to(cuda)
+        m = torch.as_tensor(rng.random(shape) < 0.7, device=cuda)
+        for x in (flat[:-1].view(shape), flat[1:].view(shape)):
+            pairs = [(t_st.combine_structured(x, st), t_st.combine_structured_plain(x, st)),
+                     (t_st.combine_structured(x, st, constrain=True),
+                      t_st.combine_structured_plain(x, st, constrain=True)),
+                     (t_st.constrain_structured(x, st), t_st.constrain_structured_plain(x, st)),
+                     (t_st.combine_structured(x, st, mask=m),
+                      t_st.combine_structured_plain(x, st) * m)]
+            torch.cuda.synchronize()
+            for i, (got, ref) in enumerate(pairs):
+                assert torch.equal(_bits(got), _bits(ref)), (k, i)
+        y = t_st.combine_structured(x, st).cpu().numpy()
+        lay = plan.reference.layout[k]
+        for tabs, offsets, width in (
+            (plan.levels[k].gather.face, lay.face_offsets, lay.npf),
+            (plan.levels[k].gather.edge, lay.edge_offsets, lay.npe),
+            (plan.levels[k].gather.corner, lay.corner_cols, 1),
+        ):
+            if tabs is None or width == 0:
+                continue
+            oe, ol, om, _ = tabs
+            cols = np.asarray(offsets)[ol][..., None] + np.arange(width)
+            vals = y[oe[..., None], cols]
+            first = vals[:, :1]
+            assert np.array_equal(np.where(om[..., None] > 0, vals, first),
+                                  np.broadcast_to(first, vals.shape)), k
 
 
 @pytest.mark.cuda

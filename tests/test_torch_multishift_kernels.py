@@ -13,7 +13,8 @@ float32 and float64:
   * K14b (K9's DOT_M mode) within 1e-12 (float64) / 1e-5 (float32)
     relative of its plain form (the row sums round in another order);
   * K14c's combination and accumulation bitwise equal to their plain
-    forms and to each other, with more rows than one launch takes;
+    forms and to each other, with more rows than one launch takes, on a
+    ragged N, a misaligned view and m = 1;
   * K17a within 1e-6 and K17b within 4e-6 relative of their plain forms
     (libdevice's pow and exp against PyTorch's);
   * multishift CG and the multishift recurrence on the card launch K13 and
@@ -169,6 +170,34 @@ def test_basis_kernels_equal_plain(cuda, dtype):
     torch.cuda.synchronize()
     assert torch.equal(_bits(out), _bits(ref))
     assert torch.equal(_bits(sums), _bits(ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m, K, N, offset", [
+    (13, 3, 999, 0),   # N not a multiple of the 16-byte vector: entry by entry
+    (9, 2, 4096, 1),   # a view one entry off a 16-byte boundary
+    (13, 11, 1000, 0),  # K > MAXK: two launches
+    (1, 3, 1024, 0),   # one basis vector
+    (20, 3, 4096, 0),  # the vector path, a remainder after the unrolled rows
+], ids=["ragged", "misaligned", "K>MAXK", "m=1", "vector"])
+def test_basis_kernels_edge_shapes(cuda, dtype, m, K, N, offset):
+    """K14c's combination and accumulation bitwise equal to their plain
+    forms, and the accumulation over j equal to the combination, on the
+    shapes that leave the 16-byte path or split the launch."""
+    g = np.random.default_rng(m * 1000 + N)
+    flat = torch.as_tensor(g.standard_normal(m * N + offset)).to(dtype).to(cuda)
+    V = flat[offset:].view(m, N)
+    Y = torch.as_tensor(g.standard_normal((K, m))).to(dtype).to(cuda)
+    out = t_rec.basis_combine(V, Y)
+    ref = t_rec.basis_combine_plain(V, Y)
+    sums = torch.empty_like(out)
+    Yt = Y.T.contiguous()
+    for j in range(m):
+        t_rec.basis_accumulate(sums, V[j], Yt[j], first=j == 0)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(ref))
+    assert torch.equal(_bits(sums), _bits(out))
 
 
 @pytest.mark.cuda

@@ -136,16 +136,19 @@ def test_level_operators_and_structured_rules_match_jax(dim, n, nlevels, order):
 
 
 def _emulate_k2(x, st, mode):
-    """NumPy emulation of csrc/structured_combine.cu's per-thread work,
-    vectorized over all (element, column) threads and reading only the
-    flattened table."""
+    """NumPy emulation of the per-thread work of csrc/structured_combine.cu's
+    first design, which K11 keeps (one thread per (element, column), the
+    orbit tables), vectorized over all threads and reading only the
+    flattened table's first seven arrays (tests/test_torch_structured_walk.py
+    emulates K2's walk over its own two)."""
     sc = st.sc
     tab = st.tab.numpy().astype(np.int64)
     ncell = tab[0]
-    bounds = list(tab[1:8]) + [len(tab)]
+    bounds = list(tab[1:10]) + [len(tab)]
     col_cell, col_w, cell_orbit, cell_delta, orb_pat, orb_box, pat = (
         tab[bounds[i] : bounds[i + 1]] for i in range(7)
     )
+    pat = pat[: 5 * orb_pat[-1]]  # K2's rows start 16-byte aligned after it
     n, d, ept, i0 = sc.n, sc.d, sc.ept, st.i0
     E, n_local = x.shape
     nd = n**d
