@@ -45,10 +45,14 @@ then exits non-zero without the final line):
      area form (no row partials: the sum in K5's order alone) bitwise equal
      to its plain form; K8
      (gather combine, with and without its mask) at the finest level of
-     the ordered 3D base ordered_hypercube(3, 16) (196,608 tets, n = 969)
-     and at every level of the 2D base of phase 8, bitwise equal to the
-     plain form with every copy of a shared DOF bitwise equal; the masked
-     K2 fold at n = 969, bitwise equal to the plain combine times the mask;
+     the ordered 3D base ordered_hypercube(3, 16) (196,608 tets, n = 969),
+     at every level of the 2D base of phase 8 and at config 4's finest
+     level ([48000, 969], float64), bitwise equal to the plain form with
+     every copy of a shared DOF bitwise equal; K8 with the boundary mask
+     timed in turns with a copy of the same state (medians and quartiles)
+     at the 3D shape in float32 and float64 and at config 4's, each with
+     its bound, and the design kept; the masked K2 fold at n = 969,
+     bitwise equal to the plain combine times the mask;
   4. small float64 solves through the kernels against scipy's sparse
      direct solve of the explicitly refined operator, 3 levels each:
      Chebyshev with coarse="chol" on hypercube(3, 4) and coarse="mg" on
@@ -160,10 +164,12 @@ then exits non-zero without the final line):
      and later steps; K5 with and without the mask and the scale; K10's
      step forms and its direction store) for bfloat16 and float16
      directions under float32 and float64 states and float32 under
-     float64, each bitwise equal to its plain form; their times (float32
-     state, bfloat16 direction), and K1 and K2 in float64; K15's downcast
-     and upcast in turns with the one .to() call each computes (no call
-     casts and scales);
+     float64, each bitwise equal to its plain form; K15's three forms
+     bitwise equal to .to() (and the product) at an odd N and on views one
+     entry in; their times (float32 state, bfloat16 direction), and K1 and
+     K2 in float64; K15's downcast and upcast in turns with the one .to()
+     call each computes (no call casts and scales; its scaled downcast
+     with quartiles);
  17. (a) ``python -m homogenization_jl_tpu_torch.bench`` in a subprocess at
      its defaults (190,513,152 DOFs): its last line parses with the
      metric and every detail key, 6 / 8 PCG iterations to 1e-3 / 1e-4
@@ -421,6 +427,9 @@ SLAB_RATE_TOL = 0.02
 # 15 launches) and the shard it times
 SHARD_COUNTS = (1, 4, 8)
 SHARD_TIMED = (8, 3)
+# K8's design (csrc/gather_combine.cu), stated in phase 3b's report
+K8_DESIGN = ("group-major: a thread per (group, column of the cell), each owner read once and "
+             "the sum stored to every copy; the row-major design was not built")
 # phase 15b's bar between geometries: 50 x the tolerance 1e-4
 # (tests/test_homogenization.py:411)
 ORDERED_SIGMA_TOL = 5e-3
@@ -549,6 +558,12 @@ def csr_mm_ms(mass, u, reps):
     csr = mass.to_sparse_csr()
     ut = u.t().contiguous()
     return cuda_ms(lambda: torch.sparse.mm(csr, ut), reps)
+
+
+def gather_table_bytes(gt):
+    """Bytes of K8's owner tables (ops/interfaces.py::GatherTables), which
+    it reads beside the state."""
+    return sum(c.own.numel() * c.own.element_size() for c in gt.classes)
 
 
 def combine_adds(plan, k, E, rows=slice(None)):
@@ -1093,7 +1108,7 @@ def check_driver_kernels(hz, solver, plan, dev):
     torch.cuda.empty_cache()
 
     # K8: the ordered 3D base's finest level, then every level of phase 8's
-    # 2D base
+    # 2D base, then config 4's finest level
     t0 = time.perf_counter()
     mesh3, _, _ = ordered_hypercube(3, ORDERED_3D_RADIUS)
     plan3 = hz.build_grid_plan(mesh3, FLAGSHIP["refinements"] + 1, slot_tables=False)
@@ -1101,12 +1116,19 @@ def check_driver_kernels(hz, solver, plan, dev):
     r = RECURRENCE_2D
     mesh2, _, _ = ordered_hypercube(2, compute_box_radius(0, r["n"]) + compute_boundary_layer(1.0, r["n"]))
     plan2 = hz.build_grid_plan(mesh2, r["refinements"] + 1, slot_tables=False)
-    cases = [("3d", plan3, plan3.nlevels - 1)] + [("2d", plan2, k) for k in range(plan2.nlevels)]
+    mesh4, _, _ = ordered_hypercube(3, config4_field()[0])
+    plan4 = hz.build_grid_plan(mesh4, CONFIG4["refinements"] + 1, slot_tables=False)
+    check((plan4.base.nelements, plan4.n_local(plan4.nlevels - 1)) == CONFIG4_STATE,
+          "K8: config 4's finest state is not CONFIG4_STATE")
+    cases = ([("3d", plan3, plan3.nlevels - 1)] + [("2d", plan2, k) for k in range(plan2.nlevels)]
+             + [("config4", plan4, plan4.nlevels - 1)])
+    report["K8_design"] = K8_DESIGN
     for label, pl, k in cases:
         gt = k_if.build_gather_tables(pl, k, dev)
         Ek, nk = pl.base.nelements, pl.n_local(k)
         bm = torch.as_tensor(pl.levels[k].boundary_mask != 0, device=dev)
-        for dtype in (torch.float32, torch.float64):
+        dtypes = (torch.float64,) if label == "config4" else (torch.float32, torch.float64)
+        for dtype in dtypes:
             x = torch.as_tensor(rng.standard_normal((Ek, nk))).to(dtype).to(dev)
             for mk in (None, bm):
                 got = k_if.combine_gather_rows(x, gt, mask=mk)
@@ -1115,18 +1137,25 @@ def check_driver_kernels(hz, solver, plan, dev):
                       f"K8 {label} level {k} {dtype} mask={mk is not None}: differs from plain")
                 if mk is None:
                     check(copies_bitwise_equal(got, pl, k), f"K8 {label} level {k}: copies differ")
-            if label == "3d" and dtype == torch.float32:
-                tab_bytes = sum(c.oe.numel() * 9 + c.gmap.numel() * 4 for c in gt.classes)
-                timing["gather_combine"] = entry(
-                    (got - ref).abs().max(),
-                    cuda_ms(lambda: k_if.combine_gather_rows(x, gt, mask=bm), 10),
-                    cuda_ms(lambda: k_if.combine_gather_rows_plain(x, gt, mask=bm), 3),
-                    nbytes=4 * 2 * Ek * nk + Ek * nk + tab_bytes, flops=combine_adds(pl, k, Ek),
-                )
+            if label != "2d":
+                # in turns with a copy of the state (the bytes of x read and
+                # written once), with the boundary mask as the path runs it
+                isz = x.element_size()
+                t, samples = turns_ms(dict(kernel=lambda: k_if.combine_gather_rows(x, gt, mask=bm),
+                                           copy=lambda: x.clone()), 10)
+                e = entry((got - ref).abs().max(), t["kernel"],
+                          cuda_ms(lambda: k_if.combine_gather_rows_plain(x, gt, mask=bm), 3),
+                          nbytes=isz * 2 * Ek * nk + Ek * nk + gather_table_bytes(gt),
+                          flops=combine_adds(pl, k, Ek))
+                e.update(copy_ms=t["copy"], quartiles=quartiles(samples))
+                if label == "3d" and dtype == torch.float32:
+                    timing["gather_combine"] = e
+                else:
+                    report[f"K8_{label}_{str(dtype)[6:]}"] = e
             del x, got, ref
         report[f"K8_{label}_level{k}"] = dict(E=Ek, n=nk, classes=len(gt.classes))
         del gt, bm
-    del plan3, plan2, mesh3, mesh2
+    del plan3, plan2, plan4, mesh3, mesh2, mesh4
     torch.cuda.empty_cache()
     return timing, report
 
@@ -2018,7 +2047,7 @@ def check_sharded_kernel(hz, kbuild, plan, dev, smi, t_plan):
                     ct, mr), 3)
                 timed_launches += kbuild.LAUNCHES["sharded_combine"] - n0
                 C, G = ct.n_slots, ct.n_groups
-                tab_bytes = sum(c.oe.numel() * 9 + c.gmap.numel() * 4 for c in gt.classes)
+                tab_bytes = gather_table_bytes(gt)
                 timing = entry(
                     0.0, ms_k8 + ms_fix, ms_plain,
                     # the shard's rows read and written, the mask, the owner
@@ -2438,11 +2467,21 @@ def check_precision_kernels(outer, inner, plan, coeff64, dev):
     check(same(k_mixed.downcast_scale(c), k_mixed.downcast_scale_plain(c)),
           "K15 downcast differs from plain")
     check(same(k_mixed.upcast(z), k_mixed.upcast_plain(z)), "K15 upcast differs from plain")
+    # an odd N (the scalar tail of the vector path) and views one entry in
+    # (not 16-byte aligned: the scalar path), against .to() itself
+    for off, NN in ((0, N - 3), (1, N - 1)):
+        cv, sv, zv = (t.view(-1)[off : off + NN] for t in (c, s, z))
+        check(same(k_mixed.downcast_scale(cv, sv), cv.to(torch.float32) * sv)
+              and same(k_mixed.downcast_scale(cv), cv.to(torch.float32))
+              and same(k_mixed.upcast(zv), zv.to(torch.float64)),
+              f"K15 at N = {NN}, offset {off}: differs from .to()")
     # no single PyTorch call casts and scales; the two forms that .to()
     # computes are timed in turns with it (12 bytes per entry each)
+    t, samples = turns_ms(dict(kernel=lambda: k_mixed.downcast_scale(c, s)), 10)
     timing["mixed_boundary"] = entry(
-        0.0, cuda_ms(lambda: k_mixed.downcast_scale(c, s), 10),
-        cuda_ms(lambda: k_mixed.downcast_scale_plain(c, s), 10), nbytes=16 * N, flops=N)
+        0.0, t["kernel"], cuda_ms(lambda: k_mixed.downcast_scale_plain(c, s), 10),
+        nbytes=16 * N, flops=N)
+    report["downcast_scale_quartiles"] = quartiles(samples)["kernel"]
     for name, kern, plain, lib in (
             ("downcast", lambda: k_mixed.downcast_scale(c), lambda: k_mixed.downcast_scale_plain(c),
              lambda: c.to(torch.float32)),

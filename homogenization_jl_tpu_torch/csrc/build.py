@@ -89,8 +89,9 @@ _SIGNATURES = {
     "hz_segment_sum": [_I, _I, _P, _P, _P, _P, _L, _P],
     # dtype, itype, src, idx, mask (or NULL), out, total, stream
     "hz_gather_scale": [_I, _I, _P, _P, _P, _P, _L, _P],
-    # dtype, x, out, mask (or NULL), E, n_local, i0, ncls, classes (host), stream
-    "hz_gather_combine": [_I, _P, _P, _P, _L, _I, _I, _I, _P, _P],
+    # dtype, itype (owner tables: 0 int32, 1 int64), x, out, mask (or NULL), E,
+    # n_local, i0, ncls, classes (host), stream
+    "hz_gather_combine": [_I, _I, _P, _P, _P, _L, _I, _I, _I, _P, _P],
     # dtype, mode, x, mass table cols, vals, counts, R, w, detJ, mask, partA,
     # partB, fixed-sum scratch, out, E, n, scale, stream
     "hz_integrals": [_I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _D, _P],

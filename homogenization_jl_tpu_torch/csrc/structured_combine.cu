@@ -66,62 +66,16 @@
 #include <cuda_runtime.h>
 
 #include "fixed_sum.cuh"
+#include "row_head.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-// head vectors of one lane whose loads go out together: 64 bytes in float32;
-// two in float64, which keep its registers, and so its blocks per SM, at the
-// float32 form's
-template <typename T>
-__host__ __device__ constexpr int head_unroll() {
-  return sizeof(T) == 4 ? 4 : 2;
-}
 constexpr int COLS = 2;         // tail columns of one lane whose loads go out together
 constexpr int FIRST = 2;        // owners of a column loaded with the columns (a face's two)
 constexpr int OWNER_BATCH = 4;  // the rest (an edge's, a corner's), this many at a time
 constexpr int OUTSIDE = 1 << 30;  // ops/structured.py::OUTSIDE, a bit every cube has
-
-// [row, row + i0): out = x (times the mask), VW entries per load when VEC
-template <typename T, bool VEC>
-__device__ __forceinline__ void copy_head(const T* __restrict__ x, T* __restrict__ out,
-                                          const bool* __restrict__ mask, long long row,
-                                          int i0, int lane, int width) {
-  constexpr int VW = 16 / sizeof(T);
-  constexpr int HEAD_UNROLL = head_unroll<T>();
-  long long a = row, b = row;  // the vector middle [a, b)
-  if (VEC) {
-    a = (row + VW - 1) / VW * VW;
-    b = (row + i0) / VW * VW;
-    if (a > b) a = b = row;
-  }
-  const long long step = (long long)width * VW;
-  for (long long i = a + (long long)lane * VW; i < b; i += HEAD_UNROLL * step) {
-    T v[HEAD_UNROLL][VW];
-    bool mv[HEAD_UNROLL][VW];
-#pragma unroll
-    for (int h = 0; h < HEAD_UNROLL; ++h)
-      if (i + h * step < b) {
-        hz::load_vec<VW>(x + i + h * step, v[h]);
-        if (mask != nullptr) hz::load_vec<VW>(mask + i + h * step, mv[h]);
-      }
-#pragma unroll
-    for (int h = 0; h < HEAD_UNROLL; ++h)
-      if (i + h * step < b) {
-        if (mask != nullptr)
-#pragma unroll
-          for (int l = 0; l < VW; ++l) v[h][l] = v[h][l] * T(mv[h][l]);
-        hz::store_vec<VW>(out + i + h * step, v[h]);
-      }
-  }
-  // entry by entry: [row, a) and [b, row + i0)
-  const int lo = (int)(a - row), hi = (int)(b - row);
-  for (int j = lane; j < i0 - (hi - lo); j += width) {
-    const long long i = row + (j < lo ? j : j - lo + hi);
-    out[i] = mask ? x[i] * T(mask[i]) : x[i];
-  }
-}
 
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS)
@@ -145,7 +99,7 @@ structured_combine_kernel(const T* __restrict__ x, T* __restrict__ out,
   }
   const int e = type_major ? t * (E / ept) + cube : r;
   const long long row = (long long)e * n_local;
-  copy_head<T, VEC>(x, out, mask, row, i0, lane, width);
+  hz::copy_head<T, VEC>(x, out, mask, row, i0, lane, width);
 
   // tail: COLS columns of the lane at a time, their first owners' loads
   // (mode 2: the entries', and the mask's) issued before any add

@@ -226,16 +226,18 @@ def distribute(u, base_elements):
 @dataclasses.dataclass(frozen=True)
 class GatherClass:
     """One interface class (faces, edges or corners) of a level: the columns
-    [c0, c0 + L*W) of every element row, L cells of W DOFs. Owner tables
-    oe/ol [G, M] (int32, padded with 0), om [G, M] (bool: a real owner),
-    gmap [E, L] (int32: group of each element's cell); flat [G, M] (int64)
-    = oe * L + ol, the owner rows of the [E*L, W] view (plain form)."""
+    [c0, c0 + L*W) of every element row, L cells of W DOFs, and G groups of
+    at most M owners. Kernel K8 reads ``own`` [G, M]: each owner's cell as
+    its offset in the flat x (element * n_local + c0 + local cell * W), -1
+    for a padding slot (int32, or int64 when the offsets reach 2^31). The
+    plain form reads om [G, M] (bool: a real owner), gmap [E, L] (int32:
+    the group of each element's cell) and flat [G, M] (int64) = element * L
+    + local cell, the owner rows of the [E*L, W] view."""
 
     c0: int
     L: int
     W: int
-    oe: torch.Tensor
-    ol: torch.Tensor
+    own: torch.Tensor
     om: torch.Tensor
     gmap: torch.Tensor
     flat: torch.Tensor
@@ -252,14 +254,30 @@ class GatherTables:
     classes: tuple
 
     def descriptor(self) -> np.ndarray:
-        """The kernel's host record: 8 int64 per class (c0, L, W, M, then
-        the device addresses of oe, ol, om, gmap)."""
-        rows = [
-            [c.c0, c.L, c.W, c.oe.shape[1], c.oe.data_ptr(), c.ol.data_ptr(),
-             c.om.data_ptr(), c.gmap.data_ptr()]
-            for c in self.classes
-        ]
+        """The kernel's host record: 4 int64 per class (W, M, G, then the
+        device address of ``own``)."""
+        rows = [[c.W, c.own.shape[1], c.own.shape[0], c.own.data_ptr()] for c in self.classes]
         return np.ascontiguousarray(np.asarray(rows, dtype=np.int64))
+
+
+def _owner_offsets(oe, ol, om, gmap, n_local: int, c0: int, W: int) -> np.ndarray:
+    """K8's owner table of one class: the flat offset of each valid owner's
+    cell, -1 in the padding slots. Raises ValueError unless every cell
+    (e, l) of gmap's rows is a valid owner of exactly one group, and of the
+    group gmap[e, l]: then storing each group's sum to its owners writes
+    every output entry of the class once, which the kernel relies on."""
+    E, L = gmap.shape
+    valid = om != 0
+    g_of, _ = np.nonzero(valid)
+    e_of, l_of = oe[valid].astype(np.int64), ol[valid].astype(np.int64)
+    if np.any((e_of < 0) | (e_of >= E) | (l_of < 0) | (l_of >= L)):
+        raise ValueError("gather tables: an owner lies outside the element rows or cells")
+    cell = e_of * L + l_of
+    if cell.size != E * L or np.bincount(cell, minlength=E * L).max(initial=0) != 1:
+        raise ValueError("gather tables: a cell is not the owner of exactly one group")
+    if not np.array_equal(gmap.reshape(-1)[cell], g_of):
+        raise ValueError("gather tables: a cell is an owner of another group than its gmap's")
+    return np.where(valid, oe.astype(np.int64) * n_local + c0 + ol.astype(np.int64) * W, -1)
 
 
 def build_gather_tables(plan, k: int, device="cpu", owners=None) -> GatherTables:
@@ -267,9 +285,11 @@ def build_gather_tables(plan, k: int, device="cpu", owners=None) -> GatherTables
     its owner tables (ops/plan.py) and contiguous interface layout. Every
     class span must be contiguous (each cell's W columns right after the
     previous cell's), and the spans must tile [i0, n_local) in the order
-    faces, edges, corners, as the JAX form's concatenation assumes.
-    ``owners`` ({"face"/"edge"/"corner": (oe, ol, om, gmap)}) replaces the
-    plan's owner tables: one shard's, for the gather-sharded solver."""
+    faces, edges, corners, as the JAX form's concatenation assumes; every
+    cell of every row must be a valid owner of exactly its group (raises
+    ValueError otherwise). ``owners`` ({"face"/"edge"/"corner": (oe, ol,
+    om, gmap)}) replaces the plan's owner tables: one shard's, for the
+    gather-sharded solver, whose owner lists keep the shard's own rows."""
     lay = plan.reference.layout[k]
     if lay is None:
         raise ValueError("the gather combine needs the contiguous interface layout")
@@ -278,7 +298,7 @@ def build_gather_tables(plan, k: int, device="cpu", owners=None) -> GatherTables
         owners = dict(face=gt.face, edge=gt.edge, corner=gt.corner)
     n_local = plan.n_local(k)
     i0 = int(min(list(lay.face_offsets) + list(lay.edge_offsets) + list(lay.corner_cols)))
-    classes = []
+    spans = []
     cursor = i0
     for tables, offsets, width in (
         (owners.get("face"), lay.face_offsets, lay.npf),
@@ -295,21 +315,26 @@ def build_gather_tables(plan, k: int, device="cpu", owners=None) -> GatherTables
         if c0 != cursor:
             raise ValueError(f"class span starts at column {c0}, expected {cursor}")
         cursor = c0 + L * width
-        classes.append(
-            GatherClass(
-                c0=c0, L=L, W=int(width),
-                oe=torch.as_tensor(oe.astype(np.int32), device=device),
-                ol=torch.as_tensor(ol.astype(np.int32), device=device),
-                om=torch.as_tensor(om != 0, device=device),
-                gmap=torch.as_tensor(np.ascontiguousarray(gmap.astype(np.int32)), device=device),
-                flat=torch.as_tensor(
-                    oe.astype(np.int64) * L + ol.astype(np.int64), device=device
-                ),
-            )
-        )
+        spans.append((c0, L, int(width), oe, ol, om, gmap,
+                      _owner_offsets(oe, ol, om, gmap, n_local, c0, int(width))))
     if cursor != n_local:
         raise ValueError(f"class spans end at column {cursor}, n_local is {n_local}")
-    return GatherTables(n_local=n_local, i0=i0, classes=tuple(classes))
+    # 32-bit offsets when the state's entries, and each class's threads (one
+    # per group and column, plus a block past the last), count below 2^31
+    E = spans[0][6].shape[0] if spans else 0  # gmap's rows
+    reach = max([E * n_local] + [own.shape[0] * W + 256 for _, _, W, _, _, _, _, own in spans])
+    itype = np.int32 if reach < 2**31 else np.int64
+    classes = tuple(
+        GatherClass(
+            c0=c0, L=L, W=W,
+            own=torch.as_tensor(np.ascontiguousarray(own.astype(itype)), device=device),
+            om=torch.as_tensor(om != 0, device=device),
+            gmap=torch.as_tensor(np.ascontiguousarray(gmap.astype(np.int32)), device=device),
+            flat=torch.as_tensor(oe.astype(np.int64) * L + ol.astype(np.int64), device=device),
+        )
+        for c0, L, W, oe, ol, om, gmap, own in spans
+    )
+    return GatherTables(n_local=n_local, i0=i0, classes=classes)
 
 
 def combine_gather_rows_plain(x, gt: GatherTables, mask=None):
@@ -345,7 +370,7 @@ def combine_gather_rows(x, gt: GatherTables, mask=None):
         raise ValueError(f"combine_gather_rows: x shape {tuple(x.shape)}, n_local {gt.n_local}")
     dev = x.device
     for c in gt.classes:
-        if c.gmap.shape[0] != x.shape[0] or c.gmap.device != dev:
+        if c.gmap.shape[0] != x.shape[0] or c.gmap.device != dev or c.own.device != dev:
             raise ValueError("combine_gather_rows: tables do not match x (rows or device)")
     if mask is not None:
         if mask.dtype != torch.bool or mask.shape != x.shape or mask.device != dev:
@@ -360,7 +385,8 @@ def combine_gather_rows(x, gt: GatherTables, mask=None):
     desc = gt.descriptor()
     LAUNCHES["gather_combine"] += 1
     launch(
-        "hz_gather_combine", _DTYPES[x.dtype], x.data_ptr(), out.data_ptr(),
+        "hz_gather_combine", _DTYPES[x.dtype], _ITYPES[gt.classes[0].own.dtype], x.data_ptr(),
+        out.data_ptr(),
         None if mask is None else mask.data_ptr(), x.shape[0], gt.n_local, gt.i0,
         len(gt.classes), desc.ctypes.data,
     )

@@ -12,10 +12,11 @@ passes on the TPU:
     :1587-1598, once per setup);
   * ``upcast(z)``: ``z.to(float64)``, the float32 V-cycle's correction.
 
-Kernel K15 (csrc/mixed_boundary.cu) runs for CUDA tensors, one entry per
-thread: it gives the bits of the plain form (PyTorch's ``.to()`` and a
-multiply), which runs for CPU tensors. It follows whichever combine the
-outer solver uses (K2, K8 or K11).
+Kernel K15 (csrc/mixed_boundary.cu) runs for CUDA tensors, in 16-byte
+vectors (entry by entry when an operand is a view whose address is not
+16-byte aligned): it gives the bits of the plain form (PyTorch's ``.to()``
+and a multiply), which runs for CPU tensors. It follows whichever combine
+the outer solver uses (K2, K8 or K11).
 """
 
 from __future__ import annotations

@@ -14,7 +14,9 @@ plain form in every mask / b form, distribute exact; K7
 gathers exact and the segment sum bitwise equal on two launches; K2 with
 the mask epilogue bitwise equal to the plain combine times the mask; K8
 (gather combine) bitwise equal to its plain form, with and without the
-mask; K9 (sigma integrals) within 1e-5 (float32) / 1e-12 (float64) of its
+mask, at class widths 1 and not a multiple of 4, on a misaligned view and
+through int64 owner tables; K15 (mixed boundary) bitwise equal to ``.to()``
+at every N % 4 and on misaligned views; K9 (sigma integrals) within 1e-5 (float32) / 1e-12 (float64) of its
 plain form, relative to the sum of the absolute terms, and bitwise equal on
 two launches; K4 (transfers) prolong_add bitwise equal to the dense product
 (P's weights make every product exact) and restrict within 1e-6 (float32)
@@ -25,6 +27,8 @@ bitwise equal to its plain form, den == 0 included.
 
 The CPU tests check the wrappers' contract: CPU tensors take the plain path
 and count no launch; malformed inputs raise."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -41,6 +45,7 @@ from homogenization_jl_tpu_torch.ops import chebyshev as t_cheb
 from homogenization_jl_tpu_torch.ops import dots as t_dots
 from homogenization_jl_tpu_torch.ops import integrals as t_int
 from homogenization_jl_tpu_torch.ops import interfaces as t_if
+from homogenization_jl_tpu_torch.ops import mixed as t_mixed
 from homogenization_jl_tpu_torch.ops import stencil as t_stencil
 from homogenization_jl_tpu_torch.ops import structured as t_st
 from homogenization_jl_tpu_torch.ops import transfer as t_transfer
@@ -431,6 +436,63 @@ def test_gather_combine_kernel_matches_plain(ordered_plan, cuda, dtype):
             # same values added in the same order: the same bits
             assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8)), (k, mk is None)
         assert LAUNCHES["gather_combine"] == n0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gather_combine_kernel_widths_views_and_wide_tables(cuda, dtype):
+    """K8 on every level of a 4-level ordered 3D base, whose classes have
+    W = 1 (corners, level 1's edges) and W = 3, 7, 21 (not multiples of 4):
+    on an aligned state and on a view one entry in (the head then goes
+    entry by entry), with the mask, through the int32 owner table and the
+    same table widened to int64 (the path of states past 2^31 entries),
+    each bitwise equal to the plain form."""
+    pl = build_grid_plan(ordered_hypercube(3, 2)[0], 4, slot_tables=False)
+    rng = np.random.default_rng(12)
+    widths = set()
+    for k in range(pl.nlevels):
+        gt = t_if.build_gather_tables(pl, k, cuda)
+        assert all(c.own.dtype == torch.int32 for c in gt.classes)
+        wide = dataclasses.replace(gt, classes=tuple(
+            dataclasses.replace(c, own=c.own.to(torch.int64)) for c in gt.classes))
+        widths |= {c.W for c in gt.classes}
+        E, n = pl.base.nelements, pl.n_local(k)
+        buf = torch.as_tensor(rng.standard_normal(E * n + 1), device=cuda).to(dtype)
+        m = torch.as_tensor(pl.levels[k].boundary_mask != 0, device=cuda)
+        for x in (buf[: E * n].view(E, n), buf[1:].view(E, n)):
+            for mk in (None, m):
+                ref = t_if.combine_gather_rows_plain(x, gt, mask=mk)
+                for tabs in (gt, wide):
+                    got = t_if.combine_gather_rows(x, tabs, mask=mk)
+                    torch.cuda.synchronize()
+                    assert torch.equal(_bits(got), _bits(ref)), (k, x.data_ptr() % 16, mk is None)
+    assert 1 in widths and any(w > 1 and w % 4 for w in widths), widths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [4001, 4002, 4003, 4096])
+@pytest.mark.parametrize("view", ["aligned", "offset", "s offset"])
+def test_mixed_boundary_kernel_tails_and_views(cuda, N, view):
+    """K15's three forms bitwise equal to ``.to()`` (and the product) at
+    N % 4 = 1, 2, 3, 0, on 16-byte aligned operands and on views one entry
+    in (all of them, or the scale alone: the scalar path), each launch
+    counted; the values include overflow to inf and float32 subnormals."""
+    rng = np.random.default_rng(N)
+    c_np = rng.standard_normal(N + 1) * 1e3
+    c_np[:3] = (1e39, -1e-41, 3e-39)
+    c = torch.as_tensor(c_np, device=cuda)
+    s = torch.as_tensor(rng.random(N + 1), dtype=torch.float32, device=cuda)
+    z = torch.as_tensor(rng.standard_normal(N + 1), dtype=torch.float32, device=cuda)
+    a = 1 if view == "offset" else 0
+    cv, zv, sv = c[a : a + N], z[a : a + N], s[(0 if view == "aligned" else 1):][:N]
+    n0 = LAUNCHES["mixed_boundary"]
+    pairs = ((t_mixed.downcast_scale(cv, sv), cv.to(torch.float32) * sv),
+             (t_mixed.downcast_scale(cv), cv.to(torch.float32)),
+             (t_mixed.upcast(zv), zv.to(torch.float64)))
+    torch.cuda.synchronize()
+    assert LAUNCHES["mixed_boundary"] == n0 + 3
+    for got, ref in pairs:
+        assert torch.equal(_bits(got), _bits(ref))
 
 
 @pytest.mark.cuda
