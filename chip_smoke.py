@@ -73,7 +73,8 @@ then exits non-zero without the final line):
      "lattice", float32, tolerance=1e-4, seed=7, coarse="mg", smoother=
      "chebyshev", inner="pcg", coarse_mg_tol=5e-2): 190,513,152 DOFs, one
      outer step; sigma within 1e-3 of the TPU record 1.2947696447 (7 PCG
-     iterations; ACCURACY.md) in at most 14 PCG iterations;
+     iterations; ACCURACY.md) in at most 14 PCG iterations; the launches of
+     K18's diagonal (setup only) beside the kernels' counts;
   8. the 2D recurrence with a shrink, checkerboard_homogenization(5, dim=2,
      refinements=4, float64, tolerance=1e-8, chebyshev, pcg, coarse="mg",
      seed=3), with geometry="ordered" (the gather combine K8, the mask
@@ -106,7 +107,8 @@ then exits non-zero without the final line):
      (combine, Dirichlet fold, constraint, mask store); at the finest level
      K11 on the S = 1 slab and on the timed S = 8 shard equals its plain
      form in every mode (max abs error 0); the finest K11 timed at the
-     S = 8 shard shape against its plain form;
+     S = 8 shard shape against its plain form, and at S = 1 (phase 13's
+     shape) in turns with K2's fold on the same rows (medians, quartiles);
  12. parallel/run_slab.py through an NCCL group of one rank (a FileStore in
      a temporary directory), at scripts/run_slab_big.py's configuration on
      the cube-order base at n = 16: float32, Chebyshev, coarse="chol", 3
@@ -119,7 +121,7 @@ then exits non-zero without the final line):
  13. the flagship through the slab: phase 7's call with device_mesh= the
      group of phase 12 (cube order); sigma within 1e-3 of 1.2947696447 in
      at most 14 PCG iterations, its seconds per iteration beside phase
-     7's;
+     7's and their ratio;
  14. K12, the gather-sharded combine, at full size: the ordered 3D base
      ordered_hypercube(3, 16) (196,608 tets, 5 levels, 190,513,152 DOFs)
      cut into S = 1, 4 and 8 blocks of rows in one process: on every rank
@@ -130,8 +132,11 @@ then exits non-zero without the final line):
      of a shared DOF bitwise equal, and within 1e-6 (float32) / 1e-13
      (float64) relative of K8 on the full state (the sums' order differs
      across shards); the cross slots per level; K12 timed at an S = 8
-     shard (the K8 part and the fix-up part) against its plain forms; the
-     comparisons' launches, which are not the path's (15d has those);
+     shard (the K8 part, and the fix-up in turns with its plain form and
+     pass by pass in device time from CUDA-graph replays) against its
+     plain forms, its bound counting every table it reads, beside the
+     first design's formula; the comparisons' launches, which are not the
+     path's (15d has those);
  15. the gather-sharded solver through the group of phase 12: (a) 3 PCG
      iterations of ShardedMultigridSolver and of MultigridSolver on the
      ordered 3D base one level below the flagship (4 levels, 32,440,320
@@ -251,6 +256,7 @@ Usage: python3 chip_smoke.py            (one card, full size)
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -654,6 +660,24 @@ def cuda_ms(fn, reps, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps, calls=10):
+    """Device milliseconds per call of fn(): ``calls`` calls captured in a
+    CUDA graph, replayed ``reps`` times between CUDA events, so the host's
+    launch cost (which exceeds a small kernel's time) is left out."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="thread_local"):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(g.replay, reps) / calls
 
 
 # repeats of a timing taken in turns (phase 3's K5, K6 and K7 against their
@@ -1506,21 +1530,34 @@ def small_solve_error(hz, dev, n, **kw):
 # --------------------------------------------------------------------- #
 def flagship_driver(hz, kbuild, dev, timing, smi):
     """Phase 7: scripts/run_flagship.py's call at full size on the card.
-    Returns the launches of the run."""
+    Returns the launches of the run and its mean seconds per iteration."""
     import torch
 
     from homogenization_jl_tpu_torch.models.checkerboard import checkerboard_homogenization
+    from homogenization_jl_tpu_torch.solver import multigrid as k_mg
+
+    # K18's diagonal shares the "elementwise" count: its own launches (one
+    # per call of the solver's diagonal_sum) are counted around the run
+    diagonal_sum, diagonal_calls = k_mg.diagonal_sum, [0]
+
+    def counted_diagonal(*args, **kwargs):
+        diagonal_calls[0] += 1
+        return diagonal_sum(*args, **kwargs)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kbuild.reset_launches()
     t0 = time.perf_counter()
-    sigma, trace = checkerboard_homogenization(
-        **FLAGSHIP, geometry="lattice", dtype=torch.float32, tolerance=1e-4,
-        seed=7, coarse="mg", smoother="chebyshev", inner="pcg",
-        solver_opts=dict(smooth_precision="high", coarse_mg_tol=5e-2),
-        return_trace=True, device=dev,
-    )
+    k_mg.diagonal_sum = counted_diagonal
+    try:
+        sigma, trace = checkerboard_homogenization(
+            **FLAGSHIP, geometry="lattice", dtype=torch.float32, tolerance=1e-4,
+            seed=7, coarse="mg", smoother="chebyshev", inner="pcg",
+            solver_opts=dict(smooth_precision="high", coarse_mg_tol=5e-2),
+            return_trace=True, device=dev,
+        )
+    finally:
+        k_mg.diagonal_sum = diagonal_sum
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kbuild.LAUNCHES)
@@ -1536,7 +1573,8 @@ def flagship_driver(hz, kbuild, dev, timing, smi):
         host_init_s=trace.init_seconds, step_setup_s=trace.setup_seconds,
         sec_per_iteration=iters, sec_per_iteration_mean=sum(iters) / len(iters),
         k9_ms_per_launch=timing["integrals"]["ms"], max_memory_allocated=peak,
-        sigma_minus_tpu_record=sigma - FLAGSHIP_SIGMA, launches=launches, card=smi)
+        sigma_minus_tpu_record=sigma - FLAGSHIP_SIGMA, launches=launches,
+        k18_diagonal_launches=diagonal_calls[0], card=smi)
     torch.cuda.empty_cache()
     return launches, sum(iters) / len(iters)
 
@@ -1778,8 +1816,9 @@ def check_slab_kernel(plan, dev, smi, t_plan):
     state's rows bit for bit, every level (float32) and the finest
     (float64), every mode; at the finest level K11 on the S = 1 slab and
     the timed S = 8 shard equals its plain form in every mode (max abs
-    error 0); the finest float32 K11 timed at the S = 8 shard shape.
-    Returns K11's kernel entry."""
+    error 0); the finest float32 K11 timed at the S = 8 shard shape, and at
+    S = 1 (phase 13's shape) in turns with K2's fold on the same rows.
+    Returns K11's kernel entry (the S = 8 shard's time)."""
     import torch
 
     from homogenization_jl_tpu_torch.ops import structured as k_st
@@ -1841,13 +1880,23 @@ def check_slab_kernel(plan, dev, smi, t_plan):
                         )
                         shard = dict(rows=xr.shape[0], n=n, halo_rows=lo.shape[0], tail=tw)
                         del plain
+                    if S == 1 and k == top and dtype == torch.float32:
+                        # phase 13's shape: K11 on the whole state against
+                        # K2's fold on the same rows and bytes, in turns
+                        med, samples = turns_ms(dict(
+                            k11=lambda: k_st.combine_structured_slab(
+                                xr, lo, hi, st, x0, W, constrain=True),
+                            k2=lambda: k_st.combine_structured(x, st, constrain=True)), 20)
+                        s1 = dict(rows=xr.shape[0], n=n, k11_ms=med["k11"], k2_fold_ms=med["k2"],
+                                  ratio=med["k11"] / med["k2"], quartiles=quartiles(samples),
+                                  **bound(4 * 2 * xr.numel(), combine_adds(plan, k, E)))
                     del got
             checked.append((str(dtype)[6:], k, n, slabs))
             del x, m, refs
             torch.cuda.empty_cache()
     check(timing is not None, "K11 was not timed")
     say(11, ok=True, bitwise_vs_k2=checked, max_abs_err_vs_plain=plain_err,
-        host_plan_cube_s=t_plan, timed_shard=shard, f32=timing, card=smi)
+        host_plan_cube_s=t_plan, timed_shard=shard, f32=timing, s1_in_turns_with_k2=s1, card=smi)
     return timing
 
 
@@ -1912,6 +1961,7 @@ def flagship_slab(kbuild, group, smi, sec_iter_phase7):
         host_init_s=trace.init_seconds, step_setup_s=trace.setup_seconds,
         sec_per_iteration=iters, sec_per_iteration_mean=sum(iters) / len(iters),
         phase7_sec_per_iteration_mean=sec_iter_phase7,
+        ratio_to_phase7=sum(iters) / len(iters) / sec_iter_phase7,
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         sigma_minus_tpu_record=sigma - FLAGSHIP_SIGMA, launches=launches, card=smi)
     torch.cuda.empty_cache()
@@ -1983,8 +2033,10 @@ def check_sharded_kernel(hz, kbuild, plan, dev, smi, t_plan):
     (1e-6 / 1e-13 relative) and itself (every copy of a shared DOF); at
     every level in float32 and at the finest in float64, with and without
     the boundary mask; the cross slots per level; K12 timed at an S = 8
-    shard. Returns K12's kernel entry. Its launches here are comparisons
-    (reported, the timing loops' left out); the path's are phase 15d's."""
+    shard (its fix-up in turns with the plain form, and pass by pass), its
+    bound beside the first design's formula. Returns K12's kernel entry.
+    Its launches here are comparisons (reported, the timing loops' left
+    out); the path's are phase 15d's."""
     import torch
 
     from homogenization_jl_tpu_torch.ops import interfaces as k_if
@@ -2039,27 +2091,49 @@ def check_sharded_kernel(hz, kbuild, plan, dev, smi, t_plan):
                 xr = shard_cut(x, S)[r]
                 mr = shard_cut(bm, S)[r]
                 out, part = k_sh.sharded_combine_local(xr, gt, ct, mr)
+                out_p = out.clone()
                 n0 = kbuild.LAUNCHES["sharded_combine"]
                 ms_k8 = cuda_ms(lambda: k_if.combine_gather_rows(xr, gt, mask=mr), 10)
-                ms_fix = cuda_ms(lambda: k_sh.cross_scatter(out, k_sh.cross_partial(xr, ct), ct, mr), 20)
+                fix, fix_samples = turns_ms(dict(
+                    kernel=lambda: k_sh.cross_scatter(out, k_sh.cross_partial(xr, ct), ct, mr),
+                    plain=lambda: k_sh.cross_scatter_plain(
+                        out_p, k_sh.cross_partial_plain(xr, ct), ct, mr)), 5)
+                check(torch.equal(_bits(out), _bits(out_p)), "K12's fix-up differs from its plain form")
+                # the fix-up's passes in device time: the [G] vector zeroed
+                # (tables without a slot), zeroed and summed, the scatter
+                none = dataclasses.replace(ct, perm=ct.perm[:0], start=ct.start[:1],
+                                           gid=ct.gid[:0], idx=ct.idx[:0], grp=ct.grp[:0])
+                total = k_sh.cross_partial(xr, ct)
+                passes = dict(
+                    zero=graph_ms(lambda: k_sh.cross_partial(xr, none), 20),
+                    zero_and_sums=graph_ms(lambda: k_sh.cross_partial(xr, ct), 20),
+                    scatter=graph_ms(lambda: k_sh.cross_scatter(out, total, ct, mr), 20))
                 ms_plain = cuda_ms(lambda: k_sh.cross_scatter_plain(
                     k_if.combine_gather_rows_plain(xr, gt, mr), k_sh.cross_partial_plain(xr, ct),
                     ct, mr), 3)
                 timed_launches += kbuild.LAUNCHES["sharded_combine"] - n0
-                C, G = ct.n_slots, ct.n_groups
+                C, G, Gl = ct.n_slots, ct.n_groups, ct.n_local_groups
                 tab_bytes = gather_table_bytes(gt)
-                timing = entry(
-                    0.0, ms_k8 + ms_fix, ms_plain,
-                    # the shard's rows read and written, the mask, the owner
-                    # tables; the cross slots read, the partials written, the
-                    # totals read, the slots written, the slot tables
-                    nbytes=4 * 2 * xr.numel() + mr.numel() + tab_bytes
-                    + 4 * (2 * C + 2 * G) + 8 * 3 * C,
-                    flops=combine_adds(plan, k, E, slice(r * xr.shape[0], (r + 1) * xr.shape[0])) + C,
-                )
+                # the fix-up: x's cross slots read, the [G] partial written,
+                # the shard's groups' totals read, the slots written, the mask
+                # at the slots, and its int32 tables (perm, idx, grp: a word a
+                # slot; gid and start: a word a group of the shard)
+                fix_bytes = 4 * C + 4 * G + 4 * Gl + 4 * C + C + 4 * 3 * C + 4 * (2 * Gl + 1)
+                # the shard's rows read and written, the mask, K8's owner table
+                k8_bytes = 4 * 2 * xr.numel() + mr.numel() + tab_bytes
+                flops = combine_adds(plan, k, E, slice(r * xr.shape[0], (r + 1) * xr.shape[0])) + C
+                timing = entry(0.0, ms_k8 + fix["kernel"], ms_plain, nbytes=k8_bytes + fix_bytes,
+                               flops=flops)
                 shard = dict(S=S, rank=r, rows=xr.shape[0], n=n, cross_slots=C, cross_groups=G,
-                             k8_ms=ms_k8, fixup_ms=ms_fix)
-                del out, part
+                             shard_groups=Gl, k8_ms=ms_k8, fixup_ms=fix["kernel"],
+                             fixup_plain_ms=fix["plain"], fixup_quartiles=quartiles(fix_samples),
+                             fixup_passes_device_ms=passes,
+                             fixup_bound_ms=bound(fix_bytes, C)["bound_ms"],
+                             # the first design's formula: no start array, the
+                             # level's totals read, three int64 slot tables
+                             bound_ms_old_formula=bound(
+                                 k8_bytes + 4 * (2 * C + 2 * G) + 8 * 3 * C, flops)["bound_ms"])
+                del out, out_p, part, total
             del x
             torch.cuda.empty_cache()
         del full, bm, tabs

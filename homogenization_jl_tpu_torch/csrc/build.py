@@ -127,9 +127,9 @@ _SIGNATURES = {
     "hz_ew_inv_positive": [_I, _P, _P, _L, _P],
     # dtype, coeff, diag_ref, out, E, P, n, stream
     "hz_ew_diagonal": [_I, _P, _P, _P, _L, _I, _I, _P],
-    # dtype, x, perm (int64), start (int64), partial, n_groups, stream
-    "hz_cross_partial": [_I, _P, _P, _P, _P, _L, _P],
-    # dtype, out, total, idx (int64), grp (int64), mask (or NULL), n_slots, stream
+    # dtype, x, perm, start, gid (int32), partial, n_groups, n_local_groups, stream
+    "hz_cross_partial": [_I, _P, _P, _P, _P, _P, _L, _L, _P],
+    # dtype, out, total, idx (int32), grp (int32), mask (or NULL), n_slots, stream
     "hz_cross_scatter": [_I, _P, _P, _P, _P, _P, _L, _P],
     # dtype, v, W, xs, shifts, t_curr, t_prev, D_prev, y_prev, D_curr,
     # y_curr, coef, n_shifts, N, first, stream

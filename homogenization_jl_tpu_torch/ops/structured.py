@@ -20,9 +20,9 @@ The device half:
     tensors;
   * ``combine_structured_slab`` / ``constrain_structured_slab``, the same
     on one rank's x-plane slab of a cube-major state with its halo planes
-    (parallel/slab.py), run kernel K11 (the second entry of
-    csrc/structured_combine.cu) on CUDA tensors and their plain forms on
-    CPU tensors.
+    (parallel/slab.py), run kernel K11 (K2's kernel with the plane window,
+    the second entry of csrc/structured_combine.cu) on CUDA tensors and
+    their plain forms on CPU tensors.
 (Reference baseline for the operation: broadcast_interfaces!,
 src/implicit_fine_grid.jl:209-328.)
 """
@@ -598,13 +598,13 @@ def _validate(
 @dataclasses.dataclass(frozen=True)
 class StructuredTables:
     """One level's structured combine: the host rules (for the plain form)
-    and their flattening into one small int32 table (for kernel K2).
+    and their flattening into one small int32 table (for kernels K2 and
+    K11).
 
-    ``tab`` layout (see csrc/structured_combine.cu): a header of 10 ints
-    (cell count, then the offsets of col_cell, col_w, cell_orbit,
-    cell_delta, orb_pat, orb_box, pat, and of K2's column and owner rows,
-    ``_walk_tables``), followed by those arrays (K2's two from 16-byte
-    boundaries)."""
+    ``tab`` layout (see csrc/structured_combine.cu): a header of 4 ints
+    (the offsets of the column rows and of the owner rows,
+    ``_walk_tables``, then two zeros), followed by those two arrays, each
+    from a 16-byte boundary."""
 
     sc: StructuredCombine
     i0: int  # iface_start: first tail (interface) column
@@ -612,7 +612,7 @@ class StructuredTables:
 
 
 _CLASS_ORDER = ("face", "edge", "corner")
-_HEADER = 10  # the cell count and the offsets of the nine arrays
+_HEADER = 4  # the offsets of the two arrays, padded to 16 bytes
 OUTSIDE = 1 << 30  # K2's box bit that every cube has: no group is interior
 
 
@@ -657,18 +657,16 @@ def _walk_tables(sc: StructuredCombine, cell_of, col_cell, orbits_flat, cell_orb
 
 
 def flatten_structured(sc: StructuredCombine, iface_start: int, device="cpu"):
-    """Flatten ``sc`` into the int32 tables of kernels K2 and K11.
+    """Flatten ``sc`` into the int32 table of kernels K2 and K11.
 
     Per tail column: its cell id g (cells of all classes numbered in layout
-    order face, edge, corner) and its offset w inside the cell. Per (type t,
-    cell g): the orbit and the offset D from the anchor. Per orbit: its
-    pattern (D_j, t_j, first column of l_j) as a CSR range, and its interior
-    anchor box (or "all boundary"). K11 walks these; K2 walks the rows that
-    ``_walk_tables`` derives from them. The tail columns must be exactly the
-    class blocks laid end to end from ``iface_start`` to ``n_local`` — the
-    contiguous interface layout (mesh/reference.py) — which is asserted."""
+    order face, edge, corner). Per (type t, cell g): the orbit and the
+    offset D from the anchor. From these ``_walk_tables`` derives the rows
+    the kernels walk. The tail columns must be exactly the class blocks
+    laid end to end from ``iface_start`` to ``n_local`` — the contiguous
+    interface layout (mesh/reference.py) — which is asserted."""
     d, ept = sc.d, sc.ept
-    col_cell, col_w = [], []
+    col_cell = []
     cell_of = {}  # (class, l) -> global cell id
     orbit_base = {}  # class -> index of its first orbit in the flat list
     orbits_flat = []
@@ -683,7 +681,6 @@ def flatten_structured(sc: StructuredCombine, iface_start: int, device="cpu"):
             assert off == cursor, f"{name}: cell {l} at column {off}, expected {cursor}"
             cell_of[(name, l)] = len(cell_of)
             col_cell += [cell_of[(name, l)]] * width
-            col_w += list(range(width))
             cursor += width
     assert cursor == sc.n_local, f"tail ends at {cursor}, n_local {sc.n_local}"
     ncell = len(cell_of)
@@ -697,37 +694,9 @@ def flatten_structured(sc: StructuredCombine, iface_start: int, device="cpu"):
             cell_orbit[t, g] = orbit_base[name] + oi
             cell_delta[t, g, :d] = dlt
 
-    orb_pat = [0]
-    orb_box = []
-    pat = []
-    for name, ob in orbits_flat:
-        _, _, offsets, _ = sc.classes[name]
-        for dlt, t, l in ob.pattern:
-            pat.append(list(dlt) + [0] * (3 - d) + [t, offsets[l]])
-        orb_pat.append(len(pat))
-        if ob.int_lo is None:
-            orb_box.append([0] * 7)
-        else:
-            lo = list(ob.int_lo) + [0] * (3 - d)
-            hi = list(ob.int_hi) + [0] * (3 - d)
-            orb_box.append([1] + lo + hi)
-
     cols, owners = _walk_tables(sc, cell_of, col_cell, orbits_flat, cell_orbit, cell_delta)
-    parts = [
-        np.asarray(col_cell), np.asarray(col_w), cell_orbit.ravel(),
-        cell_delta.ravel(), np.asarray(orb_pat), np.asarray(orb_box).ravel(),
-        np.asarray(pat).ravel(), cols.ravel(), owners.ravel(),
-    ]
-    header, chunks = [ncell], []
-    off = _HEADER
-    for i, a in enumerate(parts):
-        if i >= len(parts) - 2:  # K2's int4 rows start 16-byte aligned
-            chunks.append(np.zeros(-off % 4, np.int64))
-            off += chunks[-1].size
-        header.append(off)
-        chunks.append(a)
-        off += a.size
-    flat = np.concatenate([np.asarray(header)] + chunks)
+    # both arrays are int4 rows, so each starts 16-byte aligned after the header
+    flat = np.concatenate([[_HEADER, _HEADER + cols.size, 0, 0], cols.ravel(), owners.ravel()])
     assert flat.max() < 2**31 and flat.min() >= -(2**31)
     tab = torch.as_tensor(flat.astype(np.int32), device=device)
     return StructuredTables(sc=sc, i0=int(iface_start), tab=tab)
@@ -1047,8 +1016,10 @@ def constrain_structured(x, st: StructuredTables):
 
 
 def _slab_kernel(x, halo_lo, halo_hi, st: StructuredTables, x0, W, mode: int, mask=None):
-    """Checks of the slab wrappers; launches kernel K11 on CUDA tensors and
-    returns its output, or None for CPU tensors (the plain form's turn)."""
+    """Checks of the slab wrappers; launches kernel K11 on CUDA tensors (a
+    launch over the planes next to no halo, one over the edge planes next
+    to a halo) and returns its output, or None for CPU tensors (the plain
+    form's turn)."""
     sc = st.sc
     if sc.order != "cube":
         raise ValueError("slab combine: needs a cube-major base")

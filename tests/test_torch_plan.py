@@ -136,63 +136,50 @@ def test_level_operators_and_structured_rules_match_jax(dim, n, nlevels, order):
 
 
 def _emulate_k2(x, st, mode):
-    """NumPy emulation of the per-thread work of csrc/structured_combine.cu's
-    first design, which K11 keeps (one thread per (element, column), the
-    orbit tables), vectorized over all threads and reading only the
-    flattened table's first seven arrays (tests/test_torch_structured_walk.py
-    emulates K2's walk over its own two)."""
+    """NumPy emulation of csrc/structured_combine.cu's work over the
+    flattened table (its column rows and owner rows), vectorized over every
+    (element, tail column): the cube's boundary bits from its coordinates,
+    each owner's value at its element and column offsets unless its forbid
+    bits meet the cube's, the sum in pattern order from +0, the group zeroed
+    where the column's box bits meet the cube's (the fold and the
+    constraint). tests/test_torch_structured_walk.py emulates the kernel's
+    walk row by row, and tests/test_torch_slab_walk.py its plane window."""
     sc = st.sc
     tab = st.tab.numpy().astype(np.int64)
-    ncell = tab[0]
-    bounds = list(tab[1:10]) + [len(tab)]
-    col_cell, col_w, cell_orbit, cell_delta, orb_pat, orb_box, pat = (
-        tab[bounds[i] : bounds[i + 1]] for i in range(7)
-    )
-    pat = pat[: 5 * orb_pat[-1]]  # K2's rows start 16-byte aligned after it
     n, d, ept, i0 = sc.n, sc.d, sc.ept, st.i0
     E, n_local = x.shape
+    tw = n_local - i0
+    cols = tab[tab[0]:tab[1]].reshape(ept, tw, 4)
+    owners = tab[tab[1]:].reshape(-1, 4)
     nd = n**d
     out = x.copy()
-    e = np.repeat(np.arange(E), n_local - i0)
-    j = np.tile(np.arange(i0, n_local), E)
+    e = np.repeat(np.arange(E), tw)
+    jj = np.tile(np.arange(tw), E)
     if sc.order == "type":
         t, cube = e // nd, e % nd
     else:
         t, cube = e % ept, e // ept
-    c = np.zeros((len(e), 3), np.int64)
+    bnd = np.full(len(e), t_st.OUTSIDE)
     for k in range(d - 1, -1, -1):
-        c[:, k] = cube % n
+        ck = cube % n
         cube = cube // n
-    cell = t * ncell + col_cell[j - i0]
-    w = col_w[j - i0]
-    orb = cell_orbit[cell]
-    p = c - cell_delta.reshape(-1, 3)[cell]
-    box = orb_box.reshape(-1, 7)[orb]
-    inside = box[:, 0] != 0
-    for k in range(d):
-        inside &= (p[:, k] >= box[:, 1 + k]) & (p[:, k] <= box[:, 4 + k])
+        bnd |= (ck == 0).astype(np.int64) << (2 * k) | (ck == n - 1).astype(np.int64) << (2 * k + 1)
+    q0, q1, box, _ = cols[t, jj].T
+    inside = (box & bnd) == 0
     acc = np.zeros(len(e))
-    pat = pat.reshape(-1, 5)
-    npat = orb_pat[orb + 1] - orb_pat[orb]
-    for q in range(int(npat.max())):
-        has = q < npat
-        pq = pat[np.where(has, orb_pat[orb] + q, 0)]
-        ok = has.copy()
-        cb = np.zeros(len(e), np.int64)
-        for k in range(d):
-            s = p[:, k] + pq[:, k]
-            ok &= (s >= 0) & (s < n)
-            cb = cb * n + s
-        e2 = np.where(sc.order == "type", pq[:, 3] * nd + cb, cb * ept + pq[:, 3])
-        idx = np.where(ok, e2 * n_local + pq[:, 4] + w, 0)
+    for q in range(int((q1 - q0).max())):
+        has = q0 + q < q1
+        forbid, rel, dcol, _ = owners[np.where(has, q0 + q, 0)].T
+        ok = has & ((forbid & bnd) == 0)
+        idx = np.where(ok, (e + rel) * n_local + i0 + jj + dcol, 0)
         acc = acc + np.where(ok, x.reshape(-1)[idx], 0.0)
     if mode == 0:
         val = acc
     elif mode == 1:
         val = np.where(inside, acc, 0.0)
     else:
-        val = np.where(inside, x[e, j], 0.0)
-    out[e, j] = val
+        val = np.where(inside, x[e, i0 + jj], 0.0)
+    out[e, i0 + jj] = val
     return out
 
 

@@ -9,7 +9,8 @@ float32 and float64:
     (E = 162) and of the ordered base ordered_hypercube(2, 4), at every
     level, with and without a mask: each rank's result (K8, the cross
     partials added in rank order, the scatter) bitwise equal to the plain
-    forms', and the launches counted;
+    forms', and the launches counted; each rank's partial vector (its own
+    groups' sums, +0 elsewhere) bitwise equal to the plain form's;
   * every K18 entry, K1's mask store (y * mask of the unmasked output, in
     both the apply and the residual form), K10's r_out and x_zero forms and
     K3's x_zero form bitwise equal to their plain forms, den == 0 and
@@ -149,6 +150,26 @@ def test_sharded_combine_kernel_equals_plain(plan, cuda, dtype):
                 for r, (a, b) in enumerate(zip(got, want)):
                     assert torch.equal(_bits(a), _bits(b)), (k, S, r)
                 assert (launched > 0) == (S > 1), (k, S, launched)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cross_partial_kernel_equals_plain(plan, cuda, dtype):
+    """K12's partial vector on every rank: the sums of the rank's groups
+    and +0 for every other group of the level, bit for bit (the vector
+    comes from torch.empty: the kernel zeroes it)."""
+    rng = np.random.default_rng(5)
+    E = plan.base.nelements
+    for k in range(plan.nlevels):
+        x = rng.standard_normal((E, plan.n_local(k)))
+        for S in (2, 4, 8):
+            for r in range(S):
+                _, ct = shard_tables(plan, k, S, r, cuda)
+                xr = torch.as_tensor(shard_rows(x, r, S)).to(dtype).to(cuda).contiguous()
+                got = t_sh.cross_partial(xr, ct)
+                want = t_sh.cross_partial_plain(xr, ct)
+                assert torch.equal(_bits(got), _bits(want)), (k, S, r)
+                assert ct.n_local_groups < ct.n_groups or S == 2, (k, S, r)
 
 
 @pytest.mark.cuda

@@ -86,11 +86,16 @@ def test_rank_tables_partition_the_cross_slots(case):
             assert all(c.gmap.shape[0] == len(rows[r]) for c in gt.classes)
             assert ct.n_groups == tj.n_cross_groups - 1
             got += [(r, int(f), int(g)) for f, g in zip(ct.idx, ct.grp)]
-            # the kernel's gather order: the slots sorted by group, stable
-            order = np.argsort(ct.grp.numpy(), kind="stable")
-            assert np.array_equal(ct.perm.numpy(), ct.idx.numpy()[order])
+            # the scatter's order: the slots by flat index
+            assert np.all(np.diff(ct.idx.numpy()) > 0)
+            # the kernel's gather order: the host table's slots sorted by
+            # group, stable, over the rank's own groups (ascending)
+            ok = tj.cross_group[r] < tj.n_cross_groups - 1
+            flat, grp = tj.cross_gather[r][ok], tj.cross_group[r][ok]
+            assert np.array_equal(ct.perm.numpy(), flat[np.argsort(grp, kind="stable")])
+            assert np.array_equal(ct.gid.numpy(), np.unique(grp))
             start = ct.start.numpy()
-            assert start[0] == 0 and start[-1] == ct.n_slots and np.all(np.diff(start) >= 0)
+            assert start[0] == 0 and start[-1] == ct.n_slots and np.all(np.diff(start) > 0)
             # each group's starts bracket exactly its slots
-            assert np.array_equal(np.diff(start), np.bincount(ct.grp.numpy(), minlength=ct.n_groups))
+            assert np.array_equal(np.diff(start), np.bincount(grp)[np.unique(grp)])
         assert len(got) == len(set(got)) and set(got) == want, k

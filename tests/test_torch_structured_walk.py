@@ -39,8 +39,8 @@ def walk(x, st, mode, mask=None):
     E, nl = x.shape
     i0, tw = st.i0, nl - st.i0
     tab = st.tab.numpy().astype(np.int64)
-    cols = tab[tab[8]:tab[8] + ept * tw * 4].reshape(ept, tw, 4)
-    owners = tab[tab[9]:].reshape(-1, 4)
+    cols = tab[tab[0]:tab[1]].reshape(ept, tw, 4)
+    owners = tab[tab[1]:].reshape(-1, 4)
     m = np.ones_like(x) if mask is None else mask.astype(x.dtype)
     xf = x.reshape(-1)
     out = np.empty_like(x)
