@@ -6,8 +6,8 @@ on it. Phases (each prints one line; any failure raises, and the script
 then exits non-zero without the final line):
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
-  2. build the CUDA kernels (every one but the Triton ones: K3, K16's
-     Chebyshev update and K17; one nvcc per source, started together) from csrc/ into
+  2. build the CUDA kernels (every one but the Triton ones: K3 and K16's
+     Chebyshev update; one nvcc per source, started together) from csrc/ into
      build/kernels/, warm up K3 (Triton); the wrappers' raw stream is
      PyTorch's current stream;
   3. every kernel against its plain PyTorch version on the card, at the
@@ -28,17 +28,27 @@ then exits non-zero without the final line):
      constraint at the finest float32 shape in turns with a copy of the
      same bytes; (3c) the device times of
      K6's apply and K7's segment sum beside CSR mv's (the sum of cuSPARSE's
-     kernels) and index_add_'s, from one torch.profiler session in a child
+     kernels) and index_add_'s, and of K17a and K17b at 32^3 beside an
+     empty kernel launched through the same ctypes launcher (the launch
+     floor, csrc/launch_floor.cu), from one torch.profiler session in a child
      process (its first session: later sessions of a process lost kernel
      records, and one before phase 15b's costs that one its coverage):
-     medians of 5 rounds, each timing the four in turns;
+     medians of 5 rounds, each timing them in turns; before that session,
+     K17's and the floor's ms per call in that fresh process (phase 19
+     times them again late in this one, after its profiler sessions);
      at the finest shape (E = 196,608, n = 969), float32 and float64, every
      entry of K18 (the mask, the Lanczos scale, three-term update, first
      step and normalization, the Jacobi inverse, the diagonal), K10's r_out
      and x_zero forms, K3's x_zero form and K1's mask store (apply and
      residual forms) bitwise equal to their plain forms, with times and
      bounds (K1's and K9's operations: their nonzero work); K1's library
-     time (one einsum of the same function);
+     time (one einsum of the same function); K18's diagonal in float32 and
+     float64 at every level, and its one-piece form at config 4's [48000,
+     969] float64 (the mass solves' Jacobi diagonal), bitwise equal to its
+     plain form at each of these shapes (the coarse levels of _dinv_all
+     and lam_max too: the narrow-row walk) and timed in turns
+     with torch.matmul of the same function (medians, quartiles) beside
+     its bound;
  3b. the driver's kernels against their plain versions, float32 and
      float64: K9 (sigma integrals, all forms, both reference_quirk
      branches) at E = 196,608, n = 969, bitwise equal on two launches, the
@@ -203,8 +213,10 @@ then exits non-zero without the final line):
      two-pass accumulation, bitwise, the combination timed in turns with
      torch.matmul of the same function and the accumulation beside its
      bound, in float64 and float32, with a copy of eight basis vectors (the
-     card's stream rate); K17a / K17b on the 32^3 field of
-     phase 21 within 1e-6 / 4e-6 relative; the kernel, plain and library
+     card's stream rate); K17a / K17b (CUDA, csrc/fft_field.cu) on the
+     32^3 field of phase 21 within 1e-6 / 4e-6 relative, their times per
+     call in turns with the launch floor's (CUDA events over 20 calls:
+     the host's launch cost included); the kernel, plain and library
      times (float64; K17 float32) and bounds; and K1's mass apply (the
      one-piece stack [M], coefficient detJ, masked) at [48000, 969]
      float64 against its plain form, timed beside cuBLAS's dense GEMM and
@@ -390,13 +402,13 @@ KERNELS = {
     ),
     # K17: the st1 field's spectral filter and exp(alpha |f|)
     "spectral_filter": dict(
-        route="triton",
-        source="homogenization_jl_tpu_torch/utils/fft_field.py",
+        route="cuda",
+        source="homogenization_jl_tpu_torch/csrc/fft_field.cu",
         replaces="homogenization_jl_tpu/utils/fft_field.py:44",
     ),
     "exp_abs": dict(
-        route="triton",
-        source="homogenization_jl_tpu_torch/utils/fft_field.py",
+        route="cuda",
+        source="homogenization_jl_tpu_torch/csrc/fft_field.cu",
         replaces="homogenization_jl_tpu/utils/fft_field.py:46",
     ),
 }
@@ -1341,10 +1353,13 @@ def check_new_forms(solver, plan, coeff64, dev):
     float32 and float64: every entry of K18 (the first Lanczos step too),
     K10's r_out and x_zero forms, K3's x_zero form and K1's mask store (the
     apply and the residual form, in place too) bitwise equal to their plain
-    forms; den == 0 and s == 0 included. Returns ({name: entry}
-    at the float32 shape: K18's entries, "cg_step_r_out",
-    "element_apply_masked"), and K1's library time: one einsum of the same
-    function, sum_p c[e, p] S_p x[e]."""
+    forms; den == 0 and s == 0 included; K18's diagonal also at every
+    coarser level's width and at config 4's one-piece shape. Returns ({name: entry} at the float32 shape: K18's
+    entries, "cg_step_r_out", "element_apply_masked"; the diagonal's in
+    turns with torch.matmul: "diagonal" (float32), "diagonal_float64",
+    "diagonal_config4", and {n_local: entry} of the coarser levels,
+    "diagonal_levels" and "diagonal_levels_float64"), and K1's library
+    time: one einsum of the same function, sum_p c[e, p] S_p x[e]."""
     import torch
 
     from homogenization_jl_tpu_torch.ops import apply as k_apply
@@ -1400,13 +1415,34 @@ def check_new_forms(solver, plan, coeff64, dev):
             got, want = kern(), plain()
             check(torch.equal(_bits(got), _bits(want)), f"K18 {label} {name}: differs from plain")
             del got, want
-            if f32 and label not in ("div_nz_zero", "lanczos_first"):
+            if f32 and label not in ("div_nz_zero", "lanczos_first", "diagonal"):
                 timing[label] = entry(0.0, cuda_ms(kern, 10), cuda_ms(plain, 10), nbytes, flops,
                                       library_ms=None if lib is None else cuda_ms(lib, 10))
         y = u.clone()
         k_if.apply_mask(y, m, out=y)
         check(torch.equal(_bits(y), _bits(u * m)), f"K18 mask in place {name}: differs")
         del y
+        timing["diagonal" if f32 else "diagonal_float64"] = diagonal_turns(
+            k_ew, c, dref, nbytes=isz * (E * P + P * n + N), flops=2 * P * N,
+            label=f"n={n} {name}")
+        # the coarser levels' shapes (the same solver's diagonals, _dinv_all)
+        levels = {}
+        for k in range(top):
+            nk = plan.n_local(k)
+            levels[nk] = diagonal_turns(k_ew, c, solver.levels[k].diag_ref.to(dtype),
+                                        nbytes=isz * (E * P + P * nk + E * nk),
+                                        flops=2 * P * E * nk, label=f"n={nk} {name}")
+        timing["diagonal_levels" if f32 else "diagonal_levels_float64"] = levels
+        if not f32:
+            # the mass solves' Jacobi diagonal of config 4 (models/multishift.py):
+            # one piece, detJ per element times the mass matrix's diagonal
+            E4, n4 = CONFIG4_STATE
+            c4 = torch.rand((E4, 1), generator=g, device=dev, dtype=dtype) + 0.5
+            d4 = torch.rand((1, n4), generator=g, device=dev, dtype=dtype)
+            timing["diagonal_config4"] = diagonal_turns(
+                k_ew, c4, d4, nbytes=isz * (E4 + n4 + E4 * n4), flops=2 * E4 * n4,
+                label="config 4")
+            del c4, d4
 
         # K10's r_out form: x += alpha p, r_out = r - alpha Ap, r kept
         for den_v in (1.3, 0.0):
@@ -1468,6 +1504,24 @@ def check_new_forms(solver, plan, coeff64, dev):
         del u, b, m, c, stack, rowsum, tab
         torch.cuda.empty_cache()
     return timing
+
+
+def diagonal_turns(k_ew, c, dref, nbytes, flops, label):
+    """K18's diagonal at one main-path shape: first held bit for bit against
+    its plain form (so every coarse level of _dinv_all and lam_max, in both
+    dtypes, is checked at its own shape, not only the finest), then timed in
+    turns with torch.matmul of the same function (medians and quartiles of
+    ``turns_ms``), with its plain form's time and its bound: coeff and
+    diag_ref read once, the output written once."""
+    import torch
+
+    check(torch.equal(_bits(k_ew.diagonal(c, dref)), _bits(k_ew.diagonal_plain(c, dref))),
+          f"K18 diagonal {label}: differs from plain")
+    med, samples = turns_ms({"kernel": lambda: k_ew.diagonal(c, dref),
+                             "matmul": lambda: torch.matmul(c, dref)}, 10)
+    return dict(entry(0.0, med["kernel"], cuda_ms(lambda: k_ew.diagonal_plain(c, dref), 3),
+                      nbytes, flops, library_ms=med["matmul"]),
+                quartiles=quartiles(samples))
 
 
 # --------------------------------------------------------------------- #
@@ -2933,6 +2987,7 @@ def check_multishift_kernels(dev):
         element_apply_plain,
         stack_table,
     )
+    from homogenization_jl_tpu_torch.csrc import build as kbuild
     from homogenization_jl_tpu_torch.utils import fft_field as k_ff
 
     g = torch.Generator(device=dev).manual_seed(19)
@@ -3099,15 +3154,23 @@ def check_multishift_kernels(dev):
     ek, ep = k_ff.exp_abs(f, ST1["alpha"]), k_ff.exp_abs_plain(f, ST1["alpha"])
     err_b = float((ek / ep - 1).abs().max())
     check(err_b <= 4e-6, f"K17b: rel err {err_b}")
-    report.update(K17a_rel_err=err_a, K17b_rel_err=err_b)
+    # per call in turns with the launch floor (an empty kernel through the
+    # same launcher): CUDA events over 20 calls, the host's cost included
+    med, samples = turns_ms({"k17a": lambda: k_ff.spectral_filter(F, shape, 1.5),
+                             "k17b": lambda: k_ff.exp_abs(f, ST1["alpha"]),
+                             "floor": lambda: kbuild.launch("hz_launch_floor")}, 20)
+    report.update(K17a_rel_err=err_a, K17b_rel_err=err_b, K17_per_call_ms=med,
+                  K17_per_call_quartiles=quartiles(samples))
     timing["spectral_filter"] = entry(
-        float((fk - fp).abs().max()), cuda_ms(lambda: k_ff.spectral_filter(F, shape, 1.5), 20),
+        float((fk - fp).abs().max()), med["k17a"],
         cuda_ms(lambda: k_ff.spectral_filter_plain(F, shape, 1.5), 20),
         nbytes=2 * 8 * F.numel(), flops=12 * F.numel())
     timing["exp_abs"] = entry(
-        float((ek - ep).abs().max()), cuda_ms(lambda: k_ff.exp_abs(f, ST1["alpha"]), 20),
+        float((ek - ep).abs().max()), med["k17b"],
         cuda_ms(lambda: k_ff.exp_abs_plain(f, ST1["alpha"]), 20),
         nbytes=2 * 4 * f.numel(), flops=3 * f.numel())
+    for name in ("spectral_filter", "exp_abs"):
+        timing[name]["launch_floor_ms"] = med["floor"]
     return timing, report
 
 
@@ -3490,19 +3553,26 @@ def launch_bound_device_times(base, dev, reps=50):
     """The device times of K6's apply and K7's segment sum at the main
     path's shapes (the lattice of ``base``, float32) beside their library
     calls (cuSPARSE's CSR mv: the sum of its kernels; index_add_ with its
-    zero fill), from one torch.profiler session: after unlabelled warm-up
-    calls, TIMING_ROUNDS rounds each timing ``reps`` calls of each in turns
-    (K6, CSR, CSR, K6, K7, index_add_, index_add_, K7). Returns ({name:
-    median over the rounds of the device ms per call}, {name: samples},
-    {name: kernels per call}). Runs in a process of its own
+    zero fill), and of K17a and K17b at phase 21's 32^3 beside the launch
+    floor (an empty kernel through the same launcher), from one
+    torch.profiler session: after unlabelled warm-up calls, TIMING_ROUNDS
+    rounds each timing ``reps`` calls of each in turns (K6, CSR, CSR, K6,
+    K7, index_add_, index_add_, K7, K17a, K17b, floor, floor, K17b, K17a);
+    before the session, K17a's, K17b's and the floor's ms per call by CUDA
+    events over 20 calls in turns, as phase 19 times them late in the main
+    process. Returns ({name: median over the rounds of the device ms per
+    call}, {name: samples}, {name: kernels per call}, {name: ms per call}).
+    Runs in a process of its own
     (``device_times_subprocess``): sessions after a process's first lost
     kernel records on the H100, and a session before phase 15b's cost that
     one its coverage (PERF.md)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from homogenization_jl_tpu_torch.csrc import build as kbuild
     from homogenization_jl_tpu_torch.ops import interfaces as k_if
     from homogenization_jl_tpu_torch.ops import stencil as k_st
+    from homogenization_jl_tpu_torch.utils import fft_field as k_ff
 
     g = torch.Generator(device=dev).manual_seed(2222)
     st = k_st.build_lattice_stencil(base)
@@ -3520,9 +3590,16 @@ def launch_bound_device_times(base, dev, reps=50):
         "k7": lambda: k_if.segment_sum(vals, tab),
         "index_add": lambda: torch.zeros(tab.n_seg, device=dev).index_add_(0, keys, vals.view(-1)),
     }
+    shape = (32, 32, 32)
+    F = torch.fft.rfftn(torch.as_tensor(k_ff.pinned_noise(3, shape), device=dev)).contiguous()
+    f = torch.fft.irfftn(k_ff.spectral_filter_plain(F, shape, 1.5), s=shape).contiguous()
+    fns.update(k17a=lambda: k_ff.spectral_filter(F, shape, 1.5),
+               k17b=lambda: k_ff.exp_abs(f, ST1["alpha"]),
+               floor=lambda: kbuild.launch("hz_launch_floor"))
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
+    ms_per_call, _ = turns_ms({k: fns[k] for k in ("k17a", "k17b", "floor")}, 20)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.ones(1).to(dev)
         torch.cuda.synchronize()
@@ -3532,8 +3609,8 @@ def launch_bound_device_times(base, dev, reps=50):
                 fn()
         torch.cuda.synchronize()
         for r in range(TIMING_ROUNDS):
-            for x, y in (("k6", "csr_mv"), ("k7", "index_add")):
-                for k in (x, y, y, x):
+            for grp in (("k6", "csr_mv"), ("k7", "index_add"), ("k17a", "k17b", "floor")):
+                for k in grp + grp[::-1]:
                     with record_function(f"hz_{k}_{r}"):
                         for _ in range(reps):
                             fns[k]()
@@ -3549,25 +3626,34 @@ def launch_bound_device_times(base, dev, reps=50):
             samples[k].append(us / (cnt / per_call) / 1e3)
             kernels[k].append(cnt / (2 * reps))
     # one kernel per call (a lost record lowers the count, never raises it)
-    check(all(0.5 < c <= 1.0 for c in kernels["k6"] + kernels["k7"]),
-          f"3c: K6 / K7 kernels per call {kernels['k6']} {kernels['k7']}")
-    return {k: float(np.median(v)) for k, v in samples.items()}, samples, kernels
+    one = ("k6", "k7", "k17a", "k17b", "floor")
+    check(all(0.5 < c <= 1.0 for k in one for c in kernels[k]),
+          f"3c: kernels per call {[kernels[k] for k in one]}")
+    return {k: float(np.median(v)) for k, v in samples.items()}, samples, kernels, ms_per_call
 
 
 def device_times_subprocess(n, smi):
     """Phase 3c: ``launch_bound_device_times`` in a child process (its
     profiler session the process's first; the kernels' build is already on
     disk), read from the child's last line. Returns {kernel: {"device_ms",
-    "library_device_ms"}} for K6 (lattice_stencil) and K7 (coarse_gather)."""
+    "library_device_ms"}} for K6 (lattice_stencil) and K7 (coarse_gather),
+    {kernel: {"device_ms", "launch_floor_device_ms", "fresh_process_ms",
+    "launch_floor_fresh_process_ms"}} for K17 (spectral_filter, exp_abs)."""
     res = subprocess.run([sys.executable, os.path.abspath(__file__), "--device-times",
                           "--n", str(n)], capture_output=True, text=True, timeout=600)
     check(res.returncode == 0, f"3c: the device-time process failed (rc {res.returncode}): "
           f"{res.stderr[-3000:]}")
-    med, samples, kernels = json.loads(res.stdout.strip().splitlines()[-1])
+    med, samples, kernels, per_call = json.loads(res.stdout.strip().splitlines()[-1])
     say("3c", ok=True, device_ms_median=med, device_ms_samples=samples,
-        kernels_per_call=kernels, rounds=TIMING_ROUNDS, calls_per_turn=50, card=smi)
+        kernels_per_call=kernels, rounds=TIMING_ROUNDS, calls_per_turn=50,
+        k17_over_floor=dict(k17a=med["k17a"] / med["floor"], k17b=med["k17b"] / med["floor"]),
+        ms_per_call_fresh_process=per_call, card=smi)
+    k17 = dict(launch_floor_device_ms=med["floor"],
+               launch_floor_fresh_process_ms=per_call["floor"])
     return {"lattice_stencil": dict(device_ms=med["k6"], library_device_ms=med["csr_mv"]),
-            "coarse_gather": dict(device_ms=med["k7"], library_device_ms=med["index_add"])}
+            "coarse_gather": dict(device_ms=med["k7"], library_device_ms=med["index_add"]),
+            "spectral_filter": dict(device_ms=med["k17a"], fresh_process_ms=per_call["k17a"], **k17),
+            "exp_abs": dict(device_ms=med["k17b"], fresh_process_ms=per_call["k17b"], **k17)}
 
 
 def slice_phases(kbuild, dev, smi):
@@ -3680,8 +3766,9 @@ def main(argv=None):
     timing, report = check_kernels(solver, plan, coeff64, dev)
     timing_c, report_c = check_coarse_kernels(solver, coeff64, dev)
     timing.update(timing_c)
-    for name, times in device_times_subprocess(args.n, smi).items():
-        timing[name].update(times)
+    device_times = device_times_subprocess(args.n, smi)
+    for name in ("lattice_stencil", "coarse_gather"):
+        timing[name].update(device_times[name])
     torch.cuda.empty_cache()
     forms = check_new_forms(solver, plan, coeff64, dev)
     del coeff64
@@ -3910,6 +3997,8 @@ def main(argv=None):
     # ---- phases 19-21: the multishift recurrence and st1 -------------------
     timing_slice, launches_slice = slice_phases(kbuild, dev, smi)
     timing.update(timing_slice)
+    for name in ("spectral_filter", "exp_abs"):
+        timing[name].update(device_times[name])
 
 
     path_launches = {name: launches_f[name] for name in KERNELS}

@@ -10,9 +10,12 @@ hash of the sources, so an edited source is never served a stale build.
 Nothing here includes PyTorch's headers: a build takes seconds, not minutes.
 
 ``LAUNCHES`` counts the launches of every hand kernel of the package (the
-CUDA ones and the Triton ones: ``chebyshev_update`` and K17's
-``spectral_filter`` and ``exp_abs``). A wrapper adds one exactly
-where it launches its kernel; the plain CPU path never counts.
+CUDA ones and the Triton ones, K3's ``chebyshev_update`` and K16's
+``direction_chebyshev``). A wrapper adds one exactly where it launches its kernel;
+the plain CPU path never counts. ``hz_launch_floor`` (an empty kernel,
+csrc/launch_floor.cu) is a measurement fixture on no path of the port: it
+is built with the rest only so that chip_smoke.py can time it as the least
+time a launch through ``launch`` takes.
 """
 
 from __future__ import annotations
@@ -141,6 +144,12 @@ _SIGNATURES = {
     "hz_basis_combine": [_I, _P, _P, _I, _P, _I, _I, _L, _P],
     # dtype, v, c, ldc, sums, K, N, first, stream
     "hz_basis_accumulate": [_I, _P, _P, _I, _P, _I, _L, _I, _P],
+    # F, out (complex64), total, D0, D1, L, p, stream
+    "hz_spectral_filter": [_P, _P, _I, _I, _I, _I, _D, _P],
+    # f, out (float32), N, alpha, stream
+    "hz_exp_abs": [_P, _P, _I, _D, _P],
+    # stream (an empty kernel)
+    "hz_launch_floor": [_P],
 }
 
 

@@ -21,7 +21,11 @@ itself is ``ops/interfaces.py::apply_mask``, on the same kernel):
 Kernel K18 (csrc/elementwise.cu) runs for CUDA tensors, one entry per
 pass, each product, sum and quotient rounded on its own: it gives the bits
 of the plain form (the JAX expression in PyTorch), which runs for CPU
-tensors. The scalars never reach the host.
+tensors. The scalars never reach the host. The diagonal's kernel stages a
+window of diag_ref's columns in shared memory and walks groups of rows
+(its one-piece form stores through a tile); its C entry plans the launches
+(one on every path of the port: a window that shared memory holds) and
+refuses more than 8 pieces.
 """
 
 from __future__ import annotations
@@ -142,6 +146,8 @@ def diagonal(coeff, diag_ref):
     E, P = coeff.shape
     n = diag_ref.shape[1]
     out = torch.empty((E, n), dtype=coeff.dtype, device=coeff.device)
+    if out.numel() == 0:
+        return out
     run("hz_ew_diagonal", coeff.dtype, coeff.data_ptr(), diag_ref.data_ptr(), out.data_ptr(),
         E, P, n)
     return out

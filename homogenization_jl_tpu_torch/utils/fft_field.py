@@ -1,4 +1,4 @@
-"""Spectral random coefficient fields (device, PyTorch + Triton kernel K17).
+"""Spectral random coefficient fields (device, PyTorch + CUDA kernel K17).
 
 Port of homogenization_jl_tpu/utils/fft_field.py (reference: tools/
 generate_st1_field.jl): white noise -> real FFT -> spectral filter
@@ -7,18 +7,21 @@ conductivity fields with power-law correlations.
 
 The FFTs are ``torch.fft.rfftn`` / ``irfftn`` (cuFFT on the card; they
 stand where the JAX function calls XLA's FFT). The two elementwise passes
-around them are kernel K17 (Triton, CUDA tensors):
+around them are kernel K17 (CUDA C++, csrc/fft_field.cu, CUDA tensors):
   * K17a ``spectral_filter(F, shape, p)``: F / (1 + |k|)^p on the complex64
     half spectrum, |k| computed from the indices in the kernel under the
     reference's folded convention (coord(m, i) = abs(abs(i - m - 1) - m),
     tools/generate_st1_field.jl:39: every axis but the last folds around
-    its Nyquist index; the last, the rfft axis, runs 0..n/2);
+    its Nyquist index; the last, the rfft axis, runs 0..n/2), the offset
+    decoded over [D0, D1, L] (``filter_dims``);
   * K17b ``exp_abs(f, alpha)``: exp(alpha * |f|).
-Each is one pass over a grid of 32^3 at setup, with nothing to stage:
-Triton serves as well as CUDA C++. The square root, quotient, power and
-exponential are libdevice's correctly rounded or full-range forms (not
-Triton's approximate defaults), so the kernels follow the plain forms
-(the JAX expressions in PyTorch, which run for CPU tensors) to a few ulp.
+Each is one pass over a grid of 32^3 at setup, far below a microsecond of
+bytes: what it costs is its launch, so each is one thread per entry
+launched through the ctypes launcher (csrc/build.py::launch). The square
+root, quotient, power and exponential are the CUDA math library's
+correctly rounded or full-range forms (no fast math), so the kernels
+follow the plain forms (the JAX expressions in PyTorch, which run for CPU
+tensors) to a few ulp.
 
 The noise: JAX draws it with its own PRNG (threefry), which PyTorch does
 not have. ``generate_field`` draws with a ``torch.Generator`` (or a seed),
@@ -30,15 +33,14 @@ data/st1_noise_key3_32.npy), so the card solves that very field.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
 import torch
 
-from ..csrc.build import LAUNCHES
+from ..csrc.build import LAUNCHES, launch
 
-_BLOCK = 1024
-_KERNELS = None
 _DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 # (seed, shape) -> the JAX draw jax.random.normal(PRNGKey(seed), shape, float32)
 _PINNED = {(3, (32, 32, 32)): "st1_noise_key3_32.npy"}
@@ -80,58 +82,32 @@ def exp_abs_plain(f, alpha):
     return torch.exp(alpha * torch.abs(f))
 
 
-def _kernels():
-    global _KERNELS
-    if _KERNELS is None:
-        import triton
-        import triton.language as tl
-
-        try:  # the module's home moved between Triton releases
-            from triton.language.extra import libdevice
-        except ImportError:
-            from triton.language.extra.cuda import libdevice
-
-        @triton.jit
-        def spectral_filter_kernel(f_ptr, total, D0, D1, L, p, BLOCK: tl.constexpr):
-            pid = tl.program_id(0)
-            offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-            m = offs < total
-            i2 = offs % L
-            t = offs // L
-            i1 = t % D1
-            i0 = t // D1
-            h0 = D0 // 2
-            h1 = D1 // 2
-            k0 = tl.abs(tl.abs(i0 - h0) - h0).to(tl.float32)
-            k1 = tl.abs(tl.abs(i1 - h1) - h1).to(tl.float32)
-            k2f = i2.to(tl.float32)
-            kk = k0 * k0 + k1 * k1 + k2f * k2f
-            den = libdevice.pow(1.0 + libdevice.sqrt(kk), p)
-            re = tl.load(f_ptr + 2 * offs, mask=m)
-            im = tl.load(f_ptr + 2 * offs + 1, mask=m)
-            tl.store(f_ptr + 2 * offs, tl.div_rn(re, den), mask=m)
-            tl.store(f_ptr + 2 * offs + 1, tl.div_rn(im, den), mask=m)
-
-        @triton.jit
-        def exp_abs_kernel(f_ptr, out_ptr, N, alpha, BLOCK: tl.constexpr):
-            pid = tl.program_id(0)
-            offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-            m = offs < N
-            f = tl.load(f_ptr + offs, mask=m)
-            tl.store(out_ptr + offs, libdevice.exp(alpha * tl.abs(f)), mask=m)
-
-        _KERNELS = (triton, spectral_filter_kernel, exp_abs_kernel)
-    return _KERNELS
-
-
 def _route(fn, t, dtype):
     if t.dtype != dtype:
         raise TypeError(f"{fn}: dtype {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{fn}: the input must be contiguous")
-    if t.device.type not in ("cpu", "cuda"):
+    kind = t.device.type
+    if kind not in ("cpu", "cuda"):
         raise ValueError(f"{fn}: unsupported device {t.device}")
-    return t.device.type == "cuda"
+    return kind == "cuda"
+
+
+@functools.lru_cache(maxsize=64)
+def filter_dims(shape: tuple):
+    """(D0, D1, L, total) of K17a's decode for a real grid of ``shape`` (a
+    tuple of up to 3 ints): its half spectrum as [D0, D1, L], leading axes
+    of 1 for fewer than 3, and the entries D0 D1 L (below 2^31: the kernel
+    decodes in 32 bits). Cached: the wrapper's host time is the pass's
+    cost."""
+    if not 1 <= len(shape) <= 3:
+        raise ValueError("spectral_filter: the kernel takes 1 to 3 axes")
+    D0, D1 = ((1, 1) + shape[:-1])[-2:]
+    L = shape[-1] // 2 + 1
+    total = D0 * D1 * L
+    if total >= 2**31:
+        raise ValueError(f"spectral_filter: {total} entries, the kernel takes below 2^31")
+    return D0, D1, L, total
 
 
 def spectral_filter(F, shape, p: float = 1.5):
@@ -141,20 +117,14 @@ def spectral_filter(F, shape, p: float = 1.5):
     for CPU tensors."""
     shape = tuple(int(s) for s in shape)
     fshape = shape[:-1] + (shape[-1] // 2 + 1,)
-    if tuple(F.shape) != fshape:
+    if F.shape != fshape:
         raise ValueError(f"spectral_filter: F {tuple(F.shape)}, expected {fshape}")
     if not _route("spectral_filter", F, torch.complex64):
         return spectral_filter_plain(F, shape, p)
-    if len(shape) > 3:
-        raise ValueError("spectral_filter: the kernel takes up to 3 axes")
-    lead = (1,) * (3 - len(shape)) + shape[:-1]
-    triton, kern, _ = _kernels()
-    out = F.clone()
-    total = out.numel()
+    D0, D1, L, total = filter_dims(shape)
+    out = torch.empty_like(F)
     LAUNCHES["spectral_filter"] += 1
-    kern[(triton.cdiv(total, _BLOCK),)](
-        torch.view_as_real(out), total, lead[-2], lead[-1], fshape[-1], float(p),
-        BLOCK=_BLOCK, num_warps=4)
+    launch("hz_spectral_filter", F.data_ptr(), out.data_ptr(), total, D0, D1, L, float(p))
     return out
 
 
@@ -163,11 +133,12 @@ def exp_abs(f, alpha: float):
     K17b for CUDA tensors, the plain form for CPU tensors."""
     if not _route("exp_abs", f, torch.float32):
         return exp_abs_plain(f, alpha)
-    triton, _, kern = _kernels()
-    out = torch.empty_like(f)
     N = f.numel()
+    if N >= 2**31:
+        raise ValueError(f"exp_abs: {N} entries, the kernel takes below 2^31")
+    out = torch.empty_like(f)
     LAUNCHES["exp_abs"] += 1
-    kern[(triton.cdiv(N, _BLOCK),)](f, out, N, float(alpha), BLOCK=_BLOCK, num_warps=4)
+    launch("hz_exp_abs", f.data_ptr(), out.data_ptr(), N, float(alpha))
     return out
 
 

@@ -14,7 +14,8 @@ float32 and float64:
   * every K18 entry, K1's mask store (y * mask of the unmasked output, in
     both the apply and the residual form), K10's r_out and x_zero forms and
     K3's x_zero form bitwise equal to their plain forms, den == 0 and
-    s == 0 included;
+    s == 0 included; K18's diagonal over the launches its C entry plans
+    (narrow widths, the one-piece tile, windows) too;
   * the gather-sharded solver through an NCCL group of one rank equal to
     the single-device solver bit for bit, and on 2 spawned ranks that
     share the card through a gloo group within 1e-9 of it, K12's
@@ -203,6 +204,33 @@ def test_elementwise_kernels_equal_plain(cuda, dtype):
     y = u.clone()
     t_if.apply_mask(y, m, out=y)
     assert torch.equal(_bits(y), _bits(u * m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("P,n", [(1, 969), (1, 35), (7, 4), (7, 10), (7, 35), (7, 165), (7, 969),
+                                 (7, 5000), (1, 6000), (8, 35)],
+                         ids=["P1-969", "P1-35", "P7-4", "P7-10", "P7-35", "P7-165", "P7-969",
+                              "P7-5000-windows", "P1-6000-windows", "P8-35"])
+def test_diagonal_launches_equal_plain(cuda, dtype, P, n):
+    """K18's diagonal over the launches its C entry plans: narrow widths
+    (several row groups a block), a row tail, the one-piece tile, rows too
+    wide for shared memory (windows, in float64 at least), the most pieces
+    it takes; bitwise equal to the plain form, one count a call. More
+    pieces than it takes are refused."""
+    g = torch.Generator(device=cuda).manual_seed(P * 1000 + n)
+    E = 4 * 333 + 1
+    c = torch.rand((E, P), generator=g, device=cuda, dtype=dtype) + 0.5
+    dref = torch.randn((P, n), generator=g, device=cuda, dtype=dtype)
+    n0 = LAUNCHES["elementwise"]
+    got = t_ew.diagonal(c, dref)
+    torch.cuda.synchronize()
+    assert LAUNCHES["elementwise"] == n0 + 1
+    assert torch.equal(_bits(got), _bits(t_ew.diagonal_plain(c, dref)))
+    if P == 8:
+        with pytest.raises(RuntimeError, match="hz_ew_diagonal"):
+            t_ew.diagonal(torch.ones((E, 9), device=cuda, dtype=dtype),
+                          torch.ones((9, n), device=cuda, dtype=dtype))
 
 
 @pytest.mark.cuda
