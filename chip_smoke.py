@@ -78,8 +78,9 @@ then exits non-zero without the final line):
      history and solution must be bitwise equal to the first;
   6. the same problem at n = 16 (23,814,144 DOFs) with coarse="chol" (the
      dense Cholesky coarse solve);
-  7. the flagship driver at full size, as scripts/run_flagship.py calls it:
-     checkerboard_homogenization(2, dim=3, refinements=4, geometry=
+  7. the flagship driver at full size, as scripts/run_flagship.py calls it,
+     through the port's entry point (run_flagship.flagship; its JSON line
+     is printed): checkerboard_homogenization(2, dim=3, refinements=4, geometry=
      "lattice", float32, tolerance=1e-4, seed=7, coarse="mg", smoother=
      "chebyshev", inner="pcg", coarse_mg_tol=5e-2): 190,513,152 DOFs, one
      outer step; sigma within 1e-3 of the TPU record 1.2947696447 (7 PCG
@@ -105,7 +106,8 @@ then exits non-zero without the final line):
      residual form unshifted (b - A x summed as is), which stalls above
      1e-3, and the error of both forms' fresh residual against float64;
  10. the flagship driver with FLAGSHIP_INNER=vcycle, as
-     scripts/run_flagship.py calls it: phase 7's call with
+     scripts/run_flagship.py calls it (run_flagship.flagship, its line
+     printed): phase 7's call with
      smoother="cg_exact", inner="vcycle"; sigma within 1e-3 of the TPU
      record 1.2947099209 (12 cycles; ACCURACY.md) in at most 24 cycles;
  11. K11, the slab combine, at full size: the main-path problem in cube
@@ -244,6 +246,38 @@ then exits non-zero without the final line):
      of seed 3 (190,513,152 DOFs): contrast within 0.1% of 60,794, the
      residual 1.1e-3 within 12 PCG iterations and 3.4e-5 within 16; the
      history, seconds per PCG iteration (CUDA events), setup times, peak;
+ 22. the Poisson demos (models/poisson.py), float64: (a) BASELINE config 1
+     as tests/test_multigrid.py:71-96 runs it (hypercube(2, 8, scale=1/8),
+     3 levels, Cholesky, f = 1, V-cycles from zero): |r| <= 1e-8 within 30
+     cycles; (b) BASELINE config 3, checkerboard_hypercube_multigrid(2,
+     dim=3, refinements=3, max_cycles=12): |r| below 1e-4 of the first
+     (the JAX test's bar); each history against the JAX package's CPU
+     record (constants below) entry by entry, |h_i - j_i| <= max(1e-9 j_i,
+     1e-12 j_0); (c) checkerboard_hypercube_multigrid(32, dim=3,
+     refinements=4, coarse="mg", max_cycles=5) (190,513,152 DOFs) twice:
+     the histories and x bitwise equal, cycle i's contraction at most 1.1 x
+     cycle i's of the JAX record at n = 4 (coarse "chol"), K1, K2, K4, K5,
+     K10, K6 and K7 launched; seconds per V-cycle (CUDA events), setup
+     seconds, peak memory, launches;
+ 23. phase 8's recurrence (3.84M DOFs, float64, two outer steps) in both
+     geometries with checkpoint_dir= a temporary directory and
+     save_level=2, then resumed from step_0.npz: the resumed sigma and last
+     residual bitwise equal to the uninterrupted run's; every .vtu re-parsed:
+     E x n_local(2) points, the values the step file's x at those DOFs
+     bitwise; checkerboard.vtu's cells and values; st1_multigrid(8, dim=3,
+     refinements=2, float32, method="pcg", save=): its file parses with E x
+     n_local(2) points and the solution's values bitwise;
+ 24. the entry points in child processes started together (at most 300
+     s): python -m homogenization_jl_tpu_torch.run_flagship 2 1 1e-3 (its
+     last line has every key of the JAX script's line); python -m
+     torch.distributed.run --standalone --nproc-per-node=1 -m
+     homogenization_jl_tpu_torch.parallel.run_slab --kind sharded (--cubes
+     8 --levels 3 --compare) and --kind ordered_driver --coarse mg (--cubes
+     1 --levels 2 --smoother chebyshev --compare): rank 0's line parses, the
+     world of one equal to the single device (residual norms and x; sigma)
+     and the gather-sharded path's kernels launched; profile_trace around
+     one PCG iteration in a child process (``--profile-trace``): one trace
+     file, naming K1's kernel;
 then one JSON line with the kernels (each kernel's launches on its path:
 K4, K5 and K10 on phase 10, K8 on phase 8's ordered run, K11 on phase 13,
 K12's cross-shard kernels on phase 15d, summed over its ranks, K16's apply
@@ -263,6 +297,11 @@ Usage: python3 chip_smoke.py            (one card, full size)
                                         (phase 20c's call twice with its
                                          seed, twice without, a digest of
                                          its library calls: one JSON line)
+       python3 chip_smoke.py --profile-trace DIR
+                                        (phase 24's child: one PCG
+                                         iteration inside profile_trace(DIR),
+                                         the trace's kernels as one JSON
+                                         line)
 """
 
 from __future__ import annotations
@@ -274,6 +313,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -535,6 +575,57 @@ SHIFTED_TOL = 1e-8
 ST1 = dict(n=32, dim=3, refinements=4, alpha=100.0, seed=3, max_cycles=40, coarse="mg")
 ST1_CONTRAST = 60_794.0
 ST1_MARKS = ((1.1e-3, 12), (3.4e-5, 16))
+# phase 22: the Poisson demos (models/poisson.py). The JAX package's
+# histories on the CPU (float64): (a) BASELINE config 1 as
+# tests/test_multigrid.py:71-96 runs it (hypercube(2, 8, scale=1/8), 3
+# levels, Cholesky, f = 1, V-cycles from zero until |r| <= 1e-8); (b)
+# BASELINE config 3, checkerboard_hypercube_multigrid(2, dim=3,
+# refinements=3, max_cycles=12); (c)'s yardstick, the same function at
+# n = 4 with refinements = 4 and max_cycles = 8 (coarse="chol": at n = 4
+# the function refuses "mg", whose default dense limit does not coarsen a
+# 4^3 base)
+CONFIG1_JAX_HISTORY = (0.010612690556119783, 0.00023839619886641011, 1.2243331975884738e-05,
+                       8.379701812230068e-07, 5.4248634679862254e-08, 3.384884626327244e-09)
+CONFIG3_JAX_HISTORY = (6.021048120468745, 1.3960548217202546, 0.4164353183743639,
+                       0.13615655869677326, 0.04811273375912405, 0.01682261481762168,
+                       0.005364848298852324, 0.0018635672950247223, 0.0006873773397280004,
+                       0.0002499024697484937, 8.242861906171413e-05, 1.9031995471951718e-05)
+POISSON_N4_JAX_HISTORY = (27.654347323122725, 7.860388556810069, 3.3635396050443407,
+                          1.6467368136421217, 0.8493051516739729, 0.4460817030317405,
+                          0.2344763408463265, 0.12210985283463476)
+# a card history entry h_i against JAX's j_i: |h_i - j_i| <= max(1e-9 j_i,
+# 1e-12 j_0). Rounding differences scale with the first residual, not with
+# the entry: on the CPU the port's config 1 history differs from JAX's by
+# 3.5e-9 relative at its last entry (3.2e-7 of the first), 1.1e-15 of the
+# first (tests/test_torch_poisson.py)
+POISSON_HISTORY_REL = 1e-9
+POISSON_HISTORY_FLOOR = 1e-12
+# (c): hypercube(3, 32), refinements = 4 (190,513,152 DOFs), coarse="mg",
+# float64, 5 cycles, run twice; cycle i's contraction at most 1.1 x that
+# of the n = 4 history (the port on the CPU: n = 8 within 1% of n = 4 at
+# every cycle)
+POISSON_FULL = dict(n=32, dim=3, refinements=4, coarse="mg", max_cycles=5)
+POISSON_RATE_MARGIN = 1.1
+# K1, K2 (combine and constraint), K4, K5 and K10 on every cycle; the
+# coarse solve: K7 (chol, beside the library Cholesky) or K6 and K7 (mg)
+POISSON_CHOL_PATH = ("element_apply", "structured_combine", "transfer", "masked_dot",
+                     "cg_update", "coarse_gather")
+POISSON_MG_PATH = POISSON_CHOL_PATH + ("lattice_stencil",)
+# phase 23: phase 8's recurrence with step files and VTK files of level 2,
+# then resumed from step_0.npz: sigma and the last residual bitwise equal
+SAVE_LEVEL = 2
+# and st1_multigrid(save=) on phase 21's solve cut to an 8^3 base and 2
+# refinements (its finest level is level 2: a 15 MB file; at phase 21's
+# n = 32 level 2 alone is 0.95 GB of base64), its own noise draw, alpha 3
+ST1_SAVE = dict(n=8, dim=3, refinements=2, seed=3, max_cycles=10, coarse="chol")
+# phase 24: the entry points in child processes, started together
+# (scripts/run_flagship.py's line; run_slab's sharded kinds under torchrun
+# in a world of one; profile_trace in a fresh process)
+ENTRY_TIMEOUT_S = 300
+FLAGSHIP_LINE_KEYS = ("sigma", "sigma_steps", "cycles_per_step", "residuals", "wall_s", "n",
+                      "refinements", "tolerance")
+SHARDED_CLI_PATH = ("element_apply", "gather_combine", "transfer", "masked_dot", "cg_update",
+                    "coarse_gather")
 
 
 def bound(nbytes, flops):
@@ -1583,11 +1674,13 @@ def small_solve_error(hz, dev, n, **kw):
 # phases 7 and 8: the homogenization driver
 # --------------------------------------------------------------------- #
 def flagship_driver(hz, kbuild, dev, timing, smi):
-    """Phase 7: scripts/run_flagship.py's call at full size on the card.
-    Returns the launches of the run and its mean seconds per iteration."""
+    """Phase 7: scripts/run_flagship.py's call at full size on the card,
+    through the entry point's function (run_flagship.flagship), whose line
+    it prints. Returns the launches of the run and its mean seconds per
+    iteration."""
     import torch
 
-    from homogenization_jl_tpu_torch.models.checkerboard import checkerboard_homogenization
+    from homogenization_jl_tpu_torch import run_flagship
     from homogenization_jl_tpu_torch.solver import multigrid as k_mg
 
     # K18's diagonal shares the "elementwise" count: its own launches (one
@@ -1604,16 +1697,14 @@ def flagship_driver(hz, kbuild, dev, timing, smi):
     t0 = time.perf_counter()
     k_mg.diagonal_sum = counted_diagonal
     try:
-        sigma, trace = checkerboard_homogenization(
-            **FLAGSHIP, geometry="lattice", dtype=torch.float32, tolerance=1e-4,
-            seed=7, coarse="mg", smoother="chebyshev", inner="pcg",
-            solver_opts=dict(smooth_precision="high", coarse_mg_tol=5e-2),
-            return_trace=True, device=dev,
-        )
+        record, trace = run_flagship.flagship(FLAGSHIP["refinements"], FLAGSHIP["n"], 1e-4,
+                                              inner="pcg", device=dev, verbose=False)
     finally:
         k_mg.diagonal_sum = diagonal_sum
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    print(json.dumps(record), flush=True)  # the entry point's line
+    sigma = record["sigma"]
     launches = dict(kbuild.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     check(all(launches[k] > 0 for k in FLAGSHIP_PATH), f"flagship: a kernel never ran: {launches}")
@@ -1809,23 +1900,22 @@ def bench_vcycle(hz, kbuild, plan, sigma, b_np, dev, smi, dense):
 
 def flagship_vcycle(kbuild, dev, smi):
     """Phase 10: scripts/run_flagship.py with FLAGSHIP_INNER=vcycle at full
-    size. Returns the launches of the run."""
+    size, through run_flagship.flagship, whose line it prints. Returns the
+    launches of the run."""
     import torch
 
-    from homogenization_jl_tpu_torch.models.checkerboard import checkerboard_homogenization
+    from homogenization_jl_tpu_torch import run_flagship
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kbuild.reset_launches()
     t0 = time.perf_counter()
-    sigma, trace = checkerboard_homogenization(
-        **FLAGSHIP, geometry="lattice", dtype=torch.float32, tolerance=1e-4,
-        seed=7, coarse="mg", smoother="cg_exact", inner="vcycle",
-        solver_opts=dict(smooth_precision="high", coarse_mg_tol=5e-2),
-        return_trace=True, device=dev,
-    )
+    record, trace = run_flagship.flagship(FLAGSHIP["refinements"], FLAGSHIP["n"], 1e-4,
+                                          inner="vcycle", device=dev, verbose=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    print(json.dumps(record), flush=True)  # the entry point's line
+    sigma = record["sigma"]
     launches = dict(kbuild.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     check(all(launches[k] > 0 for k in FLAGSHIP_VCYCLE_PATH),
@@ -3679,6 +3769,343 @@ def slice_phases(kbuild, dev, smi):
     return timing, launches
 
 
+# --------------------------------------------------------------------- #
+# phases 22-24: the Poisson demos, step files and VTK, the entry points
+# --------------------------------------------------------------------- #
+def history_close(got, ref):
+    """The largest |h_i - j_i| / max(POISSON_HISTORY_REL j_i,
+    POISSON_HISTORY_FLOOR j_0) of a card history h against a JAX record j
+    (at most 1 passes)."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    check(got.shape == ref.shape, f"a history of {len(got)} entries, the record's {len(ref)}")
+    allowed = np.maximum(POISSON_HISTORY_REL * ref, POISSON_HISTORY_FLOOR * ref[0])
+    return float((np.abs(got - ref) / allowed).max())
+
+
+def poisson(hz, kbuild, dev, smi):
+    """Phase 22: BASELINE configs 1 and 3 against the JAX records, then the
+    demo at 190,513,152 DOFs with coarse="mg", twice."""
+    import torch
+
+    from homogenization_jl_tpu_torch.models import poisson as k_poisson
+    from homogenization_jl_tpu_torch.solver.multigrid import MultigridSolver
+
+    t_phase = time.perf_counter()
+    # (a) config 1, tests/test_multigrid.py:71-96's loop
+    base = hz.hypercube(2, 8, scale=1.0 / 8.0)
+    sigma = np.ones((base.nelements, 2))
+    solver = MultigridSolver(hz.build_grid_plan(base, 3, slot_tables=False), device=dev)
+    coeff = solver.coefficients(sigma, 0.0)
+    chol = solver.coarse_cholesky(sigma, 0.0)
+    x, _ = solver.zero_states()
+    b = k_poisson.local_unit_rhs(solver)
+    kbuild.reset_launches()
+    h1 = []
+    for _ in range(40):
+        x, r = solver.vcycle(x, b, coeff, chol)
+        h1.append(float(solver.residual_norm(r)))
+        if h1[-1] <= 1e-8:
+            break
+    launches_1 = dict(kbuild.LAUNCHES)
+    check(h1[-1] <= 1e-8 and len(h1) <= 30, f"22a: config 1 reached {h1[-1]} in {len(h1)} cycles")
+    check(all(launches_1[k] > 0 for k in POISSON_CHOL_PATH), f"22a: a kernel never ran: {launches_1}")
+    c1 = history_close(h1, CONFIG1_JAX_HISTORY)
+    check(c1 <= 1, f"22a: config 1's history is {c1} x its bar from JAX's: {h1}")
+    del solver, coeff, chol, x, b, r
+
+    # (b) config 3
+    kbuild.reset_launches()
+    h3, x3, _ = k_poisson.checkerboard_hypercube_multigrid(2, dim=3, refinements=3, max_cycles=12,
+                                                           device=dev)
+    launches_3 = dict(kbuild.LAUNCHES)
+    check(bool(torch.isfinite(x3).all()) and h3[-1] < 1e-4 * h3[0],
+          f"22b: config 3's contraction: {h3}")
+    check(all(launches_3[k] > 0 for k in POISSON_CHOL_PATH), f"22b: a kernel never ran: {launches_3}")
+    c3 = history_close(h3, CONFIG3_JAX_HISTORY)
+    check(c3 <= 1, f"22b: config 3's history is {c3} x its bar from JAX's: {h3}")
+    say("22ab", ok=True, config1=dict(history=h1, cycles=len(h1), vs_jax_bar=c1,
+                                      launches=launches_1),
+        config3=dict(history=h3, vs_jax_bar=c3, launches=launches_3))
+    del x3
+    torch.cuda.empty_cache()
+
+    # (c) at full size, twice; the first run's V-cycles between CUDA events
+    events, first_cycle = [], []
+    vcycle = MultigridSolver.vcycle
+
+    def timed_vcycle(self, *args, **kwargs):
+        if not events:
+            first_cycle.append(time.perf_counter())
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = vcycle(self, *args, **kwargs)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    runs = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kbuild.reset_launches()
+        t0 = time.perf_counter()
+        if i == 0:
+            MultigridSolver.vcycle = timed_vcycle
+        try:
+            hist, x, solver = k_poisson.checkerboard_hypercube_multigrid(**POISSON_FULL, device=dev)
+        finally:
+            MultigridSolver.vcycle = vcycle
+        torch.cuda.synchronize()
+        runs.append(dict(hist=hist, x=x, t0=t0, wall_s=time.perf_counter() - t0,
+                         launches=dict(kbuild.LAUNCHES), peak=torch.cuda.max_memory_allocated()))
+        dofs = solver.plan.base.nelements * solver.plan.n_local(POISSON_FULL["refinements"])
+        coarse = solver.coarse_kind
+        del solver, x
+    first, second = runs
+    check(dofs == 190_513_152 and coarse == "mg", f"22c: {dofs} DOFs, coarse {coarse}")
+    check(second["hist"] == first["hist"],
+          f"22c: the histories differ: {first['hist']} vs {second['hist']}")
+    check(torch.equal(_bits(second["x"]), _bits(first["x"])), "22c: the solutions differ")
+    check(all(first["launches"][k] > 0 for k in POISSON_MG_PATH),
+          f"22c: a kernel never ran: {first['launches']}")
+    h = first["hist"]
+    rates = [b_ / a for a, b_ in zip(h, h[1:])]
+    bars = [POISSON_RATE_MARGIN * b_ / a
+            for a, b_ in zip(POISSON_N4_JAX_HISTORY, POISSON_N4_JAX_HISTORY[1:])][:len(rates)]
+    check(all(math.isfinite(v) for v in h) and all(r <= c for r, c in zip(rates, bars)),
+          f"22c: contraction {rates} against {bars}")
+    sec = [e0.elapsed_time(e1) / 1e3 for e0, e1 in events]
+    # the host's setup: plan, solver, coefficients, coarse setup, start
+    say("22c", ok=True, dofs=dofs, coarse=coarse, history=h, rates=rates, rate_bars=bars,
+        second_run_bitwise_equal=True, sec_per_vcycle=sec,
+        sec_per_vcycle_mean=sum(sec) / len(sec), sec_per_vcycle_median=float(np.median(sec)),
+        setup_s=first_cycle[0] - first["t0"],
+        wall_s=[r["wall_s"] for r in runs], max_memory_allocated=[r["peak"] for r in runs],
+        launches=first["launches"], card=smi)
+    del runs, first, second
+    torch.cuda.empty_cache()
+    say(22, ok=True, wall_s=time.perf_counter() - t_phase)
+
+
+_VTU_TYPES = {"Float64": np.float64, "Float32": np.float32, "Int64": np.int64,
+              "Int32": np.int32, "UInt8": np.uint8}
+
+
+def parse_vtu(path):
+    """{name: values} of every binary DataArray of a .vtu file, with the
+    piece's point and cell counts under "_points" / "_cells"."""
+    import base64
+    import struct
+
+    with open(path) as f:
+        text = f.read()
+    out = {}
+    for t, name, payload in re.findall(
+            r'<DataArray type="(\w+)" Name="([^"]+)"[^>]*format="binary">([^<]+)<', text):
+        raw = base64.b64decode(payload)
+        (nbytes,) = struct.unpack("<I", raw[:4])
+        check(len(raw) == 4 + nbytes, f"{path}: {name} holds {len(raw) - 4} of {nbytes} bytes")
+        out[name] = np.frombuffer(raw[4:], dtype=_VTU_TYPES[t])
+    piece = re.search(r'<Piece NumberOfPoints="(\d+)" NumberOfCells="(\d+)">', text)
+    out["_points"], out["_cells"] = int(piece.group(1)), int(piece.group(2))
+    return out
+
+
+def checkpoints_vtk(kbuild, dev, smi):
+    """Phase 23: phase 8's recurrence with step files and level-2 VTK files
+    in both geometries, resumed from step_0.npz; every file re-parsed; st1's
+    save=."""
+    import torch
+
+    from homogenization_jl_tpu_torch.mesh.reference import (
+        refined_reference,
+        with_contiguous_interface_layout,
+    )
+    from homogenization_jl_tpu_torch.models.checkerboard import checkerboard_homogenization
+    from homogenization_jl_tpu_torch.models.st1 import st1_multigrid
+    from homogenization_jl_tpu_torch.utils.checkpoint import load_step
+
+    t_phase = time.perf_counter()
+    top = RECURRENCE_2D["refinements"]
+    ref = with_contiguous_interface_layout(refined_reference(2, top + 1))
+    sel = ref.level_in_level(SAVE_LEVEL, top)
+    n_save, cells_save = ref.levels[SAVE_LEVEL].nnodes, ref.levels[SAVE_LEVEL].nelements
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    cwd = os.getcwd()
+    rep = {}
+    try:
+        os.chdir(tmp)  # save_level writes checkerboard.vtu into the working directory
+        for geometry, path in (("ordered", ORDERED_2D_PATH), ("lattice", LATTICE_2D_PATH)):
+            d = os.path.join(tmp, geometry)
+            os.makedirs(d)
+            kw = dict(**RECURRENCE_2D, dtype=torch.float64, tolerance=1e-8,
+                      smoother="chebyshev", inner="pcg", coarse="mg", seed=3,
+                      geometry=geometry, return_trace=True, device=dev)
+            kbuild.reset_launches()
+            t0 = time.perf_counter()
+            sigma, trace = checkerboard_homogenization(
+                **kw, checkpoint_dir=os.path.join(d, "ck"), save_level=SAVE_LEVEL,
+                save_prefix=os.path.join(d, "v"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kbuild.LAUNCHES)
+            check(all(launches[k] > 0 for k in path), f"23 {geometry}: a kernel never ran: {launches}")
+            check(len(trace.sigma_steps) == 2, f"23 {geometry}: {len(trace.sigma_steps)} steps")
+            os.replace("checkerboard.vtu", os.path.join(d, "checkerboard.vtu"))
+            kbuild.reset_launches()
+            t0 = time.perf_counter()
+            resumed, rtrace = checkerboard_homogenization(
+                **kw, resume_from=os.path.join(d, "ck", "step_0.npz"))
+            torch.cuda.synchronize()
+            wall_r = time.perf_counter() - t0
+            launches_r = dict(kbuild.LAUNCHES)
+            check(all(launches_r[k] > 0 for k in path),
+                  f"23 {geometry} resumed: a kernel never ran: {launches_r}")
+            check(resumed == sigma and rtrace.residuals[-1] == trace.residuals[-1],
+                  f"23 {geometry}: resumed sigma {resumed} (residual {rtrace.residuals}) vs "
+                  f"{sigma} ({trace.residuals}): {abs(resumed - sigma) / abs(sigma)} relative")
+            files = {}
+            for k in range(2):
+                st = load_step(os.path.join(d, "ck", f"step_{k}.npz"))
+                check(st["k"] == k and st["x"].dtype == np.float64
+                      and st["sigma"] == trace.sigma_steps[k], f"23 {geometry}: step_{k}.npz")
+                v = parse_vtu(os.path.join(d, f"v_{k}.vtu"))
+                E = st["x"].shape[0]
+                check(v["_points"] == E * n_save and v["_cells"] == E * cells_save
+                      and v["Points"].size == 3 * E * n_save,
+                      f"23 {geometry}: v_{k}.vtu has {v['_points']} points, E = {E}")
+                check(np.array_equal(v["v"], st["x"][:, sel].reshape(-1)),
+                      f"23 {geometry}: v_{k}.vtu's values are not the state's")
+                files[f"step_{k}"] = dict(E=E, total_radius=st["total_radius"],
+                                          vtu_bytes=os.path.getsize(os.path.join(d, f"v_{k}.vtu")))
+            cond = parse_vtu(os.path.join(d, "checkerboard.vtu"))
+            check(cond["_cells"] == files["step_0"]["E"]
+                  and set(np.unique(cond["a"]).tolist()) <= {1.0, 9.0},
+                  f"23 {geometry}: checkerboard.vtu")
+            rep[geometry] = dict(sigma=sigma, resumed_bitwise_equal=True, wall_s=wall,
+                                 resumed_wall_s=wall_r, cycles_per_step=trace.cycles_per_step,
+                                 resumed_cycles=rtrace.cycles_per_step, files=files,
+                                 launches=launches, resumed_launches=launches_r)
+        # st1's save= (the finest level, level 2)
+        kbuild.reset_launches()
+        path = os.path.join(tmp, "st1")
+        hist, x, solver, _ = st1_multigrid(**ST1_SAVE, dtype=torch.float32, method="pcg",
+                                           save=path, device=dev)
+        launches_s = dict(kbuild.LAUNCHES)
+        check(launches_s["spectral_filter"] > 0 and launches_s["element_apply"] > 0,
+              f"23 st1: a kernel never ran: {launches_s}")
+        v = parse_vtu(path + ".vtu")
+        E = solver.plan.base.nelements
+        check(v["_points"] == E * solver.plan.n_local(ST1_SAVE["refinements"])
+              and np.array_equal(v["v"], x.cpu().numpy().reshape(-1)),
+              f"23 st1: st1.vtu has {v['_points']} points, not the state's values")
+        rep["st1"] = dict(points=v["_points"], vtu_bytes=os.path.getsize(path + ".vtu"),
+                          history=hist, launches=launches_s)
+        del x, solver
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    say(23, ok=True, **rep, wall_s=time.perf_counter() - t_phase, card=smi)
+
+
+def profile_trace_child(logdir):
+    """``--profile-trace``: one PCG iteration of a small float32 solve
+    (hypercube(3, 8), 3 levels, Chebyshev, coarse "chol") inside
+    utils/logging.py::profile_trace(logdir), in this fresh process. Prints
+    the trace file and its kernels' names as one JSON line."""
+    import torch
+
+    import homogenization_jl_tpu_torch as hz
+    from homogenization_jl_tpu_torch.csrc import build as kbuild
+    from homogenization_jl_tpu_torch.utils.logging import profile_trace
+
+    kbuild.kernels_lib()
+    dev = torch.device("cuda", 0)
+    _, sigma, plan, b_np = problem(hz, 8, 3)
+    s = hz.MultigridSolver(plan, dtype=torch.float32, device=dev, smoother="chebyshev",
+                           coarse="chol")
+    coeff = s.coefficients(sigma, 0.0)
+    setup = s.coarse_setup(sigma, 0.0)
+    init, step = s.pcg_stepper(coeff, setup, s.estimate_lambda_max(coeff))
+    state = step(init(torch.as_tensor(b_np, dtype=torch.float32, device=dev)))
+    torch.cuda.synchronize()
+    kbuild.reset_launches()
+    with profile_trace(logdir):
+        state = step(state)
+    files = sorted(os.listdir(logdir))
+    with open(os.path.join(logdir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted({kernel_function(e["name"]) for e in events if e.get("cat") == "kernel"})
+    print(json.dumps(dict(files=files, kernels=kernels, launches=dict(kbuild.LAUNCHES))),
+          flush=True)
+
+
+def entry_points(dev, smi):
+    """Phase 24: the entry points in child processes, started together:
+    run_flagship's line, run_slab's sharded kinds under torchrun in a world
+    of one (each equal to the single device), profile_trace's file."""
+    import torch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_entry_")
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node=1", "-m", "homogenization_jl_tpu_torch.parallel.run_slab"]
+    cmds = {
+        "run_flagship": [sys.executable, "-m", "homogenization_jl_tpu_torch.run_flagship",
+                         "2", "1", "1e-3"],
+        "sharded": torchrun + ["--kind", "sharded", "--cubes", "8", "--levels", "3", "--compare"],
+        "ordered_driver": torchrun + ["--kind", "ordered_driver", "--coarse", "mg", "--cubes", "1",
+                                      "--levels", "2", "--smoother", "chebyshev", "--compare"],
+        "profile_trace": [sys.executable, os.path.abspath(__file__), "--profile-trace",
+                          os.path.join(tmp, "trace")],
+    }
+    procs, out = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for name, cmd in cmds.items():
+            logs = [open(os.path.join(tmp, f"{name}.{k}"), "w") for k in ("out", "err")]
+            # a process group of its own: torchrun's ranks are killed with it
+            procs[name] = (subprocess.Popen(cmd, cwd=ROOT, stdout=logs[0], stderr=logs[1],
+                                            start_new_session=True), logs)
+        for name, (proc, logs) in procs.items():
+            rc = proc.wait(timeout=max(ENTRY_TIMEOUT_S - (time.perf_counter() - t0), 1))
+            for f in logs:
+                f.close()
+            with open(os.path.join(tmp, f"{name}.out")) as f:
+                lines = [ln for ln in f.read().splitlines() if ln.startswith("{")]
+            with open(os.path.join(tmp, f"{name}.err")) as f:
+                err = f.read()
+            check(rc == 0 and lines, f"24 {name}: exit {rc}: {err[-3000:]}")
+            out[name] = dict(json.loads(lines[-1]), wall_s=time.perf_counter() - t0)
+    finally:
+        for proc, logs in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            for f in logs:
+                f.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    f = out["run_flagship"]
+    check(all(k in f for k in FLAGSHIP_LINE_KEYS) and math.isfinite(f["sigma"])
+          and (f["n"], f["refinements"], f["tolerance"]) == (1, 2, 1e-3),
+          f"24 run_flagship: the line {f}")
+    sh = out["sharded"]
+    check(sh["rank"] == 0 and sh["device"] == torch.cuda.get_device_name(0)
+          and sh["hist"] == sh["hist_single"] and sh["x_rel_diff"] == 0.0,
+          f"24 sharded: a world of one against the single device: {sh}")
+    check(all(sh["launches"][k] > 0 for k in SHARDED_CLI_PATH),
+          f"24 sharded: a kernel never ran: {sh['launches']}")
+    od = out["ordered_driver"]
+    check(od["rank"] == 0 and od["sigma"] == od["sigma_single"] and math.isfinite(od["sigma"]),
+          f"24 ordered_driver: a world of one against the single device: {od}")
+    check(all(od["launches"][k] > 0 for k in FLAGSHIP_ORDERED_PATH),
+          f"24 ordered_driver: a kernel never ran: {od['launches']}")
+    pt = out["profile_trace"]
+    check(len(pt["files"]) == 1 and "element_apply_kernel" in pt["kernels"],
+          f"24 profile_trace: {pt}")
+    say(24, ok=True, **out, wall_s=time.perf_counter() - t0, card=smi)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=32, help="cubes per axis of the base")
@@ -3691,6 +4118,9 @@ def main(argv=None):
     ap.add_argument("--config4-repeat", action="store_true",
                     help="phase 20c's call twice with its seed and twice without, with a "
                     "digest of its library calls (one JSON line), and exit")
+    ap.add_argument("--profile-trace", metavar="DIR",
+                    help="phase 24's child: one PCG iteration inside profile_trace(DIR); "
+                    "print the trace's kernels (one JSON line) and exit")
     args = ap.parse_args(argv)
     t_all = time.perf_counter()
 
@@ -3704,6 +4134,9 @@ def main(argv=None):
     from homogenization_jl_tpu_torch.csrc import build as kbuild
     from homogenization_jl_tpu_torch.ops.chebyshev import chebyshev_update
 
+    if args.profile_trace:
+        profile_trace_child(args.profile_trace)
+        return
     if args.device_times:
         from homogenization_jl_tpu_torch.csrc import build as kbuild
 
@@ -4000,6 +4433,11 @@ def main(argv=None):
     for name in ("spectral_filter", "exp_abs"):
         timing[name].update(device_times[name])
 
+    # ---- phases 22-24: the Poisson demos, step files and VTK, entry points --
+    poisson(hz, kbuild, dev, smi)
+    checkpoints_vtk(kbuild, dev, smi)
+    entry_points(dev, smi)
+    kbuild.reset_launches()
 
     path_launches = {name: launches_f[name] for name in KERNELS}
     path_launches["gather_combine"] = launches_2d["ordered"]["gather_combine"]

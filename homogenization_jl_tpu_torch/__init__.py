@@ -20,13 +20,20 @@ Layer map (host precompute in NumPy, device compute in PyTorch):
              with the aux hierarchy of coarse.py; FMG + PCG); CG and
              multishift CG (cg.py; per-shift update K13, CUDA, ops/multishift)
   models/  — checkerboard conductivity fields and the homogenization
-             driver; the multishift recurrence (Jacobi CG step, M-inner
-             product, basis passes: K14, CUDA, ops/recurrence and K9);
-             the st1 field solve
-  utils/   — st1 spectral fields (the FFTs and K17, Triton)
+             driver (step files and resume, VTK export); the multishift
+             recurrence (Jacobi CG step, M-inner product, basis passes:
+             K14, CUDA, ops/recurrence and K9); the st1 field solve; the
+             Poisson demos (poisson.py: BASELINE configs 1 and 3)
+  utils/   — st1 spectral fields (the FFTs and K17, CUDA), step files
+             (checkpoint.py, the JAX package's npz format), the VTU writer
+             (vtk.py), StepLogger and the torch.profiler trace (logging.py)
   parallel/ — the sharded solvers over torch.distributed (SlabGroup;
              SlabShardedMultigridSolver, slab combine K11, CUDA;
-             ShardedMultigridSolver, gather-sharded combine K12)
+             ShardedMultigridSolver, gather-sharded combine K12) and
+             run_slab's torchrun entry point
+Entry points (python -m homogenization_jl_tpu_torch.<name>): bench,
+run_flagship, run_mixed_pcg, run_st1, run_multishift_compare,
+parallel.run_slab.
 """
 
 from .mesh.grid import Mesh, hypercube, interior_nodes

@@ -45,14 +45,25 @@ every rank of the group, each integral summed over the ranks:
 homogenization_multishift (the one-Lanczos-pass estimator, fixed domain);
 ``return_trace`` then returns its stats dict.
 
-Not ported yet (``NotImplementedError``, ROADMAP.md queue 1):
-``checkpoint_dir`` / ``resume_from`` and ``save_level`` (item 11, utils/).
+``checkpoint_dir`` writes each solved outer step's state as
+``step_<k>.npz`` (utils/checkpoint.py, the JAX package's format) and
+``resume_from`` takes such a file: the run marks its step as solved, runs
+only that step's shrink and goes on (the ordered geometry first slices its
+mesh to the file's radius; the lattice geometry keeps its full box and
+decides from R0, not the file, whether the coarse solve needs the masked
+forms). ``save_level`` writes ``checkerboard.vtu`` (the conductivity, in
+the working directory) and each step's solution at that level as
+``<save_prefix>_<k>.vtu`` (utils/vtk.py). With a ``device_mesh`` the ranks'
+rows are joined in rank order and rank 0 alone writes, so the files are
+the ones a single-device run writes for the same element order; a resumed
+rank cuts the file's state to its rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 
 import numpy as np
@@ -65,6 +76,8 @@ from ..ops.interfaces import apply_mask
 from ..ops.plan import build_grid_plan
 from ..solver.coarse import coarsening_depth
 from ..solver.multigrid import CHEBYSHEV_SMOOTHERS, MultigridSolver, resolve_device
+from ..utils.checkpoint import load_step, save_step
+from ..utils.vtk import export_conductivity, export_solution, level_columns
 
 
 # ---------------------------------------------------------------------------
@@ -252,13 +265,6 @@ class HomogenizationTrace:
     iteration_seconds: list = dataclasses.field(default_factory=list)
 
 
-_NOT_PORTED = {
-    "checkpoint_dir": "checkpoints (ROADMAP.md queue 1 item 11, utils/checkpoint.py)",
-    "resume_from": "checkpoints (ROADMAP.md queue 1 item 11, utils/checkpoint.py)",
-    "save_level": "VTK export (ROADMAP.md queue 1 item 11, utils/vtk.py)",
-}
-
-
 def _inner_loop(k, step_once, integral, sigma, domain_area, tolerance, max_cycles,
                 verbose, rnorm):
     """Iterate the inner solve until the sigma increment stabilizes
@@ -341,13 +347,12 @@ def checkerboard_homogenization(
     ``device_mesh``: a ``SlabGroup``: every rank calls the driver, and the
     tensors live on the group's device (the slab-sharded solver for
     "lattice", the gather-sharded one for "ordered").
+    ``checkpoint_dir`` / ``resume_from``: a step file per solved outer step,
+    and the step file to resume after; ``save_level`` / ``save_prefix``:
+    VTK files of the conductivity and of each step's solution at that level
+    (see the module docstring).
     Returns sigma, or (sigma, HomogenizationTrace) with ``return_trace``.
     """
-    unported = [("checkpoint_dir", checkpoint_dir), ("resume_from", resume_from),
-                ("save_level", save_level)]
-    for name, value in unported:
-        if value is not None:
-            raise NotImplementedError(f"{name}= is not ported yet: {_NOT_PORTED[name]}")
     if device_mesh is not None:
         from ..parallel.group import SlabGroup
 
@@ -395,6 +400,8 @@ def checkerboard_homogenization(
         coarse=coarse, coarse_dense_limit=coarse_dense_limit, max_cycles=max_cycles,
         verbose=verbose, smoother=smoother, shrink=shrink, solver_opts=solver_opts,
         inner=inner, device=device,
+        out=_StepOutput(save_level, save_prefix, checkpoint_dir, device_mesh),
+        resume=_load_resume(resume_from, n, refinements),
     )
     if geometry == "lattice":
         sigma, trace = _checkerboard_lattice(lattice_order=lattice_order,
@@ -417,7 +424,10 @@ def _to_device(dtype, device):
     return to_dev
 
 
-def _field_and_xi(dim, R0, xi, cond_field, seed):
+def _field_and_xi(dim, R0, xi, cond_field, seed, resume=None):
+    """(xi, the conductivity field, the run's generator); a resumed run
+    takes the field and xi of its step file (the field is drawn first all
+    the same, as the JAX driver does)."""
     if xi is None:
         xi = np.ones(dim) / np.sqrt(dim)  # reference random_unit_vec (:62-65)
     xi = np.asarray(xi, dtype=np.float64)
@@ -426,13 +436,80 @@ def _field_and_xi(dim, R0, xi, cond_field, seed):
         cond_field = generate_conductivity(dim, 2 * R0, rng)
     elif cond_field.shape != (2 * R0,) * dim + (dim,):
         raise ValueError(f"cond_field shape {cond_field.shape}, expected {(2 * R0,) * dim + (dim,)}")
+    if resume is not None:
+        return resume["xi"], resume["cond_field"], rng
     return xi, cond_field, rng
+
+
+def _load_resume(path, n, refinements):
+    """The state of the step file ``path`` (None for None), which must be
+    of this run's n and refinements."""
+    if path is None:
+        return None
+    state = load_step(path)
+    if (state["n"], state["refinements"]) != (n, refinements):
+        raise ValueError(
+            f"{path}: n={state['n']}, refinements={state['refinements']}; this run has "
+            f"n={n}, refinements={refinements}"
+        )
+    return state
+
+
+def _resume_state(resume, to_dev):
+    """(x, b, v_prev, the step to resume after) of a step file, each state
+    cut to the solver's rows by ``to_dev``."""
+    v_prev = resume["v_prev"]
+    return (to_dev(resume["x"]), to_dev(resume["b"]),
+            None if v_prev is None else to_dev(v_prev), resume["k"])
+
+
+@dataclasses.dataclass
+class _StepOutput:
+    """The driver's files: the VTK files of ``save_level`` (the
+    conductivity once, then each step's solution at that level) and the
+    step files of ``checkpoint_dir``. With a ``group`` the ranks' rows are
+    joined in rank order (every rank takes part) and rank 0 alone writes."""
+
+    save_level: int | None
+    save_prefix: str
+    checkpoint_dir: str | None
+    group: object = None
+
+    def _writes(self) -> bool:
+        return self.group is None or self.group.rank == 0
+
+    def _joined(self, t, E):
+        if self.group is None or t is None:
+            return t
+        from ..parallel.sharding import join_rows
+
+        return join_rows(self.group, t, E)
+
+    def conductivity(self, base, sigma_el):
+        if self.save_level is not None and self._writes():
+            export_conductivity("checkerboard", base, sigma_el)
+
+    def step(self, k, plan, x, b, v_prev, **state):
+        """After the solve of step k: the level's solution and the step
+        file; ``state`` holds the scalars, the field and xi."""
+        E = plan.base.nelements
+        if self.save_level is not None:
+            # the level's columns only, taken on the device
+            cols = self._joined(level_columns(plan, self.save_level, x), E)
+            if self._writes():
+                export_solution(f"{self.save_prefix}_{k}", plan, self.save_level, cols)
+        if self.checkpoint_dir is not None:
+            x, b, v_prev = (self._joined(t, E) for t in (x, b, v_prev))
+            if self._writes():
+                os.makedirs(self.checkpoint_dir, exist_ok=True)
+                save_step(os.path.join(self.checkpoint_dir, f"step_{k}"), k=k, x=x, b=b,
+                          v_prev=v_prev, **state)
 
 
 def _checkerboard_ordered(
     n, dim, refinements, smoothing_steps, tolerance, xi, cond_field, seed, dtype,
     coarse, coarse_dense_limit, max_cycles, verbose, smoother, shrink, solver_opts,
-    inner, device, device_mesh=None,
+    inner, device, out, resume=None, device_mesh=None,
 ):
     """Reference-order geometry (JAX checkerboard.py:356-573): prefix-slice
     domain shrinking with a plan and solver rebuild per outer step. With a
@@ -444,11 +521,21 @@ def _checkerboard_ordered(
     box_radius = compute_box_radius(0, n)
     boundary_layer = compute_boundary_layer(lam, n)
     total_radius = box_radius + boundary_layer
-    xi, cond_field, rng = _field_and_xi(dim, total_radius, xi, cond_field, seed)
+    xi, cond_field, rng = _field_and_xi(dim, total_radius, xi, cond_field, seed, resume)
 
     offset = np.full(dim, float(total_radius))  # field indexing uses R0
     base, node_norms, center_norms = ordered_hypercube(dim, total_radius)
+    if resume is not None:
+        # slice the ordered mesh down to the step file's (pre-shrink) domain
+        sigma, lam = resume["sigma"], resume["lam"]
+        box_radius, total_radius = resume["box_radius"], resume["total_radius"]
+        n_nodes = prefix_in_radius(node_norms, total_radius, eps=1e-12)
+        n_elems = prefix_in_radius(center_norms, total_radius)
+        base = Mesh(base.nodes[:n_nodes], base.elements[:n_elems])
+        node_norms = node_norms[:n_nodes]
+        center_norms = center_norms[:n_elems]
     sigma_el = conductivity_per_element(base, cond_field, offset)
+    out.conductivity(base, sigma_el)
 
     nlevels = refinements + 1
     plan = build_grid_plan(base, nlevels, slot_tables=False)
@@ -469,39 +556,48 @@ def _checkerboard_ordered(
     def to_dev(a):  # the solver's rows of a global element-leading array
         return to_dev_all(sol.rows_of(a))
 
-    # random consistent x with zero boundary values (:246-248)
-    x = to_dev(consistent_random(plan, nlevels - 1, rng))
-    b = to_dev(initial_rhs(plan, sigma_el, xi))
-    v_prev = None
+    if resume is None:
+        # random consistent x with zero boundary values (:246-248)
+        x = to_dev(consistent_random(plan, nlevels - 1, rng))
+        b = to_dev(initial_rhs(plan, sigma_el, xi))
+        v_prev, start_k = None, 0
+    else:
+        # the file's step is solved: its shrink runs, then the next step
+        x, b, v_prev, start_k = _resume_state(resume, to_dev)
+    coeff = setup = None
     trace = HomogenizationTrace(0.0, [], [], [])
     t_step = time.perf_counter()
     trace.init_seconds = t_step - t_start
 
-    for k in range(n + 1):
-        if verbose:
-            print(
-                f"[step {k}] domain [-{total_radius},{total_radius}]^{dim} "
-                f"box={box_radius} layer={boundary_layer} E={base.nelements} "
-                f"unknowns<= {plan.max_unknowns}",
-                flush=True,
+    for k in range(start_k, n + 1):
+        if resume is None or k != start_k:
+            if verbose:
+                print(
+                    f"[step {k}] domain [-{total_radius},{total_radius}]^{dim} "
+                    f"box={box_radius} layer={boundary_layer} E={base.nelements} "
+                    f"unknowns<= {plan.max_unknowns}",
+                    flush=True,
+                )
+            coeff = sol.coefficients(sigma_el, lam)
+            setup = sol.coarse_setup(sigma_el, lam)
+            lam_max = _lambda_max(sol, coeff)
+            n_box = prefix_in_radius(center_norms, box_radius)
+            mask = to_dev((np.arange(base.nelements) < n_box).astype(np.float64))
+            domain_area = float(area_fn(mask))
+            trace.setup_seconds.append(time.perf_counter() - t_step)
+            x, d_sigma, cycles, rn, secs = _solve_step(
+                sol, k, x, b, v_prev, coeff, setup, lam_max, mask, inner, first_fn,
+                terms_fn, sigma, domain_area, tolerance, max_cycles, verbose,
             )
-        coeff = sol.coefficients(sigma_el, lam)
-        setup = sol.coarse_setup(sigma_el, lam)
-        lam_max = _lambda_max(sol, coeff)
-        n_box = prefix_in_radius(center_norms, box_radius)
-        mask = to_dev((np.arange(base.nelements) < n_box).astype(np.float64))
-        domain_area = float(area_fn(mask))
-        trace.setup_seconds.append(time.perf_counter() - t_step)
-        x, d_sigma, cycles, rn, secs = _solve_step(
-            sol, k, x, b, v_prev, coeff, setup, lam_max, mask, inner, first_fn,
-            terms_fn, sigma, domain_area, tolerance, max_cycles, verbose,
-        )
-        t_step = time.perf_counter()
-        sigma += d_sigma
-        trace.sigma_steps.append(sigma)
-        trace.cycles_per_step.append(cycles)
-        trace.residuals.append(rn)
-        trace.iteration_seconds.append(secs)
+            t_step = time.perf_counter()
+            sigma += d_sigma
+            trace.sigma_steps.append(sigma)
+            trace.cycles_per_step.append(cycles)
+            trace.residuals.append(rn)
+            trace.iteration_seconds.append(secs)
+            out.step(k, plan, x, b, v_prev, sigma=sigma, lam=lam, box_radius=box_radius,
+                     total_radius=total_radius, cond_field=cond_field, xi=xi, n=n,
+                     refinements=refinements)
 
         # ---- shrink the domain (:297-340) --------------------------------
         lam /= 2.0
@@ -584,7 +680,7 @@ def _solve_step(sol, k, x, b, v_prev, coeff, setup, lam_max, mask, inner, first_
 def _checkerboard_lattice(
     n, dim, refinements, smoothing_steps, tolerance, xi, cond_field, seed, dtype,
     coarse, coarse_dense_limit, max_cycles, verbose, smoother, shrink, solver_opts,
-    inner, device, lattice_order=None, device_mesh=None,
+    inner, device, out, resume=None, lattice_order=None, device_mesh=None,
 ):
     """Lattice-geometry recurrence (JAX checkerboard.py:576-855): one
     full-box plan and ONE solver for the whole run; a shrink swaps the
@@ -599,7 +695,7 @@ def _checkerboard_lattice(
     boundary_layer = compute_boundary_layer(lam, n)
     total_radius = box_radius + boundary_layer
     R0 = total_radius
-    xi, cond_field, rng = _field_and_xi(dim, R0, xi, cond_field, seed)
+    xi, cond_field, rng = _field_and_xi(dim, R0, xi, cond_field, seed, resume)
 
     # type-major order single-device, cube-major for the slabs;
     # lattice_order overrides (the tests pin "cube" on one device so both
@@ -609,6 +705,7 @@ def _checkerboard_lattice(
     base = hypercube(dim, 2 * R0, origin=-np.full(dim, float(R0)), order=order)
     offset = np.full(dim, float(R0))
     sigma_el = conductivity_per_element(base, cond_field, offset)
+    out.conductivity(base, sigma_el)
 
     nlevels = refinements + 1
     plan = build_grid_plan(base, nlevels, slot_tables=False)
@@ -616,7 +713,7 @@ def _checkerboard_lattice(
     n_top = plan.n_local(nlevels - 1)
 
     # will any step actually shrink? (decides whether the coarse solve needs
-    # the masked global-space forms)
+    # the masked global-space forms; from R0, also on resume)
     lam_t, tot_t, shrinks = 1.0, R0, False
     for kk in range(n + 1):
         lam_t /= 2.0
@@ -672,49 +769,60 @@ def _checkerboard_lattice(
     def level_Ls(R):
         return [put_bool(level_norms(k2) < (R - 1e-9)) for k2 in range(nlevels)]
 
-    # initial state: random, interface-consistent (one device combine — the
-    # table-free form of rand! + broadcast_interfaces! + apply_constraint!,
-    # homogenized_coefficients.jl:246-248), zero on the boundary
-    x = sol._constrain(sol.combine(to_dev(rng.random((E, n_top)))), nlevels - 1)
-    b = to_dev(initial_rhs(plan, sigma_el, xi))
-    v_prev = None
+    if resume is None:
+        # initial state: random, interface-consistent (one device combine —
+        # the table-free form of rand! + broadcast_interfaces! +
+        # apply_constraint!, homogenized_coefficients.jl:246-248), zero on
+        # the boundary
+        x = sol._constrain(sol.combine(to_dev(rng.random((E, n_top)))), nlevels - 1)
+        b = to_dev(initial_rhs(plan, sigma_el, xi))
+        v_prev, start_k = None, 0
+    else:
+        # the file's step is solved: its shrink runs, then the next step
+        sigma, lam = resume["sigma"], resume["lam"]
+        box_radius, total_radius = resume["box_radius"], resume["total_radius"]
+        x, b, v_prev, start_k = _resume_state(resume, to_dev)
     trace = HomogenizationTrace(0.0, [], [], [])
     t_step = time.perf_counter()
     trace.init_seconds = t_step - t_start
 
-    for k in range(n + 1):
-        if verbose:
-            print(
-                f"[step {k}] domain [-{total_radius},{total_radius}]^{dim} "
-                f"(masked, full box [-{R0},{R0}]) box={box_radius} "
-                f"layer={boundary_layer} E={E} unknowns<= {plan.max_unknowns}",
-                flush=True,
+    for k in range(start_k, n + 1):
+        if resume is None or k != start_k:
+            if verbose:
+                print(
+                    f"[step {k}] domain [-{total_radius},{total_radius}]^{dim} "
+                    f"(masked, full box [-{R0},{R0}]) box={box_radius} "
+                    f"layer={boundary_layer} E={E} unknowns<= {plan.max_unknowns}",
+                    flush=True,
+                )
+            shrunk = total_radius < R0
+            Ls_k = level_Ls(total_radius) if shrunk else None
+            int_k = (
+                torch.as_tensor(node_norm < (total_radius - 1e-9), device=device)
+                if (shrunk and kind in ("cg", "mg"))
+                else None
             )
-        shrunk = total_radius < R0
-        Ls_k = level_Ls(total_radius) if shrunk else None
-        int_k = (
-            torch.as_tensor(node_norm < (total_radius - 1e-9), device=device)
-            if (shrunk and kind in ("cg", "mg"))
-            else None
-        )
-        coeff = sol.coefficients(sigma_el, lam)
-        setup = sol.coarse_setup(sigma_el, lam)
-        lam_max = _lambda_max(sol, coeff)
-        mask = to_dev((cnorm <= box_radius).astype(np.float64))
-        domain_area = float(area_fn(mask))
-        trace.setup_seconds.append(time.perf_counter() - t_step)
-        x, d_sigma, cycles, rn, secs = _solve_step(
-            sol, k, x, b, v_prev, coeff, setup, lam_max, mask, inner, first_fn,
-            terms_fn, sigma, domain_area, tolerance, max_cycles, verbose,
-            Ls=Ls_k, interior=int_k,
-        )
-        t_step = time.perf_counter()
-        del Ls_k, int_k
-        sigma += d_sigma
-        trace.sigma_steps.append(sigma)
-        trace.cycles_per_step.append(cycles)
-        trace.residuals.append(rn)
-        trace.iteration_seconds.append(secs)
+            coeff = sol.coefficients(sigma_el, lam)
+            setup = sol.coarse_setup(sigma_el, lam)
+            lam_max = _lambda_max(sol, coeff)
+            mask = to_dev((cnorm <= box_radius).astype(np.float64))
+            domain_area = float(area_fn(mask))
+            trace.setup_seconds.append(time.perf_counter() - t_step)
+            x, d_sigma, cycles, rn, secs = _solve_step(
+                sol, k, x, b, v_prev, coeff, setup, lam_max, mask, inner, first_fn,
+                terms_fn, sigma, domain_area, tolerance, max_cycles, verbose,
+                Ls=Ls_k, interior=int_k,
+            )
+            t_step = time.perf_counter()
+            del Ls_k, int_k
+            sigma += d_sigma
+            trace.sigma_steps.append(sigma)
+            trace.cycles_per_step.append(cycles)
+            trace.residuals.append(rn)
+            trace.iteration_seconds.append(secs)
+            out.step(k, plan, x, b, v_prev, sigma=sigma, lam=lam, box_radius=box_radius,
+                     total_radius=total_radius, cond_field=cond_field, xi=xi, n=n,
+                     refinements=refinements)
 
         # ---- schedule tail: lambda halving + masked shrink ----------------
         lam /= 2.0

@@ -12,8 +12,9 @@ host direct solve (``st1_example``, small demos).
 tests and for the TPU record's field: utils/fft_field.py::pinned_noise);
 without it the noise is drawn by a ``torch.Generator`` seeded with
 ``seed``, which gives another field than the JAX package's for that seed.
-``save=`` raises: VTK export is not ported yet (ROADMAP.md queue 1 item 11,
-utils/vtk.py).
+``save=`` writes a .vtu file (utils/vtk.py): the mesh with the solution
+and the field for ``st1_example``, the finest level's solution on the
+exploded grid for ``st1_multigrid``.
 """
 
 from __future__ import annotations
@@ -29,12 +30,6 @@ from ..mesh.grid import affine_maps, hypercube, interior_nodes
 from ..ops.plan import build_grid_plan
 from ..solver.multigrid import CHEBYSHEV_SMOOTHERS, MultigridSolver, resolve_device
 from ..utils.fft_field import st1_conductivity
-
-
-def _no_save(save):
-    if save:
-        raise NotImplementedError(
-            "save= is not ported yet: VTK export (ROADMAP.md queue 1 item 11, utils/vtk.py)")
 
 
 def conductivity_per_cell(mesh, field: np.ndarray) -> np.ndarray:
@@ -56,7 +51,6 @@ def st1_example(n: int = 32, dim: int = 2, lam: float = 1.0, p: float = 1.5, alp
     """
     import scipy.sparse.linalg as spl
 
-    _no_save(save)
     mesh = hypercube(dim, n)
     field = st1_conductivity(seed, n, dim, p=p, alpha=alpha, noise=noise, device=device)
     sigma_el = conductivity_per_cell(mesh, field.cpu().numpy())
@@ -66,6 +60,11 @@ def st1_example(n: int = 32, dim: int = 2, lam: float = 1.0, p: float = 1.5, alp
     ii = interior_nodes(mesh)
     u = np.zeros(mesh.nnodes)
     u[ii] = spl.spsolve(A[np.ix_(ii, ii)].tocsc(), b[ii])
+
+    if save:
+        from ..utils.vtk import write_vtu
+
+        write_vtu(save, mesh, point_data={"x": u}, cell_data={"sigma": sigma_el})
     return mesh, u, sigma_el
 
 
@@ -106,7 +105,6 @@ def st1_multigrid(
     Returns (residual_history, x_finest, solver, sigma_el); history[0] is
     the initial residual norm, for both methods.
     """
-    _no_save(save)
     dev = resolve_device(device)
     clock = {} if timings is None else timings
 
@@ -168,4 +166,9 @@ def st1_multigrid(
     lap("solve_s", t)
     if events is not None:
         clock["solve_events_s"] = events[0].elapsed_time(events[1]) / 1e3
+
+    if save:
+        from ..utils.vtk import export_solution
+
+        export_solution(save, plan, refinements, x)
     return history, x, solver, sigma_el

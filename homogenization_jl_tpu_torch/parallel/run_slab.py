@@ -16,7 +16,7 @@ x and r as numpy).
 On cards, one process per card:
 
     torchrun --nproc-per-node=S -m homogenization_jl_tpu_torch.parallel.run_slab \\
-        [--n 32] [--levels 5] [--cycles 3] [--smoother chebyshev] [--compare]
+        [--cubes 32] [--levels 5] [--cycles 3] [--smoother chebyshev] [--compare]
 
 prints rank 0's result as one JSON line (``--device cpu`` runs gloo ranks
 on the CPU instead). In-process with a world of one
@@ -35,7 +35,17 @@ run_mixed_pcg.py, the JAX script's ``MIXED_SLAB=S``).
 On cards the mixed-precision run is
 
     torchrun --nproc-per-node=S -m homogenization_jl_tpu_torch.parallel.run_slab \\
-        --kind mixed [--n 32] [--levels 5] [--iters 30] [--tol 1e-10] [--compare]
+        --kind mixed [--cubes 32] [--levels 5] [--iters 30] [--tol 1e-10] [--compare]
+
+and the gather-sharded solver's are ``--kind sharded`` (float64 V-cycles on
+``sharded_problem``, ``run_sharded``) and ``--kind ordered_driver`` (the
+ordered driver with ``--cubes`` its n, ``--levels`` refinements + 1, seed 0,
+inner="pcg" for the Chebyshev smoothers, else "vcycle"; ``--tol`` its
+tolerance); ``--coarse`` (default "chol", as run_slab_big.py) picks the
+coarse solve of every kind but mixed, ``--dim`` the dimension (3), and
+``--compare`` adds the single-device run on rank 0. ``--cubes`` is ``--n``
+under a name that torchrun does not take for an abbreviation of its own
+options (torch 2.11's refuses ``--n`` after the module).
 """
 
 from __future__ import annotations
@@ -60,7 +70,7 @@ from ..ops.integrals import integrals_fns
 from ..ops.plan import build_grid_plan
 from ..solver.multigrid import CHEBYSHEV_SMOOTHERS, MultigridSolver
 from .group import SlabGroup
-from .sharding import ShardedMultigridSolver
+from .sharding import ShardedMultigridSolver, join_rows
 from .slab import SlabShardedMultigridSolver
 
 
@@ -191,50 +201,84 @@ def sharded_problem(dim: int, n: int, nlevels: int, seed: int = 3):
     return plan, sigma, detJ[:, None] * load_vector(plan.reference.levels[nlevels - 1])[None, :]
 
 
-def run_sharded(group: SlabGroup, dim: int, n: int, nlevels: int, mode: str = "vcycle", *,
-                lam: float = 0.0, seed: int = 3, cycles: int = 3, iters: int = 8,
-                tol: float = 1e-8, solver_opts: dict | None = None) -> dict:
-    """One rank of the gather-sharded solver on ``sharded_problem`` in
-    float64: ``mode`` "vcycle" (``cycles`` V-cycles from zero, the residual
-    norm after each), "pcg" (``iters`` PCG iterations from zero), "fmg"
-    (one FMG start) or "solve" (``solve(tol=tol)``). Returns the rank's rows
-    of x (and r), the residual norms and, for the Chebyshev smoothers, the
-    lambda_max estimate."""
-    plan, sigma, b_np = sharded_problem(dim, n, nlevels, seed)
-    s = ShardedMultigridSolver(plan, group, dtype=torch.float64, **(solver_opts or {}))
-    out = dict(rank=group.rank, rows=s.n_rows, cross_slots=[s.cross_slots(k) for k in range(nlevels)])
-    b = s.put(b_np)
+def _sharded_mode(s, b_np, sigma, lam, mode, cycles, iters, tol):
+    """``run_sharded``'s solve on the solver ``s``: (x, r or None, the
+    residual norms, lambda_max or None)."""
+    b = torch.as_tensor(np.ascontiguousarray(s.rows_of(b_np), dtype=s._np_dtype), device=s.device)
     if mode == "solve":
         x, hist = s.solve(b, sigma, lam, tol=tol)
-        return dict(out, x=x.cpu().numpy(), hist=hist)
+        return x, None, hist, None
     coeff = s.coefficients(sigma, lam)
     setup = s.coarse_setup(sigma, lam)
     lam_max = None
     if s.smoother in CHEBYSHEV_SMOOTHERS:
-        lam_max = out["lam_max"] = s.estimate_lambda_max(coeff)
+        lam_max = s.estimate_lambda_max(coeff)
     if mode == "pcg":
         x, hist = s.pcg(b, coeff, setup, lam_max=lam_max, iters=iters)
-        return dict(out, x=x.cpu().numpy(), hist=hist)
+        return x, None, hist, lam_max
     if mode == "fmg":
         x, r = s.fmg(b, coeff, setup, lam_max=lam_max)
-        return dict(out, x=x.cpu().numpy(), r=r.cpu().numpy(), hist=[float(s.residual_norm(r))])
+        return x, r, [float(s.residual_norm(r))], lam_max
     x, _ = s.zero_states()
     hist = []
     for _ in range(cycles):
         x, r = s.vcycle(x, b, coeff, setup, lam_max=lam_max)
         hist.append(float(s.residual_norm(r)))
-    return dict(out, x=x.cpu().numpy(), r=r.cpu().numpy(), hist=hist)
+    return x, r, hist, lam_max
 
 
-def run_ordered_driver(group: SlabGroup, **kwargs) -> dict:
-    """The ordered driver with ``device_mesh=group`` on one rank."""
+def run_sharded(group: SlabGroup, dim: int, n: int, nlevels: int, mode: str = "vcycle", *,
+                lam: float = 0.0, seed: int = 3, cycles: int = 3, iters: int = 8,
+                tol: float = 1e-8, solver_opts: dict | None = None,
+                compare: bool = False) -> dict:
+    """One rank of the gather-sharded solver on ``sharded_problem`` in
+    float64: ``mode`` "vcycle" (``cycles`` V-cycles from zero, the residual
+    norm after each), "pcg" (``iters`` PCG iterations from zero), "fmg"
+    (one FMG start) or "solve" (``solve(tol=tol)``). Returns the rank's rows
+    of x (and r), the residual norms and, for the Chebyshev smoothers, the
+    lambda_max estimate, and the hand kernels' launches of the solve.
+    ``compare`` (rank 0) adds the single-device solver's norms on the same
+    problem and the largest difference of its x from the joined sharded x,
+    relative to its largest |x| (every rank joins)."""
+    plan, sigma, b_np = sharded_problem(dim, n, nlevels, seed)
+    s = ShardedMultigridSolver(plan, group, dtype=torch.float64, **(solver_opts or {}))
+    out = dict(rank=group.rank, rows=s.n_rows, cross_slots=[s.cross_slots(k) for k in range(nlevels)])
+    before = dict(LAUNCHES)
+    x, r, hist, lam_max = _sharded_mode(s, b_np, sigma, lam, mode, cycles, iters, tol)
+    out.update(x=x.cpu().numpy(), hist=hist,
+               launches={k: v - before[k] for k, v in LAUNCHES.items()})
+    if r is not None:
+        out["r"] = r.cpu().numpy()
+    if lam_max is not None:
+        out["lam_max"] = lam_max
+    if compare:
+        x_all = join_rows(group, x, plan.base.nelements)
+        if group.rank == 0:
+            single = MultigridSolver(plan, dtype=torch.float64, device=group.device,
+                                     **(solver_opts or {}))
+            x1, _, h1, _ = _sharded_mode(single, b_np, sigma, lam, mode, cycles, iters, tol)
+            out.update(hist_single=h1, x_rel_diff=float(
+                (x_all - x1).abs().max() / x1.abs().max().clamp_min(1e-300)))
+    return out
+
+
+def run_ordered_driver(group: SlabGroup, compare: bool = False, **kwargs) -> dict:
+    """The ordered driver with ``device_mesh=group`` on one rank, with the
+    hand kernels' launches of the run; with ``compare`` (rank 0) the
+    single-device driver's sigma from the same arguments beside it."""
     from ..models.checkerboard import checkerboard_homogenization
 
+    before = dict(LAUNCHES)
     sigma, trace = checkerboard_homogenization(
         geometry="ordered", device_mesh=group, return_trace=True, **kwargs
     )
-    return dict(sigma=sigma, sigma_steps=trace.sigma_steps,
-                cycles_per_step=trace.cycles_per_step, residuals=trace.residuals)
+    out = dict(rank=group.rank, sigma=sigma, sigma_steps=trace.sigma_steps,
+               cycles_per_step=trace.cycles_per_step, residuals=trace.residuals,
+               launches={k: v - before[k] for k, v in LAUNCHES.items()})
+    if compare and group.rank == 0:
+        single = checkerboard_homogenization(geometry="ordered", device=group.device, **kwargs)
+        out.update(sigma_single=single, sigma_rel_err=abs(sigma - single) / abs(single))
+    return out
 
 
 def mixed_pair(plan, make):
@@ -365,15 +409,27 @@ def spawn_ranks(size: int, job: dict, timeout: float = 300.0) -> list:
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="slab-sharded V-cycles (one process per card)")
-    ap.add_argument("--kind", choices=("run", "mixed"), default="run",
-                    help="run: V-cycles (run); mixed: mixed-precision PCG (run_mixed)")
-    ap.add_argument("--n", type=int, default=32, help="cubes per axis")
-    ap.add_argument("--levels", type=int, default=5)
+    ap = argparse.ArgumentParser(description="the sharded solvers' runs (one process per card)")
+    ap.add_argument("--kind", choices=("run", "mixed", "sharded", "ordered_driver"),
+                    default="run",
+                    help="run: slab V-cycles (run); mixed: mixed-precision PCG on slabs "
+                    "(run_mixed); sharded: gather-sharded V-cycles (run_sharded); "
+                    "ordered_driver: the ordered driver on the gather-sharded solver")
+    # --cubes: torchrun (torch 2.11) refuses --n after the module as an
+    # ambiguous abbreviation of its own options
+    ap.add_argument("--n", "--cubes", dest="n", type=int, default=32,
+                    help="cubes per axis (ordered_driver: the driver's n)")
+    ap.add_argument("--levels", type=int, default=5,
+                    help="levels (ordered_driver: refinements + 1)")
+    ap.add_argument("--dim", type=int, default=3)
     ap.add_argument("--cycles", type=int, default=3)
     ap.add_argument("--smoother", default="cg")
+    ap.add_argument("--coarse", default="chol",
+                    help="run, sharded, ordered_driver: the coarse solve")
     ap.add_argument("--iters", type=int, default=30, help="mixed: PCG iterations at most")
-    ap.add_argument("--tol", type=float, default=1e-10, help="mixed: relative tolerance")
+    ap.add_argument("--tol", type=float, default=None,
+                    help="mixed: relative tolerance (1e-10); ordered_driver: the driver's "
+                    "tolerance (1e-4)")
     ap.add_argument("--compare", action="store_true",
                     help="also run the single-device solver on rank 0")
     ap.add_argument("--device", default=None,
@@ -382,11 +438,22 @@ def main(argv=None):
     group = SlabGroup.from_env(device=args.device)
     try:
         if args.kind == "mixed":
-            out = run_mixed(group, 3, args.n, args.levels, iters=args.iters, tol=args.tol,
-                            compare=args.compare)
+            out = run_mixed(group, args.dim, args.n, args.levels, iters=args.iters,
+                            tol=1e-10 if args.tol is None else args.tol, compare=args.compare)
+        elif args.kind == "sharded":
+            out = run_sharded(group, args.dim, args.n, args.levels, cycles=args.cycles,
+                              solver_opts=dict(smoother=args.smoother, coarse=args.coarse),
+                              compare=args.compare)
+            del out["x"], out["r"]
+        elif args.kind == "ordered_driver":
+            out = run_ordered_driver(
+                group, compare=args.compare, n=args.n, dim=args.dim,
+                refinements=args.levels - 1, tolerance=1e-4 if args.tol is None else args.tol,
+                smoother=args.smoother, coarse=args.coarse, seed=0,
+                inner="pcg" if args.smoother in CHEBYSHEV_SMOOTHERS else "vcycle")
         else:
-            out = run(group, args.n, args.levels, args.cycles, smoother=args.smoother,
-                      compare=args.compare)
+            out = run(group, args.n, args.levels, args.cycles, dim=args.dim,
+                      smoother=args.smoother, coarse=args.coarse, compare=args.compare)
     finally:
         SlabGroup.destroy()
     if out["rank"] == 0:

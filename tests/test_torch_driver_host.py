@@ -1,6 +1,6 @@
 """The host layer of the port's homogenization driver against the JAX
 package's copy (array for array), the entry points' device default, the
-arguments that are not ported yet, and an import check of the driver's
+arguments the driver refuses, and an import check of the driver's
 modules with jax blocked.
 
 The schedule, the ordered mesh and its radius queries, the initial
@@ -117,11 +117,8 @@ def test_entry_points_default_to_the_card():
         # refuses is an inner solve, as the JAX driver does
         (dict(solver="multishift", inner="pcg", smoother="chebyshev"), ValueError,
          "multishift"),
-        (dict(checkpoint_dir="ckpt"), NotImplementedError, "ROADMAP"),
-        (dict(resume_from="step_0.npz"), NotImplementedError, "ROADMAP"),
-        (dict(save_level=1), NotImplementedError, "ROADMAP"),
     ],
-    ids=["device_mesh", "multishift", "checkpoint_dir", "resume_from", "save_level"],
+    ids=["device_mesh", "multishift"],
 )
 def test_unported_arguments_raise(kw, exc, match):
     with pytest.raises(exc, match=match):

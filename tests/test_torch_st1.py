@@ -117,11 +117,7 @@ def test_st1_multigrid_matches_jax(method):
     assert _rel(st, sj) <= 1e-6
 
 
-def test_save_is_not_ported_and_the_card_is_the_default(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_st1.st1_multigrid(n=4, save="out", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_st1.st1_example(n=4, save="out", device="cpu")
+def test_the_field_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_ff.generate_field(0, (4, 4))
