@@ -33,7 +33,10 @@ the residual norms kept on the device and read once after it. The
 headline is the mean of ``BENCH_CYCLES`` V-cycles after two warm-up
 cycles; the solve's seconds per iteration the mean of its iterations after
 the fourth (bench.py's differences of two runs, 2 and 2 + cycles, 4 and
-max); ``detail`` has every repeat and their spread. The TPU parent's queue
+max); ``detail`` has every repeat and their spread. ``sec_to_1e3/1e4``
+add the FMG start's own seconds (CUDA events around the second of two
+FMG calls) to the iterations' (bench.py adds 1.14 V-cycles, a TPU
+measurement). The TPU parent's queue
 guard and timeout ladder (bench.py:48-104) are not ported, so
 ``degraded`` is always null. ``BENCH_DEVICE=cpu`` runs on the CPU (for the
 tests; host clock, no card numbers).
@@ -51,8 +54,6 @@ import torch
 
 REFERENCE_CPU_DOF_PER_S = 1.7e7
 METRIC = "gmg_vcycle_dof_per_s_per_chip_3d_checkerboard"
-# measured fine-V-cycle equivalents of the FMG start (3D, nu=1; bench.py)
-FMG_SWEEPS = 1.14
 PRECISION_RUN = "fp32 CUDA cores"
 PRECISION_NOTE = (
     "every precision knob (apply, smooth, restrict, krylov) runs full FP32 on the "
@@ -225,11 +226,15 @@ def main():
         )
         flexible = ps.coarse_kind not in ("chol", "inv")
         if solve_mode == "fmg_pcg":
+            ps.fmg(b, coeff, chol, lam_max=lam_max)  # warm-up
+            clock = Clock(dev)
+            clock.mark()
             x0, _ = ps.fmg(b, coeff, chol, lam_max=lam_max)
-            fmg_sweeps = FMG_SWEEPS
+            clock.mark()
+            (fmg_s,) = clock.seconds()
         else:
             x0, _ = ps.zero_states()
-            fmg_sweeps = 0.0
+            fmg_s = 0.0
 
         def run_pcg(count):
             """PCG from x0 (not modified): the initial norm, per-step seconds
@@ -250,7 +255,6 @@ def main():
         timed = secs_p[4:] if len(secs_p) > 4 else secs_p
         dt_pcg = sum(timed) / len(timed)
         it3, it4 = iters_to(hist_p, 1e-3), iters_to(hist_p, 1e-4)
-        fmg_s = fmg_sweeps * dt
         star.update(
             iters_to_1e3=it3,
             sec_to_1e3=None if it3 is None else fmg_s + it3 * dt_pcg,

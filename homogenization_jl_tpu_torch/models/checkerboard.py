@@ -77,6 +77,7 @@ from ..ops.plan import build_grid_plan
 from ..solver.coarse import coarsening_depth
 from ..solver.multigrid import CHEBYSHEV_SMOOTHERS, MultigridSolver, resolve_device
 from ..utils.checkpoint import load_step, save_step
+from ..utils.logging import span
 from ..utils.vtk import export_conductivity, export_solution, level_columns
 
 
@@ -276,9 +277,10 @@ def _inner_loop(k, step_once, integral, sigma, domain_area, tolerance, max_cycle
     seconds = []
     t_prev = time.perf_counter()
     for i in range(max_cycles):
-        step_once()
-        cycles += 1
-        d_sigma = 2.0**k * float(integral()) / domain_area
+        with span("hz.driver.iteration"):
+            step_once()
+            cycles += 1
+            d_sigma = 2.0**k * float(integral()) / domain_area
         t_now = time.perf_counter()
         seconds.append(t_now - t_prev)
         if verbose:
@@ -516,74 +518,76 @@ def _checkerboard_ordered(
     ``device_mesh`` (SlabGroup) each step's solver is the gather-sharded
     one and every element-leading array is cut to the rank's rows."""
     t_start = time.perf_counter()
-    lam = 1.0
-    sigma = 0.0
-    box_radius = compute_box_radius(0, n)
-    boundary_layer = compute_boundary_layer(lam, n)
-    total_radius = box_radius + boundary_layer
-    xi, cond_field, rng = _field_and_xi(dim, total_radius, xi, cond_field, seed, resume)
+    with span("hz.driver.init"):
+        lam = 1.0
+        sigma = 0.0
+        box_radius = compute_box_radius(0, n)
+        boundary_layer = compute_boundary_layer(lam, n)
+        total_radius = box_radius + boundary_layer
+        xi, cond_field, rng = _field_and_xi(dim, total_radius, xi, cond_field, seed, resume)
 
-    offset = np.full(dim, float(total_radius))  # field indexing uses R0
-    base, node_norms, center_norms = ordered_hypercube(dim, total_radius)
-    if resume is not None:
-        # slice the ordered mesh down to the step file's (pre-shrink) domain
-        sigma, lam = resume["sigma"], resume["lam"]
-        box_radius, total_radius = resume["box_radius"], resume["total_radius"]
-        n_nodes = prefix_in_radius(node_norms, total_radius, eps=1e-12)
-        n_elems = prefix_in_radius(center_norms, total_radius)
-        base = Mesh(base.nodes[:n_nodes], base.elements[:n_elems])
-        node_norms = node_norms[:n_nodes]
-        center_norms = center_norms[:n_elems]
-    sigma_el = conductivity_per_element(base, cond_field, offset)
-    out.conductivity(base, sigma_el)
+        offset = np.full(dim, float(total_radius))  # field indexing uses R0
+        base, node_norms, center_norms = ordered_hypercube(dim, total_radius)
+        if resume is not None:
+            # slice the ordered mesh down to the step file's (pre-shrink) domain
+            sigma, lam = resume["sigma"], resume["lam"]
+            box_radius, total_radius = resume["box_radius"], resume["total_radius"]
+            n_nodes = prefix_in_radius(node_norms, total_radius, eps=1e-12)
+            n_elems = prefix_in_radius(center_norms, total_radius)
+            base = Mesh(base.nodes[:n_nodes], base.elements[:n_elems])
+            node_norms = node_norms[:n_nodes]
+            center_norms = center_norms[:n_elems]
+        sigma_el = conductivity_per_element(base, cond_field, offset)
+        out.conductivity(base, sigma_el)
 
-    nlevels = refinements + 1
-    plan = build_grid_plan(base, nlevels, slot_tables=False)
+        nlevels = refinements + 1
+        plan = build_grid_plan(base, nlevels, slot_tables=False)
 
-    group = device_mesh
+        group = device_mesh
 
-    def make_solver(plan):
-        sol = _make_solver(
-            plan, dtype, device, smoothing_steps, coarse, coarse_dense_limit,
-            smoother, solver_opts, group,
-        )
-        _, _, detJ_np, _ = affine_maps(plan.base)
-        return sol, _solver_integrals(sol, detJ_np, group)
+        def make_solver(plan):
+            sol = _make_solver(
+                plan, dtype, device, smoothing_steps, coarse, coarse_dense_limit,
+                smoother, solver_opts, group,
+            )
+            _, _, detJ_np, _ = affine_maps(plan.base)
+            return sol, _solver_integrals(sol, detJ_np, group)
 
-    to_dev_all = _to_device(dtype, device)
-    sol, (area_fn, first_fn, terms_fn, next_rhs_fn) = make_solver(plan)
+        to_dev_all = _to_device(dtype, device)
+        sol, (area_fn, first_fn, terms_fn, next_rhs_fn) = make_solver(plan)
 
-    def to_dev(a):  # the solver's rows of a global element-leading array
-        return to_dev_all(sol.rows_of(a))
+        def to_dev(a):  # the solver's rows of a global element-leading array
+            return to_dev_all(sol.rows_of(a))
 
-    if resume is None:
-        # random consistent x with zero boundary values (:246-248)
-        x = to_dev(consistent_random(plan, nlevels - 1, rng))
-        b = to_dev(initial_rhs(plan, sigma_el, xi))
-        v_prev, start_k = None, 0
-    else:
-        # the file's step is solved: its shrink runs, then the next step
-        x, b, v_prev, start_k = _resume_state(resume, to_dev)
-    coeff = setup = None
+        if resume is None:
+            # random consistent x with zero boundary values (:246-248)
+            x = to_dev(consistent_random(plan, nlevels - 1, rng))
+            b = to_dev(initial_rhs(plan, sigma_el, xi))
+            v_prev, start_k = None, 0
+        else:
+            # the file's step is solved: its shrink runs, then the next step
+            x, b, v_prev, start_k = _resume_state(resume, to_dev)
+        coeff = setup = None
     trace = HomogenizationTrace(0.0, [], [], [])
     t_step = time.perf_counter()
     trace.init_seconds = t_step - t_start
 
     for k in range(start_k, n + 1):
         if resume is None or k != start_k:
-            if verbose:
-                print(
-                    f"[step {k}] domain [-{total_radius},{total_radius}]^{dim} "
-                    f"box={box_radius} layer={boundary_layer} E={base.nelements} "
-                    f"unknowns<= {plan.max_unknowns}",
-                    flush=True,
-                )
-            coeff = sol.coefficients(sigma_el, lam)
-            setup = sol.coarse_setup(sigma_el, lam)
-            lam_max = _lambda_max(sol, coeff)
-            n_box = prefix_in_radius(center_norms, box_radius)
-            mask = to_dev((np.arange(base.nelements) < n_box).astype(np.float64))
-            domain_area = float(area_fn(mask))
+            with span("hz.driver.step_setup"):
+                if verbose:
+                    print(
+                        f"[step {k}] domain [-{total_radius},{total_radius}]^{dim} "
+                        f"box={box_radius} layer={boundary_layer} E={base.nelements} "
+                        f"unknowns<= {plan.max_unknowns}",
+                        flush=True,
+                    )
+                coeff = sol.coefficients(sigma_el, lam)
+                setup = sol.coarse_setup(sigma_el, lam)
+                lam_max = _lambda_max(sol, coeff)
+                n_box = prefix_in_radius(center_norms, box_radius)
+                mask = to_dev((np.arange(base.nelements) < n_box).astype(np.float64))
+                domain_area = float(area_fn(mask))
             trace.setup_seconds.append(time.perf_counter() - t_step)
             x, d_sigma, cycles, rn, secs = _solve_step(
                 sol, k, x, b, v_prev, coeff, setup, lam_max, mask, inner, first_fn,
@@ -689,124 +693,126 @@ def _checkerboard_lattice(
     ``device_mesh`` (SlabGroup) the solver is the slab-sharded one and every
     element-leading array is cut to the rank's rows."""
     t_start = time.perf_counter()
-    lam = 1.0
-    sigma = 0.0
-    box_radius = compute_box_radius(0, n)
-    boundary_layer = compute_boundary_layer(lam, n)
-    total_radius = box_radius + boundary_layer
-    R0 = total_radius
-    xi, cond_field, rng = _field_and_xi(dim, R0, xi, cond_field, seed, resume)
+    with span("hz.driver.init"):
+        lam = 1.0
+        sigma = 0.0
+        box_radius = compute_box_radius(0, n)
+        boundary_layer = compute_boundary_layer(lam, n)
+        total_radius = box_radius + boundary_layer
+        R0 = total_radius
+        xi, cond_field, rng = _field_and_xi(dim, R0, xi, cond_field, seed, resume)
 
-    # type-major order single-device, cube-major for the slabs;
-    # lattice_order overrides (the tests pin "cube" on one device so both
-    # runs see the same element order, the same random start and the same
-    # sigma to 1e-9)
-    order = lattice_order or ("cube" if device_mesh is not None else "type")
-    base = hypercube(dim, 2 * R0, origin=-np.full(dim, float(R0)), order=order)
-    offset = np.full(dim, float(R0))
-    sigma_el = conductivity_per_element(base, cond_field, offset)
-    out.conductivity(base, sigma_el)
+        # type-major order single-device, cube-major for the slabs;
+        # lattice_order overrides (the tests pin "cube" on one device so both
+        # runs see the same element order, the same random start and the same
+        # sigma to 1e-9)
+        order = lattice_order or ("cube" if device_mesh is not None else "type")
+        base = hypercube(dim, 2 * R0, origin=-np.full(dim, float(R0)), order=order)
+        offset = np.full(dim, float(R0))
+        sigma_el = conductivity_per_element(base, cond_field, offset)
+        out.conductivity(base, sigma_el)
 
-    nlevels = refinements + 1
-    plan = build_grid_plan(base, nlevels, slot_tables=False)
-    E = base.nelements
-    n_top = plan.n_local(nlevels - 1)
+        nlevels = refinements + 1
+        plan = build_grid_plan(base, nlevels, slot_tables=False)
+        E = base.nelements
+        n_top = plan.n_local(nlevels - 1)
 
-    # will any step actually shrink? (decides whether the coarse solve needs
-    # the masked global-space forms; from R0, also on resume)
-    lam_t, tot_t, shrinks = 1.0, R0, False
-    for kk in range(n + 1):
-        lam_t /= 2.0
-        br = compute_box_radius(kk + 1, n)
-        bl = compute_boundary_layer(lam_t, n)
-        if br + bl > tot_t:
-            break
-        if shrink and br + bl < tot_t:
-            shrinks = True
-            tot_t = br + bl
+        # will any step actually shrink? (decides whether the coarse solve needs
+        # the masked global-space forms; from R0, also on resume)
+        lam_t, tot_t, shrinks = 1.0, R0, False
+        for kk in range(n + 1):
+            lam_t /= 2.0
+            br = compute_box_radius(kk + 1, n)
+            bl = compute_boundary_layer(lam_t, n)
+            if br + bl > tot_t:
+                break
+            if shrink and br + bl < tot_t:
+                shrinks = True
+                tot_t = br + bl
 
-    kind = coarse
-    can_mg = coarsening_depth(base, 4000) > 0
-    if kind == "mg" and not can_mg:
-        kind = "cg"
-    if kind in ("chol", "inv") and (
-        len(plan.interior_base_nodes) > coarse_dense_limit or shrinks
-    ):
-        # chol/inv factor the FULL-box interior; shrunken steps solve the
-        # sub-box operator, which only the global-space cg/mg forms mask
-        kind = "mg" if can_mg else "cg"
+        kind = coarse
+        can_mg = coarsening_depth(base, 4000) > 0
+        if kind == "mg" and not can_mg:
+            kind = "cg"
+        if kind in ("chol", "inv") and (
+            len(plan.interior_base_nodes) > coarse_dense_limit or shrinks
+        ):
+            # chol/inv factor the FULL-box interior; shrunken steps solve the
+            # sub-box operator, which only the global-space cg/mg forms mask
+            kind = "mg" if can_mg else "cg"
 
-    opts = dict(dtype=dtype, smoothing_steps=smoothing_steps, coarse=kind,
-                smoother=smoother, **(solver_opts or {}))
-    if device_mesh is None:
-        sol = MultigridSolver(plan, device=device, **opts)
-    else:
-        from ..parallel.slab import SlabShardedMultigridSolver
+        opts = dict(dtype=dtype, smoothing_steps=smoothing_steps, coarse=kind,
+                    smoother=smoother, **(solver_opts or {}))
+        if device_mesh is None:
+            sol = MultigridSolver(plan, device=device, **opts)
+        else:
+            from ..parallel.slab import SlabShardedMultigridSolver
 
-        sol = SlabShardedMultigridSolver(plan, device_mesh, **opts)
-    if sol.combine_kind != "structured":
-        raise AssertionError("the lattice geometry needs the structured combine")
-    _, _, detJ_np, _ = affine_maps(base)
-    area_fn, first_fn, terms_fn, next_rhs_fn = _solver_integrals(sol, detJ_np, device_mesh)
+            sol = SlabShardedMultigridSolver(plan, device_mesh, **opts)
+        if sol.combine_kind != "structured":
+            raise AssertionError("the lattice geometry needs the structured combine")
+        _, _, detJ_np, _ = affine_maps(base)
+        area_fn, first_fn, terms_fn, next_rhs_fn = _solver_integrals(sol, detJ_np, device_mesh)
 
-    to_dev_all = _to_device(dtype, device)
+        to_dev_all = _to_device(dtype, device)
 
-    def to_dev(a):  # the solver's rows of a global element-leading array
-        return to_dev_all(sol.rows_of(a))
+        def to_dev(a):  # the solver's rows of a global element-leading array
+            return to_dev_all(sol.rows_of(a))
 
-    def put_bool(a):
-        return torch.as_tensor(sol.rows_of(a), device=device)
+        def put_bool(a):
+            return torch.as_tensor(sol.rows_of(a), device=device)
 
-    cnorm = np.abs(base.nodes[base.elements].mean(axis=1)).max(axis=1)
-    node_norm = np.abs(base.nodes).max(axis=1)
-    dof_norms = [None] * nlevels
+        cnorm = np.abs(base.nodes[base.elements].mean(axis=1)).max(axis=1)
+        node_norm = np.abs(base.nodes).max(axis=1)
+        dof_norms = [None] * nlevels
 
-    def level_norms(k2):
-        if dof_norms[k2] is None:
-            dof_norms[k2] = lattice_dof_norms(plan, k2)
-        return dof_norms[k2]
+        def level_norms(k2):
+            if dof_norms[k2] is None:
+                dof_norms[k2] = lattice_dof_norms(plan, k2)
+            return dof_norms[k2]
 
-    def level_Ls(R):
-        return [put_bool(level_norms(k2) < (R - 1e-9)) for k2 in range(nlevels)]
+        def level_Ls(R):
+            return [put_bool(level_norms(k2) < (R - 1e-9)) for k2 in range(nlevels)]
 
-    if resume is None:
-        # initial state: random, interface-consistent (one device combine —
-        # the table-free form of rand! + broadcast_interfaces! +
-        # apply_constraint!, homogenized_coefficients.jl:246-248), zero on
-        # the boundary
-        x = sol._constrain(sol.combine(to_dev(rng.random((E, n_top)))), nlevels - 1)
-        b = to_dev(initial_rhs(plan, sigma_el, xi))
-        v_prev, start_k = None, 0
-    else:
-        # the file's step is solved: its shrink runs, then the next step
-        sigma, lam = resume["sigma"], resume["lam"]
-        box_radius, total_radius = resume["box_radius"], resume["total_radius"]
-        x, b, v_prev, start_k = _resume_state(resume, to_dev)
+        if resume is None:
+            # initial state: random, interface-consistent (one device combine —
+            # the table-free form of rand! + broadcast_interfaces! +
+            # apply_constraint!, homogenized_coefficients.jl:246-248), zero on
+            # the boundary
+            x = sol._constrain(sol.combine(to_dev(rng.random((E, n_top)))), nlevels - 1)
+            b = to_dev(initial_rhs(plan, sigma_el, xi))
+            v_prev, start_k = None, 0
+        else:
+            # the file's step is solved: its shrink runs, then the next step
+            sigma, lam = resume["sigma"], resume["lam"]
+            box_radius, total_radius = resume["box_radius"], resume["total_radius"]
+            x, b, v_prev, start_k = _resume_state(resume, to_dev)
     trace = HomogenizationTrace(0.0, [], [], [])
     t_step = time.perf_counter()
     trace.init_seconds = t_step - t_start
 
     for k in range(start_k, n + 1):
         if resume is None or k != start_k:
-            if verbose:
-                print(
-                    f"[step {k}] domain [-{total_radius},{total_radius}]^{dim} "
-                    f"(masked, full box [-{R0},{R0}]) box={box_radius} "
-                    f"layer={boundary_layer} E={E} unknowns<= {plan.max_unknowns}",
-                    flush=True,
+            with span("hz.driver.step_setup"):
+                if verbose:
+                    print(
+                        f"[step {k}] domain [-{total_radius},{total_radius}]^{dim} "
+                        f"(masked, full box [-{R0},{R0}]) box={box_radius} "
+                        f"layer={boundary_layer} E={E} unknowns<= {plan.max_unknowns}",
+                        flush=True,
+                    )
+                shrunk = total_radius < R0
+                Ls_k = level_Ls(total_radius) if shrunk else None
+                int_k = (
+                    torch.as_tensor(node_norm < (total_radius - 1e-9), device=device)
+                    if (shrunk and kind in ("cg", "mg"))
+                    else None
                 )
-            shrunk = total_radius < R0
-            Ls_k = level_Ls(total_radius) if shrunk else None
-            int_k = (
-                torch.as_tensor(node_norm < (total_radius - 1e-9), device=device)
-                if (shrunk and kind in ("cg", "mg"))
-                else None
-            )
-            coeff = sol.coefficients(sigma_el, lam)
-            setup = sol.coarse_setup(sigma_el, lam)
-            lam_max = _lambda_max(sol, coeff)
-            mask = to_dev((cnorm <= box_radius).astype(np.float64))
-            domain_area = float(area_fn(mask))
+                coeff = sol.coefficients(sigma_el, lam)
+                setup = sol.coarse_setup(sigma_el, lam)
+                lam_max = _lambda_max(sol, coeff)
+                mask = to_dev((cnorm <= box_radius).astype(np.float64))
+                domain_area = float(area_fn(mask))
             trace.setup_seconds.append(time.perf_counter() - t_step)
             x, d_sigma, cycles, rn, secs = _solve_step(
                 sol, k, x, b, v_prev, coeff, setup, lam_max, mask, inner, first_fn,

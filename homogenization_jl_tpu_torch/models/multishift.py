@@ -39,6 +39,7 @@ from ..ops.plan import build_grid_plan
 from ..ops.recurrence import basis_accumulate, basis_combine
 from ..solver.cg import cg, multishift_cg
 from ..solver.multigrid import MultigridSolver, resolve_device
+from ..utils.logging import host_read, span, spanned
 
 
 def shifted_family_solve(solver: MultigridSolver, coeff_diffusion, b, shifts, iters: int = 200,
@@ -60,6 +61,7 @@ def shifted_family_solve(solver: MultigridSolver, coeff_diffusion, b, shifts, it
     return multishift_cg(matvec, b, shifts, iters=iters, dot=solver.levels[k].first_copy_mask)
 
 
+@spanned("hz.estimate")
 def homogenization_multishift(
     n: int = 2,
     dim: int = 2,
@@ -108,121 +110,124 @@ def homogenization_multishift(
     )
 
     t_start = time.perf_counter()
-    dev = resolve_device(device)
-    lam = 1.0
-    box_radius = compute_box_radius(0, n)
-    R0 = box_radius + compute_boundary_layer(lam, n)
-    if xi is None:
-        xi = np.ones(dim) / np.sqrt(dim)
-    rng = np.random.default_rng(seed)
-    if cond_field is None:
-        cond_field = generate_conductivity(dim, 2 * R0, rng)
+    with span("hz.estimate_setup"):
+        dev = resolve_device(device)
+        lam = 1.0
+        box_radius = compute_box_radius(0, n)
+        R0 = box_radius + compute_boundary_layer(lam, n)
+        if xi is None:
+            xi = np.ones(dim) / np.sqrt(dim)
+        rng = np.random.default_rng(seed)
+        if cond_field is None:
+            cond_field = generate_conductivity(dim, 2 * R0, rng)
 
-    base, _, center_norms = ordered_hypercube(dim, R0)
-    sigma_el = conductivity_per_element(base, cond_field, np.full(dim, float(R0)))
-    nlevels = refinements + 1
-    plan = build_grid_plan(base, nlevels, slot_tables=False)
-    solver = MultigridSolver(plan, dtype=dtype, device=dev, coarse="cg")
-    kf = nlevels - 1
-    w = solver.levels[kf].first_copy_mask
-    bm = solver._bmask(kf)
+        base, _, center_norms = ordered_hypercube(dim, R0)
+        sigma_el = conductivity_per_element(base, cond_field, np.full(dim, float(R0)))
+        nlevels = refinements + 1
+        plan = build_grid_plan(base, nlevels, slot_tables=False)
+        solver = MultigridSolver(plan, dtype=dtype, device=dev, coarse="cg")
+        kf = nlevels - 1
+        w = solver.levels[kf].first_copy_mask
+        bm = solver._bmask(kf)
 
-    def to_dev(a):
-        return torch.as_tensor(np.asarray(a)).to(dtype).contiguous().to(dev)
+        def to_dev(a):
+            return torch.as_tensor(np.asarray(a)).to(dtype).contiguous().to(dev)
 
-    coeff_A = solver.coefficients(sigma_el, 0.0)  # the pure -div a grad part
-    mass = solver.levels[kf].stack[-1].contiguous()
-    mass_stack = mass[None]
-    mass_table = stack_table(mass_stack)  # the mass's nonzeros (K1, K14b)
-    _, _, detJ_np, _ = affine_maps(base)
-    detJ = to_dev(detJ_np)
-    detJ_col = detJ[:, None].contiguous()
-    area_fn, first_fn, terms_fn, _ = integrals_fns(mass, detJ)
+        coeff_A = solver.coefficients(sigma_el, 0.0)  # the pure -div a grad part
+        mass = solver.levels[kf].stack[-1].contiguous()
+        mass_stack = mass[None]
+        mass_table = stack_table(mass_stack)  # the mass's nonzeros (K1, K14b)
+        _, _, detJ_np, _ = affine_maps(base)
+        detJ = to_dev(detJ_np)
+        detJ_col = detJ[:, None].contiguous()
+        area_fn, first_fn, terms_fn, _ = integrals_fns(mass, detJ)
 
-    stats = {"A_applies": 0, "M_applies": 0}
+        stats = {"A_applies": 0, "M_applies": 0}
 
-    def Aop(v):
-        stats["A_applies"] += 1
-        return solver._combine(solver._apply_constrained(v, coeff_A, kf), kf)
+        def Aop(v):
+            stats["A_applies"] += 1
+            return solver._combine(solver._apply_constrained(v, coeff_A, kf), kf)
 
-    def Mop(v):
-        # combine(constrain(detJ_e Mhat v_e)): K1 with the one-piece stack
-        y = element_apply(v, detJ_col, mass_stack, mask=bm, table=mass_table)
-        return solver._combine(y if bm is not None else solver._constrain(y, kf), kf)
+        def Mop(v):
+            # combine(constrain(detJ_e Mhat v_e)): K1 with the one-piece stack
+            y = element_apply(v, detJ_col, mass_stack, mask=bm, table=mass_table)
+            return solver._combine(y if bm is not None else solver._constrain(y, kf), kf)
 
-    def dot_M(u, v):
-        # the exact global M-inner product sum_e u_e' (detJ_e Mhat) v_e (K14b)
-        return k9_dot_M(u, v, mass, detJ, table=mass_table)
+        def dot_M(u, v):
+            # the exact global M-inner product sum_e u_e' (detJ_e Mhat) v_e (K14b)
+            return k9_dot_M(u, v, mass, detJ, table=mass_table)
 
-    def scalar(value):
-        return torch.tensor(value, dtype=dtype, device=dev)
+        def scalar(value):
+            return torch.tensor(value, dtype=dtype, device=dev)
 
-    b0 = to_dev(initial_rhs(plan, sigma_el, xi))
-    b0c = solver._constrain(solver._combine(b0, kf), kf)
+        b0 = to_dev(initial_rhs(plan, sigma_el, xi))
+        b0c = solver._constrain(solver._combine(b0, kf), kf)
 
-    # Jacobi preconditioner of the mass solves: the assembled mass diagonal
-    # per duplicated slot, combine(detJ_e * diag(Mhat)) (K18, the combine)
-    inv_diag_M = inv_positive(
-        solver._combine(diagonal(detJ_col, torch.diagonal(mass)[None, :].contiguous()), kf))
+        # Jacobi preconditioner of the mass solves: the assembled mass diagonal
+        # per duplicated slot, combine(detJ_e * diag(Mhat)) (K18, the combine)
+        inv_diag_M = inv_positive(
+            solver._combine(diagonal(detJ_col, torch.diagonal(mass)[None, :].contiguous()), kf))
 
-    def Msolve(b):
-        x, it, _ = cg(Mop, b, tol=mass_tol, maxiter=400, dot=w, precond=inv_diag_M)
-        stats["M_applies"] += it + 1
-        return x
+        @spanned("hz.mass_solve")
+        def Msolve(b):
+            x, it, _ = cg(Mop, b, tol=mass_tol, maxiter=400, dot=w, precond=inv_diag_M)
+            stats["M_applies"] += it + 1
+            return x
 
-    def run_lanczos(consume, max_iters, out=None):
-        """One sweep of the M-inner-product Lanczos recurrence; calls
-        ``consume(j, v_j)`` as each basis vector appears, v_j written into
-        ``out(j)`` when that gives a buffer. Returns (beta0, alphas, betas).
-        Re-running with the same inputs reproduces the same bits."""
-        alphas, betas = [], []
-        slot = (lambda j: None) if out is None else out
-        q0 = Msolve(b0c)
-        beta0_ = float(np.sqrt(float(dot_M(q0, q0))))
-        v = div_nz(q0, scalar(beta0_), out=slot(0))
-        del q0
-        v_prev = None
-        consume(0, v)
-        beta_j = 0.0
-        for j in range(max_iters):
-            u = Msolve(Aop(v))  # M^{-1} A v
-            alpha_t = dot_M(u, v)  # = v' A v
-            alpha = float(alpha_t)
-            u = lanczos_update(u, v, v_prev, alpha_t, scalar(beta_j), out=u)
-            beta_next = float(np.sqrt(max(float(dot_M(u, u)), 0.0)))
-            alphas.append(alpha)
-            if beta_next <= 1e-300:
-                break
-            betas.append(beta_next)
-            v_prev, v = v, div_nz(u, scalar(beta_next), out=slot(j + 1))
-            consume(j + 1, v)
-            beta_j = beta_next
-        return beta0_, alphas, betas
+        def run_lanczos(consume, max_iters, out=None):
+            """One sweep of the M-inner-product Lanczos recurrence; calls
+            ``consume(j, v_j)`` as each basis vector appears, v_j written into
+            ``out(j)`` when that gives a buffer. Returns (beta0, alphas, betas).
+            Re-running with the same inputs reproduces the same bits."""
+            alphas, betas = [], []
+            slot = (lambda j: None) if out is None else out
+            q0 = Msolve(b0c)
+            beta0_ = float(np.sqrt(host_read(dot_M(q0, q0))))
+            v = div_nz(q0, scalar(beta0_), out=slot(0))
+            del q0
+            v_prev = None
+            consume(0, v)
+            beta_j = 0.0
+            for j in range(max_iters):
+                with span("hz.lanczos_step"):
+                    u = Msolve(Aop(v))  # M^{-1} A v
+                    alpha_t = dot_M(u, v)  # = v' A v
+                    alpha = host_read(alpha_t)
+                    u = lanczos_update(u, v, v_prev, alpha_t, scalar(beta_j), out=u)
+                    beta_next = float(np.sqrt(max(host_read(dot_M(u, u)), 0.0)))
+                    alphas.append(alpha)
+                    if beta_next <= 1e-300:
+                        break
+                    betas.append(beta_next)
+                    v_prev, v = v, div_nz(u, scalar(beta_next), out=slot(j + 1))
+                    consume(j + 1, v)
+                    beta_j = beta_next
+            return beta0_, alphas, betas
 
-    def tridiag(alphas, betas, m):
-        T = np.diag(np.array(alphas[:m]))
-        if m > 1:
-            off = np.array(betas[: m - 1])
-            T += np.diag(off, 1) + np.diag(off, -1)
-        return T
+        def tridiag(alphas, betas, m):
+            T = np.diag(np.array(alphas[:m]))
+            if m > 1:
+                off = np.array(betas[: m - 1])
+                T += np.diag(off, 1) + np.diag(off, -1)
+            return T
 
-    def coefficient_vectors(T, beta0_, m):
-        """The host's reduced recurrence: y_0 = (T + lam_0)^{-1} beta0 e1,
-        y_k = lam_k (T + lam_k)^{-1} y_{k-1}, one per executed step."""
-        ys = []
-        lam_r = 1.0
-        e1 = np.zeros(m)
-        e1[0] = beta0_
-        y = np.linalg.solve(T + lam_r * np.eye(m), e1)
-        ys.append(y)
-        for k in range(n + 1):
-            lam_r /= 2.0
-            box_r = compute_box_radius(k + 1, n)
-            if box_r + compute_boundary_layer(lam_r, n) > R0:
-                break
-            y = lam_r * np.linalg.solve(T + lam_r * np.eye(m), y)
+        def coefficient_vectors(T, beta0_, m):
+            """The host's reduced recurrence: y_0 = (T + lam_0)^{-1} beta0 e1,
+            y_k = lam_k (T + lam_k)^{-1} y_{k-1}, one per executed step."""
+            ys = []
+            lam_r = 1.0
+            e1 = np.zeros(m)
+            e1[0] = beta0_
+            y = np.linalg.solve(T + lam_r * np.eye(m), e1)
             ys.append(y)
-        return ys
+            for k in range(n + 1):
+                lam_r /= 2.0
+                box_r = compute_box_radius(k + 1, n)
+                if box_r + compute_boundary_layer(lam_r, n) > R0:
+                    break
+                y = lam_r * np.linalg.solve(T + lam_r * np.eye(m), y)
+                ys.append(y)
+            return ys
 
     t_lanczos = time.perf_counter()
     stats["setup_seconds"] = t_lanczos - t_start
@@ -234,7 +239,8 @@ def homogenization_multishift(
         m = len(alphas)
         T = tridiag(alphas, betas, m)
         ys = coefficient_vectors(T, beta0, m)
-        vks = basis_combine(V[:m], to_dev(np.stack(ys)))
+        with span("hz.basis_combine"):
+            vks = basis_combine(V[:m], to_dev(np.stack(ys)))
         del V
     else:
         # pass 1: scalars only, no basis storage
@@ -247,7 +253,8 @@ def homogenization_multishift(
         vks = torch.empty((len(ys),) + tuple(b0.shape), dtype=dtype, device=dev)
 
         def accumulate(j, v):
-            basis_accumulate(vks, v, Yt[j], first=j == 0)
+            with span("hz.basis_combine"):
+                basis_accumulate(vks, v, Yt[j], first=j == 0)
 
         # m - 1 iterations regenerate exactly v_0 .. v_{m-1}
         beta0_2, _, _ = run_lanczos(accumulate, m - 1)
@@ -260,20 +267,21 @@ def homogenization_multishift(
     sigma = 0.0
     sigma_steps = []
     v_km1 = None
-    for k in range(vks.shape[0]):
-        v_k = vks[k]
-        n_box = prefix_in_radius(center_norms, box_radius)
-        mask = to_dev((np.arange(base.nelements) < n_box).astype(np.float64))
-        area = float(area_fn(mask))
-        if k == 0:
-            integral = float(first_fn(v_k, b0, mask))
-        else:
-            integral = float(terms_fn(v_k, v_km1, mask))
-        sigma += 2.0**k * integral / area
-        sigma_steps.append(sigma)
-        lam /= 2.0
-        box_radius = compute_box_radius(k + 1, n)
-        v_km1 = v_k
+    with span("hz.sigma_integrals"):
+        for k in range(vks.shape[0]):
+            v_k = vks[k]
+            n_box = prefix_in_radius(center_norms, box_radius)
+            mask = to_dev((np.arange(base.nelements) < n_box).astype(np.float64))
+            area = host_read(area_fn(mask))
+            if k == 0:
+                integral = host_read(first_fn(v_k, b0, mask))
+            else:
+                integral = host_read(terms_fn(v_k, v_km1, mask))
+            sigma += 2.0**k * integral / area
+            sigma_steps.append(sigma)
+            lam /= 2.0
+            box_radius = compute_box_radius(k + 1, n)
+            v_km1 = v_k
 
     if return_stats:
         stats["sigma_steps"] = sigma_steps

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..csrc.build import LAUNCHES, launch
+from ..utils.logging import span
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 # storage codes of a half-width operand (csrc/widen.cuh); which of them a
@@ -183,7 +184,8 @@ def element_apply(x, coeff, stack, b=None, out=None, rowsum=None, mask=None, tab
     """
     if x.dtype not in _DTYPES:
         raise TypeError(f"element_apply: unsupported dtype {x.dtype}")
-    return _apply(x, coeff, stack, b, out, rowsum, mask, table, x.dtype)
+    with span("hz.op.element_apply"):
+        return _apply(x, coeff, stack, b, out, rowsum, mask, table, x.dtype)
 
 
 def element_apply_half(x, coeff, stack, b=None, out=None, rowsum=None, mask=None, table=None):
@@ -194,7 +196,8 @@ def element_apply_half(x, coeff, stack, b=None, out=None, rowsum=None, mask=None
     dt = getattr(coeff, "dtype", None)
     if dt not in _DTYPES or x.dtype not in NARROWER[dt]:
         raise TypeError(f"element_apply_half: x dtype {x.dtype} under a {dt} state")
-    return _apply(x, coeff, stack, b, out, rowsum, mask, table, dt)
+    with span("hz.op.element_apply"):
+        return _apply(x, coeff, stack, b, out, rowsum, mask, table, dt)
 
 
 def check_table(name, table, n, P, dtype, device):

@@ -36,6 +36,7 @@ from ..mesh.reference import (
     refined_reference,
     with_contiguous_interface_layout,
 )
+from ..utils.logging import spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -258,6 +259,7 @@ def _rows_in(rows: np.ndarray, table: np.ndarray) -> np.ndarray:
     return tk[pos_c] == rk
 
 
+@spanned("hz.plan")
 def build_grid_plan(
     base: Mesh, nlevels: int, dtype=np.float64, contiguous: bool = True,
     slot_tables: bool = True,

@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from ..csrc.build import LAUNCHES, current_stream, launch
+from ..utils.logging import spanned
 from .cg import safe_div
 from .dots import dot_plain, sum_scratch
 
@@ -90,6 +91,7 @@ def _check(fn, ref, tensors, scalars=()):
     return dev.type == "cuda"
 
 
+@spanned("hz.op.jacobi_cg_step")
 def jacobi_cg_step(x, r, p, Ap, d, w, num, den, r_out=None, x_zero=False):
     """K14a (module docstring): x and r (or ``r_out``, r then kept) updated
     in place, x unread when ``x_zero``; returns (z, rz, rs), z a new state

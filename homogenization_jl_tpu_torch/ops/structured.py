@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..csrc.build import LAUNCHES, launch
+from ..utils.logging import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -998,21 +999,23 @@ def combine_structured(x, st: StructuredTables, constrain: bool = False, mask=No
     tensors."""
     if constrain and mask is not None:
         raise ValueError("combine_structured: pass constrain=True or a mask, not both")
-    out = _structured_kernel(x, st, 1 if constrain else 0, mask)
-    if out is None:
-        out = combine_structured_plain(x, st, constrain)
-        return out if mask is None else out * mask
-    return out
+    with span("hz.op.combine_structured"):
+        out = _structured_kernel(x, st, 1 if constrain else 0, mask)
+        if out is None:
+            out = combine_structured_plain(x, st, constrain)
+            return out if mask is None else out * mask
+        return out
 
 
 def constrain_structured(x, st: StructuredTables):
     """Zero-Dirichlet constraint without a resident [E, n_local] mask:
     zeroes every copy of a boundary DOF. Kernel K2 (constraint mode) for
     CUDA tensors, the plain form for CPU tensors."""
-    out = _structured_kernel(x, st, 2)
-    if out is None:
-        return constrain_structured_plain(x, st)
-    return out
+    with span("hz.op.constrain_structured"):
+        out = _structured_kernel(x, st, 2)
+        if out is None:
+            return constrain_structured_plain(x, st)
+        return out
 
 
 def _slab_kernel(x, halo_lo, halo_hi, st: StructuredTables, x0, W, mode: int, mask=None):

@@ -9,7 +9,7 @@ on the duplicated [E, n_local] layout as well as on plain vectors.
 
 ``cg`` stops on the true residual, ||r||^2 <= tol^2 ||r_0||^2, as the JAX
 ``lax.while_loop``: a Python loop that reads one device scalar per
-iteration on the host. Besides the JAX function's callables it takes
+iteration on the host (``host_read``). Besides the JAX function's callables it takes
 tensors: ``dot`` a bool mask w (the first-copy dot sum(a * w * b), kernel
 K5) and ``precond`` the inverse diagonal d (the Jacobi multiply z = d * r).
 Each iteration is the mat-vec, the dot p . Ap, K10's step x += alpha p,
@@ -34,6 +34,7 @@ from ..ops.dots import dot as masked_dot
 from ..ops.elementwise import div_nz, lanczos_update, mul
 from ..ops.multishift import multishift_step
 from ..ops.recurrence import jacobi_cg_step
+from ..utils.logging import host_read
 
 
 def _as_dot(dot, ref):
@@ -84,7 +85,7 @@ def cg(matvec, b, x0=None, tol=1e-10, maxiter=200, dot=None, precond=None):
         rz = dotf(r, z)
     p = z  # may be r or b: the first direction update writes a new buffer
     i = 0
-    while i < maxiter and bool(rs > eps2):
+    while i < maxiter and host_read(rs > eps2, bool):
         Ap = matvec(p)
         pAp = dotf(p, Ap)
         first = i == 0

@@ -158,6 +158,7 @@ from ..ops.stencil import (
     lattice_weights,
 )
 from ..ops.transfer import build_transfer_tables, prolong_add, restrict
+from ..utils.logging import host_read, span, spanned
 from .coarse import build_coarse_geometry
 
 # the polynomial (dot-free, linear) smoothers: valid SPD V-cycle
@@ -171,6 +172,13 @@ _PRECISIONS = (None, "default", "high", "highest")
 # converge faster on the clustered top spectrum than the power iteration,
 # so a smaller margin suffices (the JAX package's values)
 _LAM_SAFETY = {"power": 1.15, "lanczos": 1.1}
+
+
+def _numpy(t):
+    """A device tensor's copy on the host, as a NumPy array (``host_read``)."""
+    return t.cpu().numpy()
+
+
 # direction_dtype's names, as jnp.dtype takes them
 _DIRECTION_NAMES = {
     "bfloat16": torch.bfloat16, "float16": torch.float16, "half": torch.float16,
@@ -274,6 +282,7 @@ class MultigridSolver:
     _rows: slice | None = None
     _lattice_window: tuple[int, int | None] = (0, None)
 
+    @spanned("hz.solver_init")
     def __init__(
         self,
         plan: GridPlan,
@@ -472,6 +481,7 @@ class MultigridSolver:
         holds (all of them by default)."""
         return a if self._rows is None else a[self._rows]
 
+    @spanned("hz.coefficients")
     def coefficients(self, sigma_el, lam: float):
         """[E, P] apply coefficients, shared by all levels."""
         c = element_coefficients(self.plan.base, sigma_el, lam, dtype=self._np_dtype)
@@ -499,6 +509,7 @@ class MultigridSolver:
         it is one GEMV — the aux hierarchy's coarse solve."""
         return torch.linalg.inv(self._interior_operator(sigma_el, lam)).to(self.dtype)
 
+    @spanned("hz.coarse_setup")
     def coarse_setup(self, sigma_el, lam: float):
         """Per-(sigma, lam) coarse payload passed to the cycles: the Cholesky
         factor ("chol"), the interior inverse ("inv"), None ("cg"), or an
@@ -747,7 +758,7 @@ class MultigridSolver:
         if it >= maxiter:
             return False
         self.host_syncs += 1
-        return bool(rs > eps2)
+        return host_read(rs > eps2, bool)
 
     def _eps2(self, tol, rs):
         """tol**2 * (rs + 1e-300) in the state dtype on the device, as the
@@ -765,6 +776,7 @@ class MultigridSolver:
         T = np.diag(a) + np.diag(b_, 1) + np.diag(b_, -1)
         return float(np.linalg.eigvalsh(T)[-1])
 
+    @spanned("hz.lambda_max")
     def estimate_lambda_max(self, coeff, k=None, iters: int = 30, seed: int = 0,
                             method: str = "lanczos"):
         """Estimate the largest eigenvalue of D^{-1} A on the constrained,
@@ -800,7 +812,7 @@ class MultigridSolver:
                 # vdot(v * w, y) / vdot(v * w, v), the mask fused (K5)
                 lam = self._vdot(v, y, mask=w) / self._vdot(v, v, mask=w)
                 v = div_nz(y, torch.sqrt(self._vdot(y, y, mask=w)), out=y)
-            return float(lam) * _LAM_SAFETY[method]
+            return host_read(lam) * _LAM_SAFETY[method]
 
         def ddot(a, b_):
             # vdot(a * w, d * b) with the mask and the scale fused (K5)
@@ -821,9 +833,8 @@ class MultigridSolver:
             beta_prev = beta
             alphas.append(alpha)
             betas.append(beta)
-        lam = self._lanczos_top(
-            torch.stack(alphas).cpu().numpy(), torch.stack(betas).cpu().numpy()
-        )
+        lam = self._lanczos_top(host_read(torch.stack(alphas), _numpy),
+                                host_read(torch.stack(betas), _numpy))
         return lam * _LAM_SAFETY[method]
 
     def estimate_lambda_max_levels(self, coeff, iters: int = 30, seed: int = 0):
@@ -1005,6 +1016,7 @@ class MultigridSolver:
         update_residual()
         return x, r_loc
 
+    @spanned("hz.coarse_solve")
     def _coarse_solve(self, b0, coeff, setup, interior=None):
         """Level-0 solve of the V-cycle / FMG: [E, d+1] local rhs -> [E, d+1]
         consistent solution, by the solver's ``coarse`` kind; ``interior``
@@ -1167,6 +1179,11 @@ class MultigridSolver:
         if k == 0:
             c.xs[0] = self._coarse_solve(c.bs[0], c.coeff, c.chol, c.interior)
             return None
+        with span(f"hz.level.{k}"):
+            return self._cycle_level_body(c, k, need_r, x_zero)
+
+    def _cycle_level_body(self, c, k, need_r, x_zero):
+        """Level k >= 1 of ``_cycle_level``, inside its span."""
         steps = self.smoothing_steps if k == c.top else self.coarse_smoothing_steps
         L = self.levels[k]
         kw = dict(k=k, steps=steps, Ls=c.Ls)
@@ -1230,7 +1247,7 @@ class MultigridSolver:
             return None
         if lam_max is None:
             raise ValueError("pass lam_max=estimate_lambda_max(coeff)")
-        a = lam_max.detach().cpu().numpy() if isinstance(lam_max, torch.Tensor) \
+        a = host_read(lam_max.detach(), _numpy) if isinstance(lam_max, torch.Tensor) \
             else np.asarray(lam_max)
         if a.ndim == 0:
             return float(a)
@@ -1289,6 +1306,7 @@ class MultigridSolver:
         cg_direction(p, z, p, num, rz)
         return x, r, p, rz_new, self._pcg_rnorm(r)
 
+    @spanned("hz.pcg")
     def pcg(self, b, coeff, chol=None, lam_max=None, x=None, *, iters: int = 50,
             tol: float = 0.0, Ls=None, interior=None, flexible: bool | None = None):
         """Solve A u = b by V-cycle-preconditioned CG; one V-cycle plus one
@@ -1301,10 +1319,10 @@ class MultigridSolver:
             coeff, chol, lam_max, flexible=flexible, Ls=Ls, interior=interior
         )
         state = init(b, x=x)
-        history = [float(state[4])]
+        history = [host_read(state[4])]
         for _ in range(iters):
             state = step(state)
-            history.append(float(state[4]))
+            history.append(host_read(state[4]))
             if tol and history[-1] <= tol * history[0]:
                 break
         return state[0], history
@@ -1332,15 +1350,17 @@ class MultigridSolver:
         interior = self._check_interior(interior)
 
         def init(b, x=None):
-            x = self.zero_states()[0] if x is None else x.clone()
-            return self._pcg_init_impl(x, b, coeff, chol, lam_max, Ls=Ls, interior=interior)
+            with span("hz.pcg_iter"):
+                x = self.zero_states()[0] if x is None else x.clone()
+                return self._pcg_init_impl(x, b, coeff, chol, lam_max, Ls=Ls, interior=interior)
 
         def step(state):
             x, r, p, rz, _ = state
-            return self._pcg_step_impl(
-                x, r, p, rz, coeff, chol, lam_max, flexible=flexible, Ls=Ls,
-                interior=interior,
-            )
+            with span("hz.pcg_iter"):
+                return self._pcg_step_impl(
+                    x, r, p, rz, coeff, chol, lam_max, flexible=flexible, Ls=Ls,
+                    interior=interior,
+                )
 
         return init, step
 
@@ -1361,6 +1381,7 @@ class MultigridSolver:
                 )
         return x, r
 
+    @spanned("hz.fmg")
     def fmg(self, b, coeff, chol=None, lam_max=None, nu: int = 1, Ls=None,
             interior=None):
         """Full-multigrid (F-cycle) initializer: restrict the rhs down the
@@ -1431,12 +1452,12 @@ def solve_driver(
     coeff = solver.coefficients(sigma_el, lam)
     setup = solver.coarse_setup(sigma_el, lam)
     lam_max = solver.estimate_lambda_max(coeff) if cheb else None
-    b_norm = float(solver.residual_norm(b))
+    b_norm = host_read(solver.residual_norm(b))
     if b_norm == 0.0:
         return (solver.zero_states()[0] if x is None else x), [0.0]
     if x is None and method in ("vcycle", "pcg"):
         x, _ = solver.zero_states()
-    history = [float(solver.initial_residual_norm(b, coeff, x=x)) / b_norm]
+    history = [host_read(solver.initial_residual_norm(b, coeff, x=x)) / b_norm]
     if verbose:
         print(f"initial: rel residual {history[0]:.3e}", flush=True)
     if history[0] <= tol:
@@ -1447,7 +1468,7 @@ def solve_driver(
             "ignore x=; drop x= or use method='pcg'/'vcycle'"
         )
         x, r = solver.fmg(b, coeff, setup, lam_max=lam_max)
-        history.append(float(solver.residual_norm(r)) / b_norm)
+        history.append(host_read(solver.residual_norm(r)) / b_norm)
         if verbose:
             print(f"fmg: rel residual {history[-1]:.3e}", flush=True)
     if method in ("pcg", "fmg+pcg"):
@@ -1463,7 +1484,7 @@ def solve_driver(
     else:
         while len(history) - 1 < max_cycles and history[-1] > tol:
             x, r = solver.vcycle(x, b, coeff, setup, lam_max=lam_max)
-            history.append(float(solver.residual_norm(r)) / b_norm)
+            history.append(host_read(solver.residual_norm(r)) / b_norm)
             if verbose:
                 print(f"cycle {len(history) - 1}: rel residual "
                       f"{history[-1]:.3e}", flush=True)
@@ -1635,14 +1656,14 @@ def mixed_precision_pcg(
 
     x = outer.zero_states()[0] if x is None else x.clone()
     x, r, p, rz, rn = init(x, b, setup)
-    history = [float(rn)]
+    history = [host_read(rn)]
     best_rn, worse = history[0], 0
     # the snapshot buffer; None until the first improving iterate
     x_buf = torch.empty_like(x) if keep_best else None
     x_best = None
     for _ in range(iters):
         x, r, p, rz, rn = step(x, r, p, rz, setup)
-        history.append(float(rn))
+        history.append(host_read(rn))
         if tol and history[-1] <= tol * history[0]:
             break
         if keep_best:
