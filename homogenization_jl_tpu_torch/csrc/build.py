@@ -67,11 +67,11 @@ _L = ctypes.c_longlong
 _D = ctypes.c_double
 # C entry points: name -> argtypes (every entry returns cudaGetLastError())
 _SIGNATURES = {
-    # dtype(0 f32, 1 f64), x, coeff, table cols, vals, counts, R, PP, b (or
-    # NULL), row sums (with b), mask (or NULL), out, E, n, P, stream
-    "hz_element_apply": [_I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P],
+    # dtype(0 f32, 1 f64), x, coeff, table slot words, slot values, R, PP,
+    # V, b (or NULL), row sums (with b), mask (or NULL), out, E, n, P, stream
+    "hz_element_apply": [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P],
     # dtype, xtype (0 f32, 2 bf16, 3 f16), then as hz_element_apply
-    "hz_element_apply_half": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _L, _I, _I,
+    "hz_element_apply_half": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _L, _I, _I,
                               _P],
     # dtype, x, out, mask (or NULL), E, n_local, i0, n, d, ept, type_major,
     # mode, tab, stream

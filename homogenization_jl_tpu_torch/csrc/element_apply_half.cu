@@ -16,14 +16,14 @@
 // 3 = float16. Otherwise as hz_element_apply. Returns cudaGetLastError(),
 // or cudaErrorInvalidValue for a pair or table it does not take.
 extern "C" int hz_element_apply_half(int dtype, int xtype, const void* x, const void* coeff,
-                                     const void* cols, const void* vals, const void* counts,
-                                     int R, int PP, const void* b, const void* rs,
+                                     const void* words, const void* values, int R, int PP,
+                                     int V, const void* b, const void* rs,
                                      const void* mask, void* out, long long E, int n, int P,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
-#define HZ_HALF(T, TX) \
-  err = launch_apply<T, TX>(x, coeff, cols, vals, counts, R, PP, b, rs, mask, out, E, n, P, s)
+#define HZ_HALF(T, TX)                                                                         \
+  err = launch_apply<T, TX>(x, coeff, words, values, R, PP, V, b, rs, mask, out, E, n, P, s)
   if (dtype == hz::F32 && xtype == hz::BF16)
     HZ_HALF(float, __nv_bfloat16);
   else if (dtype == hz::F32 && xtype == hz::F16)

@@ -1,8 +1,10 @@
-// The block layout shared by K1 (element_apply.cuh) and K9 (integrals.cu):
-// a block of G consecutive elements whose x rows sit in dynamic shared
-// memory, and the row table of a reference stack's nonzeros
-// (ops/apply.py::StackTable: cols [n, R], vals [n, R, PP], counts [n]) read
-// through L1.
+// K9's block layout (integrals.cu): a block of G consecutive elements whose
+// x rows sit in dynamic shared memory, and the row table of a reference
+// stack's nonzeros (ops/apply.py::StackTable: cols [n, R], vals [n, R, PP],
+// counts [n]) read through L1. ``stage_rows``, ``row_products``, the warp
+// items and ``rows_layout`` serve K9 only; K1 (element_apply.cuh), whose
+// first design they were, now runs its own pipeline and takes from here the
+// block shape (ROW_*) and ``allow_smem``.
 //
 // The G elements are cut into chunks of GC. A lane takes one output row m
 // of one chunk at a time and walks row m's real slots once for the GC

@@ -75,7 +75,14 @@ class StackTable:
     the pieces padded up to PP (1, 4 or a multiple of 8). ``counts`` (int32
     [n]): each row's slots before its pads (the kernels walk no pad slot).
     ``nnz``: the union's nonzeros; ``slice_nnz``: the sum of each slice's
-    own (the multiply-adds of one element's product)."""
+    own (the multiply-adds of one element's product).
+
+    ``slot_words`` and ``slot_values`` hold the same slots in K1's layout
+    (``slot_layout``), which its kernel keeps in shared memory: the V
+    distinct slot vectors, and per slot one word, its column and its
+    vector's index, in groups of ITEM_ROWS rows (a warp item's rows side by
+    side), each group's row counts after its R slots; both None for a stack
+    whose rows or vectors the 16-bit words cannot index (K1 refuses it)."""
 
     cols: torch.Tensor
     vals: torch.Tensor
@@ -83,13 +90,31 @@ class StackTable:
     pieces: int
     nnz: int
     slice_nnz: int
+    slot_words: torch.Tensor | None
+    slot_values: torch.Tensor | None
 
     def __post_init__(self):
         n, R = self.cols.shape if self.cols.dim() == 2 else (-1, -1)
+        PP = _padded_pieces(self.pieces)
         _check("table cols", self.cols, torch.int32, self.vals.device, (n, R))
-        _check("table vals", self.vals, self.vals.dtype, self.vals.device,
-               (n, R, _padded_pieces(self.pieces)))
+        _check("table vals", self.vals, self.vals.dtype, self.vals.device, (n, R, PP))
         _check("table counts", self.counts, torch.int32, self.vals.device, (n,))
+        if self.slot_words is None and self.slot_values is None:
+            return
+        VW = slot_width(PP, self.vals.element_size())
+        _check("table slot words", self.slot_words, torch.int32, self.vals.device,
+               (-(-n // ITEM_ROWS) * (R + 1) + 2, ITEM_ROWS))
+        V = self.slot_values.shape[1] if self.slot_values.dim() == 3 else -1
+        _check("table slot values", self.slot_values, self.vals.dtype, self.vals.device,
+               (PP // VW, V, VW))
+
+    @property
+    def n_values(self) -> int:
+        """V, the slot vectors K1 holds (``slot_values``, padded)."""
+        if self.slot_values is None:
+            raise ValueError("element_apply: the stack's rows or slot vectors exceed K1's "
+                             "16-bit slot words")
+        return self.slot_values.shape[1]
 
     @property
     def width(self) -> int:
@@ -98,6 +123,52 @@ class StackTable:
 
 def _padded_pieces(P: int) -> int:
     return 1 if P == 1 else (4 if P <= 4 else -(-P // 8) * 8)
+
+
+# the rows of a warp item of K1 (csrc/element_apply.cuh: APPLY_ROWS)
+ITEM_ROWS = 16
+
+
+def slot_width(PP: int, itemsize: int) -> int:
+    """The values of a slot vector that one 16-byte read of K1 takes: PP,
+    at most 16 bytes of them."""
+    return min(PP, 16 // itemsize)
+
+
+def slot_layout(cols, vals, counts):
+    """K1's layout of a row table (numpy cols [n, R], vals [n, R, PP],
+    counts [n]): ``slot_words`` [ng * (R + 1) + 2, ITEM_ROWS] and
+    ``slot_values`` [PP / VW, V, VW] (VW = ``slot_width``), or (None, None)
+    past 0xFFFF rows or 0x7FFF vectors.
+
+    Row m is row m % ITEM_ROWS of group m // ITEM_ROWS (ng = ceil(n /
+    ITEM_ROWS) groups, a warp item's rows). Word row g * (R + 1) + k holds
+    slot k of group g's rows side by side: a real slot's word is its column
+    | its vector's index << 16, a pad's 0; word row g * (R + 1) + R holds
+    the rows' counts (0 past n); two zero rows follow the last group (K1
+    reads two slots ahead). ``slot_values`` are the distinct vectors of the
+    real slots, ascending, padded with zero vectors to whole 16-byte
+    units."""
+    n, R, PP = vals.shape
+    VW = slot_width(PP, vals.itemsize)
+    real = np.arange(R)[None, :] < counts[:, None]
+    flat = np.ascontiguousarray(vals[real])
+    uniq, index = np.unique(flat.view(np.dtype((np.void, flat.itemsize * PP))).ravel(),
+                            return_inverse=True)
+    V = len(uniq)
+    unit = max(1, 16 // (PP * vals.itemsize))
+    Vp = max(-(-V // unit) * unit, unit)
+    if n > 0xFFFF or Vp > 0x7FFF:
+        return None, None
+    values = np.zeros((Vp, PP), dtype=vals.dtype)
+    values[:V] = uniq.view(vals.dtype).reshape(V, PP)
+    words = np.zeros((-(-n // ITEM_ROWS) * ITEM_ROWS, R + 1), dtype=np.int64)
+    words[:n, :R][real] = cols[real].astype(np.int64) | (index.reshape(-1).astype(np.int64) << 16)
+    words[:n, R] = counts
+    words = words.reshape(-1, ITEM_ROWS, R + 1).transpose(0, 2, 1).reshape(-1, ITEM_ROWS)
+    words = np.concatenate([words, np.zeros((2, ITEM_ROWS), dtype=np.int64)]).astype(np.int32)
+    values = values.reshape(Vp, PP // VW, VW).transpose(1, 0, 2)
+    return np.ascontiguousarray(words), np.ascontiguousarray(values)
 
 
 def stack_table(stack) -> StackTable:
@@ -122,10 +193,13 @@ def stack_table(stack) -> StackTable:
     vals = np.zeros((n, R, _padded_pieces(P)), dtype=S.dtype)
     vals[:, :, :P] = np.where(pad[..., None], 0, S[:, rows, cols].transpose(1, 2, 0))
     dev = stack.device
+    words, values = slot_layout(cols, vals, counts)
     return StackTable(
         cols=torch.as_tensor(cols, device=dev), vals=torch.as_tensor(vals, device=dev),
         counts=torch.as_tensor(counts.astype(np.int32), device=dev),
-        pieces=P, nnz=int(union.sum()), slice_nnz=int(nz.sum()))
+        pieces=P, nnz=int(union.sum()), slice_nnz=int(nz.sum()),
+        slot_words=None if words is None else torch.as_tensor(words, device=dev),
+        slot_values=None if values is None else torch.as_tensor(values, device=dev))
 
 
 def stack_rowsum(stack):
@@ -250,11 +324,12 @@ def _apply(x, coeff, stack, b, out, rowsum, mask, table, dt):
     if dev.type != "cuda":
         raise ValueError(f"element_apply: unsupported device {dev}")
     check_table("element_apply", table, n, P, dt, dev)
+    V = table.n_values  # raises where K1 cannot index the stack
     if out is None:
         out = torch.empty((E, n), dtype=dt, device=dev)
-    tail = (coeff.data_ptr(), table.cols.data_ptr(), table.vals.data_ptr(),
-            table.counts.data_ptr(), table.width,
-            table.vals.shape[2], None if b is None else b.data_ptr(),
+    tail = (coeff.data_ptr(), table.slot_words.data_ptr(), table.slot_values.data_ptr(),
+            table.width, table.vals.shape[2], V,
+            None if b is None else b.data_ptr(),
             None if b is None else rowsum.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(), E, n, P)
     if half:

@@ -207,6 +207,90 @@ def test_element_apply_kernel_matches_plain(plan, cuda, dtype):
         assert torch.equal(res, b)
 
 
+@pytest.fixture(scope="module")
+def level_stacks():
+    """The 3D reference stacks of levels 1-4 (n = 10, 35, 165, 969)."""
+    from homogenization_jl_tpu_torch.mesh.reference import refined_reference
+
+    return {op.n_local: op.stack for op in build_level_operators(refined_reference(3, 5))[1:]}
+
+
+def _pieces(stack, P):
+    """A stack of P pieces from a 7-piece one: its mass alone (PP = 1), its
+    first four (PP = 4), or all seven (PP = 8)."""
+    return {1: stack[-1:], 4: stack[:4], 7: stack}[P]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("P", [7, 4, 1])
+@pytest.mark.parametrize("n", [969, 165, 35, 10])
+def test_element_apply_kernel_forms(level_stacks, cuda, dtype, P, n):
+    """K1's pipeline in every form (plain, residual, each with and without
+    the mask) at every level width and piece count, at E = 1, 131 (fewer
+    steps than SMs) and 1,000 (not a multiple of a step), on an aligned x
+    and on views 4 and 8 bytes past a 16-byte boundary (the edges read from
+    device memory), within the plain form's tolerance and bitwise equal on
+    two launches; in place (out aliasing b) bitwise equal to out of place."""
+    rng = np.random.default_rng(n + P)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    stack = torch.as_tensor(_pieces(level_stacks[n], P), dtype=dtype, device=cuda)
+    tab = t_apply.stack_table(stack)
+    rs = t_apply.stack_rowsum(stack)
+    for E in (1, 131, 1000):
+        flat = torch.as_tensor(rng.standard_normal(E * n + 2), dtype=dtype, device=cuda)
+        b = torch.as_tensor(rng.standard_normal((E, n)), dtype=dtype, device=cuda)
+        coeff = torch.as_tensor(rng.uniform(0.5, 2.0, (E, P)), dtype=dtype, device=cuda)
+        mask = torch.as_tensor(rng.random((E, n)) < 0.7, device=cuda)
+        for lead in ((0, 1, 2) if dtype == torch.float32 else (0, 1)):
+            x = flat[lead:lead + E * n].view(E, n)
+            for bb in (None, b):
+                for m in (None, mask):
+                    got = t_apply.element_apply(x, coeff, stack, b=bb, rowsum=rs, mask=m, table=tab)
+                    again = t_apply.element_apply(x, coeff, stack, b=bb, rowsum=rs, mask=m,
+                                                  table=tab)
+                    ref = t_apply.element_apply_plain(x, coeff, stack, b=bb, rowsum=rs)
+                    if m is not None:
+                        ref = ref * m
+                    torch.cuda.synchronize()
+                    assert torch.equal(_bits(got), _bits(again)), (E, lead)
+                    err = torch.linalg.norm(got - ref)
+                    assert err <= tol * torch.linalg.norm(ref), (E, lead, bb is None, m is None)
+            want = t_apply.element_apply(x, coeff, stack, b=b, rowsum=rs, mask=mask, table=tab)
+            r = b.clone()
+            t_apply.element_apply(x, coeff, stack, b=r, out=r, rowsum=rs, mask=mask, table=tab)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(r), _bits(want)), (E, lead)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", [(torch.float32, torch.bfloat16), (torch.float32, torch.float16),
+                                  (torch.float64, torch.float32)], ids=str)
+@pytest.mark.parametrize("n", [969, 165])
+def test_element_apply_half_is_k1_on_the_widened_x(level_stacks, cuda, pair, n):
+    """K16: x stored narrower than the state lands in its own width and is
+    widened in the transposition: every form bitwise K1's on x cast up, on
+    an aligned x and on a view 2 bytes past a 16-byte boundary."""
+    dtype, xdtype = pair
+    rng = np.random.default_rng(n)
+    E = 1000
+    stack = torch.as_tensor(level_stacks[n], dtype=dtype, device=cuda)
+    tab = t_apply.stack_table(stack)
+    rs = t_apply.stack_rowsum(stack)
+    flat = torch.as_tensor(rng.standard_normal(E * n + 1), device=cuda).to(xdtype)
+    b = torch.as_tensor(rng.standard_normal((E, n)), dtype=dtype, device=cuda)
+    coeff = torch.as_tensor(rng.uniform(0.5, 2.0, (E, 7)), dtype=dtype, device=cuda)
+    mask = torch.as_tensor(rng.random((E, n)) < 0.7, device=cuda)
+    for lead in (0, 1):
+        x = flat[lead:lead + E * n].view(E, n)
+        for bb, m in ((None, None), (b, None), (b, mask), (None, mask)):
+            got = t_apply.element_apply_half(x, coeff, stack, b=bb, rowsum=rs, mask=m, table=tab)
+            ref = t_apply.element_apply(x.to(dtype), coeff, stack, b=bb, rowsum=rs, mask=m,
+                                        table=tab)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(got), _bits(ref)), (lead, bb is None, m is None)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_structured_combine_kernel_matches_plain(plan, cuda, dtype):
