@@ -16,7 +16,9 @@ Kernel K15 (csrc/mixed_boundary.cu) runs for CUDA tensors, in 16-byte
 vectors (entry by entry when an operand is a view whose address is not
 16-byte aligned): it gives the bits of the plain form (PyTorch's ``.to()``
 and a multiply), which runs for CPU tensors. It follows whichever combine
-the outer solver uses (K2, K8 or K11).
+the outer solver uses (K2, K8 or K11). Each call runs inside the span
+``hz.op.downcast_scale`` or ``hz.op.upcast`` (utils/logging.py), which the
+benchmark's K15 roofline reads.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..csrc.build import LAUNCHES, launch
+from ..utils.logging import span
 
 
 def downcast_scale_plain(c, s=None):
@@ -55,21 +58,24 @@ def downcast_scale(c, s=None):
     kern = _check("downcast_scale", c, torch.float64)
     if s is not None:
         _check("downcast_scale", s, torch.float32, c)
-    if not kern:
-        return downcast_scale_plain(c, s)
-    out = torch.empty(c.shape, dtype=torch.float32, device=c.device)
-    LAUNCHES["mixed_boundary"] += 1
-    launch("hz_downcast_scale", c.data_ptr(), None if s is None else s.data_ptr(),
-           out.data_ptr(), c.numel())
-    return out
+    with span("hz.op.downcast_scale"):
+        if not kern:
+            return downcast_scale_plain(c, s)
+        out = torch.empty(c.shape, dtype=torch.float32, device=c.device)
+        LAUNCHES["mixed_boundary"] += 1
+        launch("hz_downcast_scale", c.data_ptr(), None if s is None else s.data_ptr(),
+               out.data_ptr(), c.numel())
+        return out
 
 
 def upcast(z):
     """float64(z) of a contiguous float32 z. K15 for CUDA tensors, the plain
     form for CPU tensors."""
-    if not _check("upcast", z, torch.float32):
-        return upcast_plain(z)
-    out = torch.empty(z.shape, dtype=torch.float64, device=z.device)
-    LAUNCHES["mixed_boundary"] += 1
-    launch("hz_upcast", z.data_ptr(), out.data_ptr(), z.numel())
-    return out
+    kern = _check("upcast", z, torch.float32)
+    with span("hz.op.upcast"):
+        if not kern:
+            return upcast_plain(z)
+        out = torch.empty(z.shape, dtype=torch.float64, device=z.device)
+        LAUNCHES["mixed_boundary"] += 1
+        launch("hz_upcast", z.data_ptr(), out.data_ptr(), z.numel())
+        return out

@@ -1513,6 +1513,7 @@ class MixedSetup:
     lam_max_i: float  # the inner Chebyshev bound, rounded to the inner dtype
 
 
+@spanned("hz.mixed_setup")
 def mixed_precision_setup(outer: MultigridSolver, inner: MultigridSolver, sigma_el,
                           lam: float = 0.0) -> MixedSetup:
     """Precompute ``mixed_precision_pcg``'s per-coefficient state (both
@@ -1589,6 +1590,7 @@ def _mixed_pcg_impls(outer: MultigridSolver, inner: MultigridSolver):
     return init, step
 
 
+@spanned("hz.mixed_pcg")
 def mixed_precision_pcg(
     outer: MultigridSolver,
     inner: MultigridSolver,
@@ -1633,10 +1635,11 @@ def mixed_precision_pcg(
     is returned, not the start.
 
     ``setup=mixed_precision_setup(...)`` skips the per-coefficient
-    precompute (``sigma_el`` is then unused). Slab-sharded: pass two
-    ``SlabShardedMultigridSolver`` on one group; the Krylov state stays
-    sharded, the downcast runs on the halo-extended combine, every dot sums
-    over the ranks."""
+    precompute (``sigma_el`` is then unused). The call runs inside the span
+    ``hz.mixed_pcg``, each outer step with its residual read inside
+    ``hz.mixed_iter``. Slab-sharded: pass two ``SlabShardedMultigridSolver``
+    on one group; the Krylov state stays sharded, the downcast runs on the
+    halo-extended combine, every dot sums over the ranks."""
     _require(outer.plan is inner.plan, "solvers must share one GridPlan")
     _require(type(outer) is type(inner),
              "outer and inner must be the same solver kind (both single-device "
@@ -1662,8 +1665,9 @@ def mixed_precision_pcg(
     x_buf = torch.empty_like(x) if keep_best else None
     x_best = None
     for _ in range(iters):
-        x, r, p, rz, rn = step(x, r, p, rz, setup)
-        history.append(host_read(rn))
+        with span("hz.mixed_iter"):
+            x, r, p, rz, rn = step(x, r, p, rz, setup)
+            history.append(host_read(rn))
         if tol and history[-1] <= tol * history[0]:
             break
         if keep_best:

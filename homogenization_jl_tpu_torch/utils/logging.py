@@ -20,7 +20,8 @@ Their names (``hz.*``) are read by the benchmark's per-layer metrics: the
 layer boundaries of the solver (``hz.fmg``, ``hz.pcg``, ``hz.pcg_iter``,
 ``hz.level.<k>``, ``hz.coarse_solve``), its set-up (``hz.plan``,
 ``hz.solver_init``, ``hz.coefficients``, ``hz.coarse_setup``,
-``hz.lambda_max``), the multishift estimate (``hz.estimate``,
+``hz.lambda_max``), mixed-precision PCG (``hz.mixed_setup``,
+``hz.mixed_pcg``, ``hz.mixed_iter``), the multishift estimate (``hz.estimate``,
 ``hz.estimate_setup``, ``hz.lanczos_step``, ``hz.mass_solve``,
 ``hz.basis_combine``, ``hz.sigma_integrals``), the driver
 (``hz.driver.init``, ``hz.driver.step_setup``, ``hz.driver.iteration``),
